@@ -1,9 +1,10 @@
 """swtpu_torch — the PyTorch/CUDA port of swtpu for one NVIDIA H100.
 
-Exact int32 Smith-Waterman scoring and alignment of one pair, with the same
-public calls and the same answers as the JAX package ``swtpu``: max score,
-first row-major end cell, ``last_cell``, predecessor codes and alignment
-strings. On a CUDA device the fill runs hand-written CUDA kernels
+Exact int32 Smith-Waterman scoring and alignment of one pair, linear or
+affine gaps, match/mismatch or a substitution table such as BLOSUM62, with
+the same public calls and the same answers as the JAX package ``swtpu``:
+max score, first row-major end cell, ``last_cell``, predecessor codes and
+alignment strings. On a CUDA device the fill runs hand-written CUDA kernels
 (``csrc/stripe_fill.cu``); on the CPU it runs the PyTorch ``scan`` plan.
 
 This package imports torch and numpy and never JAX or ``swtpu``.

@@ -6,13 +6,19 @@
 ``--device`` picks the torch device (default ``cuda``; ``cpu`` runs the
 scan plan), ``--plan`` forces an execution plan, ``--skip-backtrack`` is
 the score-only benchmark mode and ``--debug`` prints H and the arrow
-predecessor matrix.
+predecessor matrix. ``--affine`` takes Gotoh gaps (``--gap-open``,
+``--gap-extend``); ``--blosum62`` aligns random 20-letter protein pairs
+from ``--seed`` under BLOSUM62 and needs explicit sizes, e.g.
+``python -m swtpu_torch 60 50 --blosum62 --affine --gap-open -11
+--gap-extend -1 --device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+import numpy as np
 
 
 def main(argv=None) -> int:
@@ -27,9 +33,17 @@ def main(argv=None) -> int:
     ap.add_argument("--plan", default=None,
                     choices=["auto", "stripe", "scan"],
                     help="execution plan (default: dispatch by device)")
+    ap.add_argument("--affine", action="store_true",
+                    help="affine gaps (Gotoh) instead of linear")
+    ap.add_argument("--blosum62", action="store_true",
+                    help="protein mode: random 20-letter sequences scored "
+                         "with BLOSUM62 (use with --affine --gap-open -11 "
+                         "--gap-extend -1 for standard protein params)")
     ap.add_argument("--match", type=int, default=3)
     ap.add_argument("--mismatch", type=int, default=-3)
     ap.add_argument("--gap", type=int, default=-2)
+    ap.add_argument("--gap-open", type=int, default=-4)
+    ap.add_argument("--gap-extend", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--debug", action="store_true",
                     help="print H and predecessor matrices (-DDEBUG analog)")
@@ -50,10 +64,24 @@ def main(argv=None) -> int:
         ap.error("matrix sizes must be positive")
     device = resolve_device(args.device)
     use_builtin = args.m is None or args.n is None
+    sub = None
+    alphabet_kw = {}
+    if args.blosum62:
+        from .core.encode import PROTEIN_ALPHABET
+        from .core.substitution import BLOSUM62
+        sub = BLOSUM62
+        alphabet_kw = {"alphabet": PROTEIN_ALPHABET}
+        if use_builtin:
+            ap.error("--blosum62 needs explicit sizes (protein inputs)")
     if use_builtin:
         a, b = BUILTIN_A, BUILTIN_B
         m, n = len(a), len(b)
         print("Using built-in data for testing ...")
+    elif args.blosum62:
+        m, n = args.m, args.n
+        rng = np.random.default_rng(args.seed)
+        a = rng.integers(0, 20, m).astype(np.int8)
+        b = rng.integers(0, 20, n).astype(np.int8)
     else:
         m, n = args.m, args.n
         a, b = random_pair(m, n, seed=args.seed)
@@ -61,9 +89,14 @@ def main(argv=None) -> int:
           f"~{memory_footprint_bytes(m, n, not args.skip_backtrack)/1e6:.1f}"
           f" MB working set) on {device}")
 
-    scoring = Scoring(match=args.match, mismatch=args.mismatch, gap=args.gap)
+    scoring = Scoring(
+        match=args.match, mismatch=args.mismatch, gap=args.gap,
+        gap_open=args.gap_open, gap_extend=args.gap_extend,
+        mode="affine" if args.affine else "linear",
+    )
     config = EngineConfig(traceback=not args.skip_backtrack)
-    kw = dict(scoring=scoring, config=config, plan=args.plan, device=device)
+    kw = dict(scoring=scoring, config=config, plan=args.plan, device=device,
+              substitution=sub, **alphabet_kw)
 
     # the first call on a card builds the kernels; keep it out of the times
     timer = PhaseTimer(device)
@@ -94,7 +127,7 @@ def main(argv=None) -> int:
         marked = oracle.mark_path(r.P, r.max_pos) if r.max_score > 0 else r.P
         sys.stdout.write(format_predecessor_matrix(marked))
 
-    if use_builtin:
+    if use_builtin and not args.affine:
         ok = (res.max_score == BUILTIN_MAX_SCORE
               and res.max_pos == BUILTIN_MAX_POS
               and res.last_cell == BUILTIN_LAST_CELL)

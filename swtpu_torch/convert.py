@@ -1,10 +1,12 @@
 """Carry the JAX package's run state into the port.
 
 Smith-Waterman has no weights: the state a run depends on is the scoring
-model and the engine configuration. ``scoring_from_jax`` and
-``config_from_jax`` read them by field name, from the JAX package's
-dataclasses or from a plain mapping of Python or numpy values, and return
-the port's dataclasses. Neither imports JAX or ``swtpu``.
+model, its substitution table, and the engine configuration.
+``scoring_from_jax`` and ``config_from_jax`` read the first and the last
+by field name, from the JAX package's dataclasses or from a plain mapping
+of Python or numpy values, and return the port's dataclasses;
+``substitution_from_jax`` takes a table as numpy. None of them imports JAX
+or ``swtpu``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any
 import numpy as np
 
 from .core.config import EngineConfig, Scoring
+from .core.substitution import check_table
 
 # EngineConfig fields of the JAX package that describe the TPU and its host
 # link, not the problem; dropped on the way in.
@@ -52,3 +55,10 @@ def config_from_jax(obj: Any) -> EngineConfig:
     """The port's ``EngineConfig`` from ``swtpu.EngineConfig`` or a
     mapping; the fields in ``TPU_ONLY_FIELDS`` are dropped."""
     return _convert(obj, EngineConfig, TPU_ONLY_FIELDS)
+
+
+def substitution_from_jax(table: Any) -> np.ndarray:
+    """The port's (A, A) int32 table from the JAX package's substitution
+    table (such as ``swtpu.core.substitution.BLOSUM62``) given as numpy.
+    Raises ValueError unless it is square, integer and within +-2^20."""
+    return check_table(table)

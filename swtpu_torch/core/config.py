@@ -36,7 +36,8 @@ class Scoring:
 
     ``mode='linear'`` is the reference's one gap penalty; ``mode='affine'``
     is the Gotoh H/E/F model (gap_open charged on opening, gap_extend per
-    extension). The port's fills run linear scoring only so far.
+    extension). The port's fills run both, with the match/mismatch compare
+    or with a substitution table (``align(..., substitution=...)``).
     """
 
     match: int = 3

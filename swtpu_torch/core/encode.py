@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 
 DNA_ALPHABET = "ACGT"
+# 20 amino acids + X, for the protein/BLOSUM path.
+PROTEIN_ALPHABET = "ARNDCQEGHILKMFPSTWYVX"
 
 
 def encode(seq: str, alphabet: str = DNA_ALPHABET) -> np.ndarray:

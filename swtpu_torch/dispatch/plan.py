@@ -2,7 +2,8 @@
 
 The port decides by the device of the request. On a CUDA device, a
 problem the stripe kernels take (``stripe_fill_supported``, the JAX
-package's gate) runs the ``stripe`` plan, the hand-written CUDA kernels;
+package's gates: negative penalties, or negative gaps with a substitution
+table) runs the ``stripe`` plan, the hand-written CUDA kernels;
 anything else runs the ``scan`` plan, as the JAX package does for a
 scoring its kernel rejects. On the CPU the ``scan`` plan runs.
 
@@ -31,9 +32,12 @@ class ExecPlan:
 
 def choose_exec(m: int, n: int, config: EngineConfig = EngineConfig(),
                 scoring: Scoring = Scoring(), traceback: bool = False,
-                device: torch.device = torch.device("cuda")) -> ExecPlan:
-    """Plan for a problem of m columns and n rows on ``device``."""
+                device: torch.device = torch.device("cuda"),
+                substitution=None) -> ExecPlan:
+    """Plan for a problem of m columns and n rows on ``device``;
+    ``substitution``: the (A, A) table, or None for match/mismatch."""
     if device.type == "cuda" and config.band is None \
-            and stripe_fill_supported(m, n, traceback, scoring):
+            and stripe_fill_supported(m, n, traceback, scoring,
+                                      substitution):
         return ExecPlan("stripe")
     return ExecPlan("scan")

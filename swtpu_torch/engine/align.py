@@ -6,6 +6,10 @@ PyTorch sweep, on any device); 'auto' lets ``dispatch.plan.choose_exec``
 decide. A request for ``device='cuda'`` on a machine without a card
 raises; it never carries on on the CPU.
 
+Scoring: linear or affine (Gotoh) gaps, with the match/mismatch compare or,
+given ``substitution=``, an (A, A) table S[a_code, b_code] such as
+``core.substitution.BLOSUM62`` (protein codes over ``PROTEIN_ALPHABET``).
+
 Traceback walks the full predecessor matrix P on the host
 (``oracle.backtrack``), the JAX package's exact route below
 ``full_p_max_cells``. Its lean routes above that cap (``windowed``,
@@ -23,8 +27,9 @@ import torch
 from ..core import oracle
 from ..core.config import EngineConfig, Scoring
 from ..core.encode import DNA_ALPHABET, encode
+from ..core.substitution import check_table
 from ..dispatch.plan import choose_exec
-from ..kernels.scan_fill import diag_to_rowmajor, scan_fill
+from ..kernels.scan_fill import diag_to_rowmajor, embed_table, scan_fill
 from ..kernels.stripe_fill import (stripe_fill, stripe_fill_supported,
                                    stripe_score)
 
@@ -94,16 +99,20 @@ def align(
     traceback: Optional[bool] = None,
     return_matrices: bool = False,
     plan: Optional[str] = None,
+    substitution: Optional[np.ndarray] = None,
     alphabet: str = DNA_ALPHABET,
     device: Union[str, torch.device] = "cuda",
 ) -> Alignment:
     """Align sequence ``a`` (columns, length m) against ``b`` (rows, length
-    n) on ``device``. Plans: 'stripe', 'scan', or None/'auto'."""
+    n) on ``device``. Plans: 'stripe', 'scan', or None/'auto'.
+    ``substitution``: optional (A, A) integer table S[a_code, b_code] in
+    place of the match/mismatch compare; codes must then lie in [-3, A)."""
     dev = resolve_device(device)
     a_codes = _as_codes(a, alphabet)
     b_codes = _as_codes(b, alphabet)
     m, n = len(a_codes), len(b_codes)
     want_tb = config.traceback if traceback is None else traceback
+    sub_np = None if substitution is None else check_table(substitution)
 
     if m == 0 or n == 0:
         # Degenerate: an empty sequence aligns to nothing (all-zero matrix).
@@ -115,7 +124,8 @@ def align(
         return res
 
     if plan in (None, "auto"):
-        plan = choose_exec(m, n, config, scoring, want_tb, dev).plan
+        plan = choose_exec(m, n, config, scoring, want_tb, dev,
+                           substitution=sub_np).plan
     if plan not in ("stripe", "scan"):
         raise ValueError(f"unknown plan {plan!r} (use 'stripe' or 'scan')")
 
@@ -129,22 +139,26 @@ def align(
 
     if plan == "stripe" and (return_matrices or config.band is not None
                              or not stripe_fill_supported(m, n, want_tb,
-                                                          scoring)):
+                                                          scoring, sub_np)):
         plan = "scan"     # the stripe kernels never materialize H
 
     a_t = torch.from_numpy(a_codes).to(dev)
     b_t = torch.from_numpy(b_codes).to(dev)
+    sub_t = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
     H = P = None
     if plan == "stripe":
         fill = stripe_fill if want_tb else stripe_score
-        out = fill(a_t, b_t, scoring, T=config.stripe_rows)
+        out = fill(a_t, b_t, scoring, T=config.stripe_rows,
+                   substitution=sub_t)
         vals = out.best.tolist()                         # one small fetch
         if want_tb:
             P = out.P.cpu().numpy()
     else:
+        table = None if sub_t is None else embed_table(sub_t)
         out = scan_fill(a_t, b_t, scoring=scoring,
                         return_p=want_tb or return_matrices,
-                        return_h=return_matrices, band=config.band)
+                        return_h=return_matrices, band=config.band,
+                        sub_table=table)
         vals = torch.stack([out.max_score, out.max_i, out.max_j,
                             out.last_cell]).tolist()
         if out.p_diag is not None:
@@ -172,6 +186,7 @@ def score(
     config: EngineConfig = EngineConfig(),
     *,
     plan: Optional[str] = None,
+    substitution: Optional[np.ndarray] = None,
     alphabet: str = DNA_ALPHABET,
     device: Union[str, torch.device] = "cuda",
 ) -> int:
@@ -180,10 +195,14 @@ def score(
     The max score is symmetric under transposing the DP matrix, so thin
     problems are swapped to put the long side in rows, where the stripe
     wavefront's parallelism is. Positions are NOT symmetric (tie order),
-    which is why align() never does this."""
+    which is why align() never does this. A substitution table is
+    transposed with the pair, so S[a_code, b_code] keeps its meaning."""
     a_codes = _as_codes(a, alphabet)
     b_codes = _as_codes(b, alphabet)
+    sub = substitution
     if len(a_codes) > 2 * len(b_codes):
         a_codes, b_codes = b_codes, a_codes
+        if sub is not None:
+            sub = np.asarray(sub).T
     return align(a_codes, b_codes, scoring, config, traceback=False,
-                 plan=plan, device=device).max_score
+                 plan=plan, substitution=sub, device=device).max_score

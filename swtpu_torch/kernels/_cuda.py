@@ -32,13 +32,23 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
-_COMMON = [_ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr, _ptr, _ptr,
-           _ptr]
+# a, b, m, n, match, mismatch, gap, T, sync, bnd, best, right
+_LINEAR = [_ptr, _ptr] + [_int] * 6 + [_ptr] * 4
+# a, b, m, n, match, mismatch, gap_open, gap_extend, T, sync, bnd, bnd_f,
+# best, right
+_AFFINE = [_ptr, _ptr] + [_int] * 7 + [_ptr] * 5
+# a, b, m, n, sub, A, affine, gap, gap_open, gap_extend, T, sync, bnd,
+# bnd_f, best, right
+_SUB = [_ptr, _ptr, _int, _int, _ptr] + [_int] * 6 + [_ptr] * 5
 ARGTYPES = {
-    # a, b, m, n, match, mismatch, gap, T, sync, bnd, best, right, stream
-    "sw_stripe_score_linear": _COMMON + [_ptr],
-    # the same, with P before the stream
-    "sw_stripe_fill_p_linear": _COMMON + [_ptr, _ptr],
+    # each score entry ends with the stream; its fill_p twin takes P
+    # before the stream
+    "sw_stripe_score_linear": _LINEAR + [_ptr],
+    "sw_stripe_fill_p_linear": _LINEAR + [_ptr, _ptr],
+    "sw_stripe_score_affine": _AFFINE + [_ptr],
+    "sw_stripe_fill_p_affine": _AFFINE + [_ptr, _ptr],
+    "sw_stripe_score_sub": _SUB + [_ptr],
+    "sw_stripe_fill_p_sub": _SUB + [_ptr, _ptr],
 }
 
 

@@ -2,7 +2,7 @@
 
 Port of ``swtpu.kernels.scan_fill`` (a ``lax.scan`` over anti-diagonals) to
 a Python loop of tensor ops on any torch device. It is the correctness
-backstop of the port and the plain version of both CUDA stripe kernels
+backstop of the port and the plain version of every CUDA stripe kernel
 (``kernels/stripe_fill.py``).
 
 Layout: **row-stationary**. Lane ``k`` (0..n-1) always holds row
@@ -23,8 +23,16 @@ each lane keeps its row's best under a strict ``>`` while j ascends, and
 the final reduce takes the smallest row among the lanes holding the max.
 The sweep runs on the device without a host sync; the caller fetches.
 
-Only local, linear, unbanded fills without boundary injection are ported;
-the other modes raise ``NotImplementedError`` (ROADMAP Queue 1 item 2).
+Affine (Gotoh) mode carries E per lane (the LEFT chain: the same lane,
+previous step) and F from lane k-1 (the UP chain), starting both at NEG so
+that E(i, 1) and F(1, j) open a gap; P then carries the ``E_EXT``/``F_EXT``
+state bits (a tie counts as extension). ``sub_table`` mode reads the
+per-cell score from an (A+3, A+3) table indexed by ``code + 3``
+(``core.substitution.embed_sentinels``) in place of the match/mismatch
+compare.
+
+Only local, unbanded fills without boundary injection are ported; the
+other modes raise ``NotImplementedError`` (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -33,9 +41,35 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.config import DIAGONAL, LEFT, NONE, UP, Scoring
+from ..core.config import DIAGONAL, E_EXT, F_EXT, LEFT, NONE, UP, Scoring
+from ..core.substitution import NEG_SUB
 
 _UNPORTED = "not ported to swtpu_torch yet (ROADMAP Queue 1 item 2)"
+# affine "minus infinity": E before column 1 and F above row 1; adding a
+# gap penalty to it cannot wrap int32
+NEG = -(1 << 30)
+
+
+def check_codes(a: torch.Tensor, b: torch.Tensor, A: int) -> None:
+    """Substitution mode takes codes in [-3, A): 0..A-1 index the table
+    and -3..-1 are the sentinels. Raise ValueError for any other code."""
+    lo_a, hi_a, lo_b, hi_b = torch.stack(
+        [a.min(), a.max(), b.min(), b.max()]).tolist()   # one fetch
+    if min(lo_a, lo_b) < -3 or max(hi_a, hi_b) >= A:
+        raise ValueError(
+            f"substitution codes must lie in [-3, {A}): a spans "
+            f"[{lo_a}, {hi_a}], b spans [{lo_b}, {hi_b}]")
+
+
+def embed_table(sub: torch.Tensor) -> torch.Tensor:
+    """(A, A) table -> the (A+3, A+3) table ``scan_fill`` reads, indexed by
+    code+3, on the same device; sentinel rows and columns hold NEG_SUB
+    (the torch twin of ``core.substitution.embed_sentinels``)."""
+    A = sub.shape[0]
+    out = torch.full((A + 3, A + 3), NEG_SUB, dtype=torch.int32,
+                     device=sub.device)
+    out[3:, 3:] = sub
+    return out
 
 
 class FillOut(NamedTuple):
@@ -67,17 +101,14 @@ def scan_fill(
     sub_table: Optional[torch.Tensor] = None,
 ) -> FillOut:
     """Fill the (n+1)x(m+1) DP matrix for one pair. a: (m,) codes, b: (n,)
-    codes, both integer tensors on one device; m, n >= 1."""
-    if scoring.is_affine:
-        raise NotImplementedError(f"affine scan_fill is {_UNPORTED}")
+    codes, both integer tensors on one device; m, n >= 1. ``sub_table``:
+    (A+3, A+3) int32 embedded substitution table on the same device."""
     if band is not None:
         raise NotImplementedError(f"banded scan_fill is {_UNPORTED}")
     if any(x is not None for x in (top_row, left_col, top_f, left_e)):
         raise NotImplementedError(f"boundary injection is {_UNPORTED}")
     if not local:
         raise NotImplementedError(f"global (NW) scan_fill is {_UNPORTED}")
-    if sub_table is not None:
-        raise NotImplementedError(f"sub_table scoring is {_UNPORTED}")
     m, n = a.numel(), b.numel()
     if m < 1 or n < 1:
         raise ValueError(f"scan_fill needs non-empty sequences, got m={m}, n={n}")
@@ -87,13 +118,24 @@ def scan_fill(
     i32 = torch.int32
     steps = n + m - 1
     gap, match, mismatch = scoring.gap, scoring.match, scoring.mismatch
+    affine = scoring.is_affine
+    g_open, g_ext = scoring.gap_open, scoring.gap_extend
 
     ar = a.to(i32).flip(0)            # ar[m-1-t+k] == a[t-k], ascending in k
     b32 = b.to(i32)
+    if sub_table is not None:
+        A3 = sub_table.shape[0]
+        check_codes(a, b, A3 - 3)
+        flat_sub = sub_table.to(i32).reshape(-1)
+        ar = (ar + 3) * A3            # row offsets into the flat table
+        b32 = b32 + 3
     # hx[k+1] = lane k's H after the last step; hx[0] is lane 0's UP inflow,
     # the zero top row
     hx = torch.zeros(n + 1, dtype=i32, device=dev)
     up_prev = torch.zeros(n, dtype=i32, device=dev)   # next step's DIAG
+    if affine:
+        ex = torch.full((n,), NEG, dtype=i32, device=dev)      # E(i, j-1)
+        fx = torch.full((n + 1,), NEG, dtype=i32, device=dev)  # like hx, F
     lane_best = torch.zeros(n, dtype=i32, device=dev)
     lane_t = torch.zeros(n, dtype=i32, device=dev)    # step of lane_best
     right_col = torch.zeros(n + 1, dtype=i32, device=dev)
@@ -105,23 +147,37 @@ def scan_fill(
 
     for t in range(steps):
         lo, hi = max(0, t - m + 1), min(n - 1, t) + 1     # lanes [lo, hi)
+        w = ar[m - 1 - t + lo:m - 1 - t + hi]
+        if sub_table is not None:
+            sub = flat_sub[w + b32[lo:hi]]
+        else:
+            sub = torch.where(w == b32[lo:hi], match, mismatch)
         up = hx[lo:hi]
-        left = hx[lo + 1:hi + 1] + gap
-        sub = torch.where(ar[m - 1 - t + lo:m - 1 - t + hi] == b32[lo:hi],
-                          match, mismatch)
         diag = up_prev[lo:hi] + sub
+        if affine:
+            e_prev, f_prev = ex[lo:hi], fx[lo:hi]
+            left = torch.maximum(hx[lo + 1:hi + 1] + g_open, e_prev + g_ext)
+            up_g = torch.maximum(up + g_open, f_prev + g_ext)
+            e_ext = left == e_prev + g_ext
+            f_ext = up_g == f_prev + g_ext
+            ex[lo:hi] = left
+            fx[lo + 1:hi + 1] = up_g
+        else:
+            left = hx[lo + 1:hi + 1] + gap
+            up_g = up + gap
         up_prev[lo:hi] = up
-        up = up + gap
         # tie order DIAG > UP > LEFT > staying at 0/NONE, strict '>'
         h = diag.clamp(min=0)
-        take_up = up > h
-        h = torch.where(take_up, up, h)
+        take_up = up_g > h
+        h = torch.where(take_up, up_g, h)
         take_left = left > h
         h = torch.where(take_left, left, h)
         if return_p:
             p = torch.where(diag > 0, DIAGONAL, NONE).to(torch.int8)
             p.masked_fill_(take_up, UP)
             p.masked_fill_(take_left, LEFT)
+            if affine:
+                p += (e_ext * E_EXT + f_ext * F_EXT).to(torch.int8)
             p_diag[t, lo:hi] = p
         if return_h:
             h_diag[t, lo:hi] = h

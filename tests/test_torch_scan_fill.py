@@ -73,12 +73,16 @@ def test_scan_fill_without_captures_returns_none():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"scoring": Scoring(mode="affine")},
+    # affine and sub_table fills are ported; their boundary injection is not
+    {"scoring": Scoring(mode="affine"),
+     "top_f": torch.zeros(21, dtype=torch.int32)},
     {"band": 4},
     {"top_row": torch.zeros(21, dtype=torch.int32)},
     {"left_col": torch.zeros(31, dtype=torch.int32)},
     {"local": False},
-    {"sub_table": torch.zeros((7, 7), dtype=torch.int32)},
+    {"scoring": Scoring(mode="affine"),
+     "sub_table": torch.zeros((7, 7), dtype=torch.int32),
+     "left_e": torch.zeros(31, dtype=torch.int32)},
 ], ids=["affine", "band", "top_row", "left_col", "global", "sub_table"])
 def test_unported_modes_raise(kwargs):
     a, b = random_pair(20, 30, seed=8)

@@ -85,7 +85,10 @@ def test_cpu_tensors_run_the_plain_versions():
     sf.stripe_fill(*_torch(a, b))
     assert sf.plain_calls == {"stripe_score_plain": 1,
                               "stripe_fill_plain": 1}
-    assert sf.launches == {sf.SCORE_KERNEL: 0, sf.FILL_P_KERNEL: 0}
+    assert sf.launches == {
+        sf.SCORE_KERNEL: 0, sf.FILL_P_KERNEL: 0,
+        sf.SCORE_AFFINE_KERNEL: 0, sf.FILL_P_AFFINE_KERNEL: 0,
+        sf.SCORE_SUB_KERNEL: 0, sf.FILL_P_SUB_KERNEL: 0}
     sf.reset_counts()
     assert sf.plain_calls == {"stripe_score_plain": 0,
                               "stripe_fill_plain": 0}
@@ -114,7 +117,7 @@ def test_wrappers_reject_bad_inputs(args, err):
 
 
 @pytest.mark.parametrize("scoring", [
-    Scoring(mismatch=0), Scoring(gap=0), Scoring(mode="affine"),
+    Scoring(mismatch=0), Scoring(gap=0), Scoring(mode="affine", gap_open=0),
 ], ids=["mismatch_0", "gap_0", "affine"])
 def test_gate_rejects_scorings_the_kernel_does_not_take(scoring):
     assert not sf.stripe_fill_supported(50, 50, True, scoring)
