@@ -8,10 +8,15 @@ plain PyTorch version on the card, then drives the public ``align()`` and
 ``score()`` at the benchmark sizes, in three scorings (DNA linear 3/-3/-2,
 DNA affine 3/-3 -4/-1, BLOSUM62 protein affine -11/-1), and checks the
 answers against independent numpy row scans and the known values for those
-seeded pairs. Each phase prints one line; any failure raises, so the exit
-code is not 0. The line before the last is a JSON object describing each
-kernel of the path (launches in the main-path run, exactness, kernel and
-plain times); the last line is a JSON object naming the device.
+seeded pairs. Two paths are driven, each with the launch counts set to 0
+just before it and read just after: the full-P path (score 25632^2, align
+16384^2) and the lean and banded path (align 25632^2 through locate +
+windowed refill + the device walk, Hirschberg at 16384^2 linear and
+4096^2 affine, banded score and align at 16384^2). Each phase prints one
+line; any failure raises, so the exit code is not 0. The line before the
+last is a JSON object describing each kernel of the paths (launches in the
+paths' runs, exactness, kernel and plain times); the last line is a JSON
+object naming the device.
 
 Without a CUDA device it fails before printing any result.
 """
@@ -28,9 +33,10 @@ import numpy as np
 import torch
 
 import swtpu_torch
-from swtpu_torch import Scoring, random_pair
+from swtpu_torch import EngineConfig, Scoring, random_pair
 from swtpu_torch.core.encode import DNA_ALPHABET, PROTEIN_ALPHABET, decode
 from swtpu_torch.core.substitution import BLOSUM62
+from swtpu_torch.engine import traceback as tb
 from swtpu_torch.instrument.metrics import gcups
 from swtpu_torch.kernels import _cuda
 from swtpu_torch.kernels import stripe_fill as sf
@@ -51,8 +57,28 @@ KNOWN = {("linear", SCORE_N, SCORE_N): (18276, 25632, 25624, 18273),
          ("dna_affine", ALIGN_N, ALIGN_N): (7783, 16369, 16384, 7773),
          ("protein", SCORE_N, SCORE_N): (94, 24948, 18296, 2),
          ("protein", ALIGN_N, ALIGN_N): (77, 8114, 8809, 0)}
-KERNEL_SOURCE = "swtpu_torch/csrc/stripe_fill.cu"
-REPLACES = "swtpu/kernels/pallas_fill.py:1008"   # _stripe_call's pallas_call
+HIRSCH_AFFINE_N = 4096           # Myers-Miller: its host base case is slow
+BAND = 64                         # the banded path's half-width
+NEG = -(1 << 30)
+CSRC = "swtpu_torch/csrc/"
+# (source, TPU code replaced) of each kind of C entry
+ORIGIN = {
+    "stripe": (CSRC + "stripe_fill.cu",
+               "swtpu/kernels/pallas_fill.py:1008"),   # _stripe_call
+    "band": (CSRC + "stripe_fill.cu",
+             "swtpu/kernels/pallas_fill.py:358"),      # _kernel band mode
+    "block": (CSRC + "stripe_block.cu",
+              "swtpu/kernels/pallas_fill.py:1466"),    # stripe_block_fn
+    "walk": (CSRC + "walk_p.cu",
+             "swtpu/engine/traceback.py:561"),         # the jitted walk
+}
+
+
+def origin(name: str) -> tuple:
+    kind = ("band" if name.endswith(sf.BAND_SUFFIX)
+            else "block" if name in sf.BLOCK_KERNELS.values()
+            else "walk" if name == sf.WALK_KERNEL else "stripe")
+    return ORIGIN[kind]
 
 
 def phase(name: str, msg: str) -> None:
@@ -83,7 +109,8 @@ MODELS = {
 }
 
 
-def row_scan(a: np.ndarray, b: np.ndarray, sc: Scoring, S=None) -> tuple:
+def row_scan(a: np.ndarray, b: np.ndarray, sc: Scoring, S=None,
+             band=None) -> tuple:
     """(max, i, j, last) by an independent numpy scan, one row at a time.
 
     Linear: X = max(0, DIAG, UP), then H[j] = max over k <= j of
@@ -91,27 +118,40 @@ def row_scan(a: np.ndarray, b: np.ndarray, sc: Scoring, S=None) -> tuple:
     above, X = max(0, DIAG, F), then E[j] = open + ext*(j-1) + max over
     k < j of X[k] - ext*k (exact for gap_open <= gap_extend) and
     H = max(X, E). First row-major max by strict '>' over rows and
-    argmax's first index within a row."""
+    argmax's first index within a row. ``band``: only the columns
+    |i - j| <= band of row i are filled; the cells outside hold H = 0 and
+    F = NEG, so the prefix max starts at the cell left of the band."""
     m = len(a)
     a64 = a.astype(np.int64)
     step = sc.gap_extend if sc.is_affine else sc.gap
-    ramp = step * np.arange(m + 1, dtype=np.int64)
+    neg = -(1 << 30)
     prev = np.zeros(m + 1, np.int64)
-    f = np.full(m + 1, -(1 << 30), np.int64)
-    x = np.zeros(m + 1, np.int64)
+    f = np.full(m + 1, neg, np.int64)
     best = bi = bj = 0
     for i in range(1, len(b) + 1):
-        s = (S[a64, b[i - 1]] if S is not None
-             else np.where(a == b[i - 1], sc.match, sc.mismatch))
+        lo, hi = (1, m) if band is None else (max(1, i - band),
+                                              min(m, i + band))
+        h = np.zeros(m + 1, np.int64)
+        if lo > hi:                       # the band has left the matrix
+            prev, f = h, np.full(m + 1, neg, np.int64)
+            continue
+        s = (S[a64[lo - 1:hi], b[i - 1]] if S is not None
+             else np.where(a[lo - 1:hi] == b[i - 1], sc.match, sc.mismatch))
+        diag = prev[lo - 1:hi] + s
+        ramp = step * np.arange(lo - 1, hi + 1, dtype=np.int64)
+        x = np.zeros(hi - lo + 2, np.int64)    # columns lo-1 .. hi
         if sc.is_affine:
-            f = np.maximum(prev + sc.gap_open, f + sc.gap_extend)
-            x[1:] = np.maximum(np.maximum(prev[:-1] + s, f[1:]), 0)
-            h = x.copy()
-            h[1:] = np.maximum(x[1:], np.maximum.accumulate(x - ramp)[:-1]
-                               + sc.gap_open + ramp[:-1])
+            fw = np.maximum(prev[lo:hi + 1] + sc.gap_open,
+                            f[lo:hi + 1] + sc.gap_extend)
+            x[1:] = np.maximum(np.maximum(diag, fw), 0)
+            e = (np.maximum.accumulate(x - ramp)[:-1] + sc.gap_open
+                 + ramp[:-1])
+            h[lo:hi + 1] = np.maximum(x[1:], e)
+            f = np.full(m + 1, neg, np.int64)
+            f[lo:hi + 1] = fw
         else:
-            x[1:] = np.maximum(np.maximum(prev[:-1] + s, prev[1:] + sc.gap), 0)
-            h = np.maximum.accumulate(x - ramp) + ramp
+            x[1:] = np.maximum(np.maximum(diag, prev[lo:hi + 1] + sc.gap), 0)
+            h[lo:hi + 1] = (np.maximum.accumulate(x - ramp) + ramp)[1:]
         top = int(h.max())
         if top > best:
             best, bi, bj = top, i, int(h.argmax())
@@ -167,16 +207,20 @@ def on_card(*arrays, dev) -> tuple:
 
 
 def build_line() -> str:
-    """ptxas's registers and spills for each instantiation of the kernel
-    template <kCaptureP, kAffine, kSub>."""
-    out, name = [], None
+    """ptxas's registers and spills for each kernel: every instantiation of
+    the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock>, and the
+    walk."""
+    out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
-        got = re.search(r"stripe_kernelILb(\d)ELb(\d)ELb(\d)E", ln)
+        got = re.search(r"stripe_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                        ln)
         if "Compiling entry function" in ln and got:
-            p, aff, sub = (int(v) for v in got.groups())
-            name = (f"{'fill_p' if p else 'score'}_"
+            p, aff, sub, band, blk = (int(v) for v in got.groups())
+            name = (f"{'fill_p' if p else 'block' if blk else 'score'}_"
                     f"{'sub_' if sub else ''}"
-                    f"{'affine' if aff else 'linear'}")
+                    f"{'affine' if aff else 'linear'}{'_band' if band else ''}")
+        elif "Compiling entry function" in ln and "walk_p_kernel" in ln:
+            name = "walk"
         elif "spill" in ln and name:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -204,6 +248,7 @@ def _small_cases() -> list:
         ("m<n", *random_pair(200, 1500, seed=3), 128, 1, False),
         ("m>n", *random_pair(1500, 200, seed=4), 64, 1, False),
         ("m=2", *random_pair(2, 700, seed=5), 64, 1, False),
+        ("m=1", *random_pair(1, 700, seed=6), 64, 1, False),
         ("ties: two letters", two[:1200], two[1200:], 128, 1, False),
         ("ties: one letter", zeros, zeros[:650].copy(), 32, 1, False),
         ("ties: a = b", two[:900], two[:900].copy(), 256, 1, False),
@@ -214,6 +259,7 @@ def _small_cases() -> list:
         ("protein sentinels", sent_a, sent_b, 128, 1, True),
         ("protein T=1024", pa[:900], pb, 1024, 1, True),
         ("protein a = b", pa[:900], pa[:900].copy(), 1024, 1, True),
+        ("protein m=1", pb[5:6].copy(), pb[:700], 64, 1, True),
     ]
 
 
@@ -300,6 +346,290 @@ def kernels_vs_plain(dev) -> dict:
     return recs
 
 
+def _small_pair(mode: str, m: int, n: int, seed: int) -> tuple:
+    """A small pair of the mode's alphabet."""
+    if mode == "protein":
+        rng = np.random.default_rng(seed)
+        return (rng.integers(0, 20, m).astype(np.int8),
+                rng.integers(0, 20, n).astype(np.int8))
+    return random_pair(m, n, seed=seed)
+
+
+def band_vs_plain(dev) -> dict:
+    """K4b: each banded entry against its plain version at bands 0, 1, 64
+    and wider than the pair, then at the banded path's shapes; returns
+    per-kernel records."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    recs = {}
+    for mode, (_, _, scorings, S) in MODES.items():
+        sub = None if S is None else table
+        at, bt = on_card(*_small_pair(mode, 300, 32 * 40 + 10, 8), dev=dev)
+        for sc in scorings:
+            for band in (0, 1, BAND, 5000):
+                ps = sf.stripe_score_plain(at, bt, sc, sub, band)
+                pf = sf.stripe_fill_plain(at, bt, sc, sub, band)
+                for T in (32, 256):
+                    ks = sf.stripe_score(at, bt, sc, T=T, substitution=sub,
+                                         band=band)
+                    kf = sf.stripe_fill(at, bt, sc, T=T, substitution=sub,
+                                        band=band)
+                    torch.cuda.synchronize()
+                    e = max(diff(ks.best, ps.best),
+                            diff(ks.right_col, ps.right_col),
+                            diff(kf.best, pf.best),
+                            diff(kf.right_col, pf.right_col),
+                            diff(kf.P, pf.P))
+                    require(e == 0, f"band {band} {mode} {sc.mode} T={T}: "
+                            "kernel != plain")
+            phase("kernels", f"band [{mode} {sc.mode}] m=300 n=1290 bands "
+                  f"0/1/{BAND}/5000, T=32/256: equal")
+        # the banded path's shapes
+        sc = scorings[0]
+        at, bt = on_card(*MODELS[mode][3](ALIGN_N, ALIGN_N), dev=dev)
+        for capture_p in (False, True):
+            name = sf.kernel_name(sc, S, capture_p, True)
+            fn = sf.stripe_fill if capture_p else sf.stripe_score
+            plain = sf.stripe_fill_plain if capture_p else sf.stripe_score_plain
+            k_ms, k = timed_ms(lambda: fn(at, bt, sc, substitution=sub,
+                                          band=BAND), 3)
+            p_ms, p = timed_ms(lambda: plain(at, bt, sc, sub, BAND), 1)
+            e = max(diff(k.best, p.best), diff(k.right_col, p.right_col),
+                    0 if k.P is None else diff(k.P, p.P))
+            require(e == 0, f"{name} != plain at the banded path's size")
+            recs[name] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e)
+            phase("kernels", f"{name} {ALIGN_N}^2 band {BAND}: "
+                  f"{k.best.tolist()} kernel {k_ms:.3f} ms, plain "
+                  f"{p_ms:.1f} ms, equal")
+            del k, p
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _bounds(m: int, n: int, seed: int, anchored: bool, dev) -> tuple:
+    """(top, left, top_f, left_e) on the card: random finite boundaries
+    sharing the corner, or the anchored reverse pass's NEG ones."""
+    rng = np.random.default_rng(seed)
+    if anchored:
+        top, left = np.full(m + 1, NEG, np.int32), np.full(n + 1, NEG, np.int32)
+        top[0] = left[0] = 0
+        tf, le = np.full(m + 1, NEG, np.int32), np.full(n + 1, NEG, np.int32)
+    else:
+        top = rng.integers(-40, 40, m + 1).astype(np.int32)
+        left = rng.integers(-40, 40, n + 1).astype(np.int32)
+        left[0] = top[0]
+        tf = rng.integers(-50, 20, m + 1).astype(np.int32)
+        le = rng.integers(-50, 20, n + 1).astype(np.int32)
+    return on_card(top, left, tf, le, dev=dev)
+
+
+def block_vs_plain(dev) -> dict:
+    """K5 at small shapes: every block entry against its plain version,
+    local and global, injected and anchored boundaries, T=32 (many
+    stripes, ragged n) and the default; returns max errors per entry."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    err = dict.fromkeys(sf.BLOCK_KERNELS.values(), 0)
+    for mode, (_, _, scorings, S) in MODES.items():
+        sub = None if S is None else table
+        for sc in scorings:
+            name = sf.block_kernel_name(sc, S)
+            for m, n, seed in ((300, 32 * 30 + 7, 1), (2, 500, 2),
+                               (1, 400, 4), (700, 1300, 3)):
+                at, bt = on_card(*_small_pair(mode, m, n, seed), dev=dev)
+                m, n = at.numel(), bt.numel()
+                for anchored in (False, True):
+                    top, left, tf, le = _bounds(m, n, seed, anchored, dev)
+                    if not sc.is_affine:
+                        tf = le = None
+                    for local in (True, False):
+                        p = sf.stripe_block_plain(
+                            at, bt, sc, top, left, tf, le, local=local,
+                            substitution=sub, want_bottom=True)
+                        for T in (32, None):
+                            k = sf.stripe_block(
+                                at, bt, sc, top, left, tf, le, local=local,
+                                substitution=sub, want_bottom=True, T=T)
+                            torch.cuda.synchronize()
+                            e = max(diff(x, y) for x, y in zip(k, p)
+                                    if x is not None or y is not None)
+                            err[name] = max(err[name], e)
+                            require(e == 0, f"{name} {sc.mode} m={m} n={n} "
+                                    f"anchored={anchored} local={local} "
+                                    f"T={T}: kernel != plain")
+            phase("kernels", f"{name} [{mode} {sc.mode}] 4 shapes x "
+                  "injected/anchored x local/global x T=32/256: equal")
+    return err
+
+
+# scoring -> (a's width, rows) of the top-level Hirschberg / Myers-Miller
+# row pass of the path (the first half of b)
+ROW_PASSES = {"linear": (ALIGN_N, ALIGN_N // 2),
+              "dna_affine": (HIRSCH_AFFINE_N, HIRSCH_AFFINE_N // 2),
+              "protein": (HIRSCH_AFFINE_N, HIRSCH_AFFINE_N // 2)}
+
+
+def rows_vs_plain(dev) -> dict:
+    """K5's last-row export (want_bottom, global mode) against its plain
+    version at the path's top-level row pass, with the boundaries
+    ``_nw_last_row`` and ``_nw_last_rows_affine`` give it: H and F of row
+    n feed every split of the recursion. Returns max errors per entry."""
+    err = {}
+    for mode, (m, n) in ROW_PASSES.items():
+        sc, S, _, make = MODELS[mode]
+        a, b = make(m, 2 * n)
+        sub = None if S is None else on_card(S, dev=dev)[0]
+        if sc.is_affine:
+            g0, ext = sc.gap_open - sc.gap_extend, sc.gap_extend
+            top = g0 + ext * np.arange(m + 1)
+            top[0] = 0
+            left = g0 + ext * np.arange(n + 1)      # tbg = g0 at the top
+            left[0] = 0
+        else:
+            top, left = sc.gap * np.arange(m + 1), sc.gap * np.arange(n + 1)
+        at, bt, top, left = on_card(a, b[:n], top.astype(np.int32),
+                                    left.astype(np.int32), dev=dev)
+        name = sf.block_kernel_name(sc, S)
+        kw = dict(local=False, substitution=sub, want_bottom=True)
+        k_ms, k = timed_ms(lambda: sf.stripe_block(at, bt, sc, top, left,
+                                                   **kw), 1)
+        p_ms, p = timed_ms(lambda: sf.stripe_block_plain(at, bt, sc, top,
+                                                         left, **kw), 1)
+        e = max(diff(x, y) for x, y in zip(k, p) if x is not None)
+        require(k.bottom_row is not None and p.bottom_row is not None
+                and (k.bottom_f is not None) == sc.is_affine
+                and (p.bottom_f is not None) == sc.is_affine,
+                f"{name}: the row-n export is missing")
+        require(e == 0, f"{name} row pass {m}x{n}: kernel != plain")
+        err[name] = e
+        phase("kernels", f"{name} [{mode}] row pass {m}x{n} want_bottom: "
+              f"bottom_row{' and bottom_f' if sc.is_affine else ''} equal "
+              f"(max_abs_err 0); kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        del at, bt, k, p
+    return err
+
+
+def walk_vs_plain(dev) -> int:
+    """The walk kernel against its plain version on linear, affine and
+    protein P at small shapes; returns the max error."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    for mode, (_, _, scorings, S) in MODES.items():
+        sc, sub = scorings[0], (None if S is None else table)
+        at, bt = on_card(*_small_pair(mode, 900, 800, 4), dev=dev)
+        out = sf.stripe_fill(at, bt, sc, substitution=sub, T=32)
+        _, i, j, _ = out.best.tolist()
+        n, m = bt.numel(), at.numel()
+        for corner in ((i, j), (n, m), (0, 9), (n - 1, 3)):
+            k = sf.walk_p(out.P, *corner)
+            p = sf.walk_p_plain(out.P, *corner)
+            require(torch.equal(k, p), f"walk {mode} {corner}: kernel != "
+                    "plain")
+        phase("kernels", f"{sf.WALK_KERNEL} [{mode}] 4 corners of a "
+              f"900x800 P: equal ({len(sf.walk_p(out.P, i, j))} moves from "
+              "the max)")
+    return 0
+
+
+def lean_parts(mode: str, dev) -> tuple:
+    """The lean traceback's parts at the path's size, one by one: the
+    forward score pass, the anchored reverse pass (K5, against its plain
+    version), the window refill with P (K4), the walk (against its plain
+    version) and the host's assembly of the strings. Returns (K5 record,
+    walk record, phase line)."""
+    sc, S, alphabet, make = MODELS[mode]
+    a, b = make(SCORE_N, SCORE_N)
+    sub = None if S is None else on_card(S, dev=dev)[0]
+    t0 = time.perf_counter()
+    score, ei, ej, _ = tb._local_score(a, b, sc, S, dev)
+    fwd_s = time.perf_counter() - t0
+    ar, br = on_card(a[:ej][::-1], b[:ei][::-1], dev=dev)
+    top, left, _, _ = _bounds(ej, ei, 0, True, dev)
+    name = sf.block_kernel_name(sc, S)
+    k_ms, k = timed_ms(lambda: sf.stripe_block(
+        ar, br, sc, top, left, local=False, substitution=sub), 3)
+    p_ms, p = timed_ms(lambda: sf.stripe_block_plain(
+        ar, br, sc, top, left, local=False, substitution=sub), 1)
+    e = max(diff(x, y) for x, y in zip(k, p) if x is not None)
+    require(e == 0, f"{name} != plain at the reverse pass's size")
+    rs, ri, rj, _ = k.best.tolist()
+    require(rs == score, f"{mode}: reverse pass {rs} != forward {score}")
+    block_rec = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e)
+    del ar, br, k, p
+    si, sj = ei - ri + 1, ej - rj + 1
+    wn, wm = ei - si + 1, ej - sj + 1
+    wa, wb = on_card(a[sj - 1:ej], b[si - 1:ei], dev=dev)
+    f_ms, out = timed_ms(lambda: sf.stripe_fill(wa, wb, sc,
+                                                substitution=sub), 1)
+    w_ms, moves = timed_ms(lambda: sf.walk_p(out.P, wn, wm), 3)
+    pw_ms, pmoves = timed_ms(lambda: sf.walk_p_plain(out.P, wn, wm), 1)
+    require(torch.equal(moves, pmoves), f"{mode}: walk kernel != plain")
+    del out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ca, cb = tb._apply_moves(a[sj - 1:ej], b[si - 1:ei], wn, wm,
+                             moves.tolist())
+    tb._render(ca, cb, alphabet)
+    host_s = time.perf_counter() - t0
+    walk_rec = dict(ms=w_ms, plain_ms=pw_ms, max_abs_err=0)
+    line = (f"{SCORE_N}^2 parts: forward {fwd_s * 1e3:.1f} ms (wall); "
+            f"reverse {name} {k_ms:.3f} ms (plain {p_ms:.1f} ms, equal); "
+            f"window {wn}x{wm} refill {f_ms:.3f} ms; walk {len(moves)} "
+            f"moves {w_ms:.3f} ms (plain {pw_ms:.1f} ms, P copied to the "
+            f"host, equal); host strings {host_s * 1e3:.1f} ms")
+    return block_rec, walk_rec, line
+
+
+def drive_lean(refs: dict) -> list:
+    """The lean and banded path through the public calls; returns phase
+    lines."""
+    lines = []
+    for mode in MODES:
+        sc, S, alphabet, make = MODELS[mode]
+        kw = dict(substitution=S, alphabet=alphabet, device="cuda")
+        a, b = make(SCORE_N, SCORE_N)
+        t0 = time.perf_counter()
+        r = swtpu_torch.align(a, b, sc, **kw)
+        wall = time.perf_counter() - t0
+        got = (r.max_score, r.max_i, r.max_j, r.last_cell)
+        want = refs[mode, SCORE_N, SCORE_N]
+        require(got == want and r.path is None,
+                f"{mode} lean align {SCORE_N}^2: {got} != {want}")
+        check_alignment(r, a, b, mode)
+        lines.append(f"[{mode}] align {SCORE_N}^2 windowed -> {got}, "
+                     f"{len(r.aligned_a)} columns re-score to "
+                     f"{r.max_score}, wall {wall:.3f} s")
+
+    cfg = EngineConfig(traceback_method="hirschberg")
+    for mode, n in (("linear", ALIGN_N), ("dna_affine", HIRSCH_AFFINE_N)):
+        sc, S, alphabet, make = MODELS[mode]
+        a, b = make(n, n)
+        t0 = time.perf_counter()
+        r = swtpu_torch.align(a, b, sc, cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        got = (r.max_score, r.max_i, r.max_j, r.last_cell)
+        require(got == refs[mode, n, n],
+                f"{mode} hirschberg {n}^2: {got} != {refs[mode, n, n]}")
+        check_alignment(r, a, b, mode)
+        lines.append(f"[{mode}] align {n}^2 hirschberg -> {got}, "
+                     f"{len(r.aligned_a)} columns re-score, wall {wall:.3f} s")
+
+    cfg = EngineConfig(band=BAND)
+    for mode in MODES:
+        sc, S, alphabet, make = MODELS[mode]
+        kw = dict(substitution=S, alphabet=alphabet, device="cuda")
+        a, b = make(ALIGN_N, ALIGN_N)
+        want = refs[mode, "band", ALIGN_N]
+        ms, s_ = timed_ms(lambda: swtpu_torch.score(a, b, sc, cfg, **kw), 1)
+        t0 = time.perf_counter()
+        r = swtpu_torch.align(a, b, sc, cfg, **kw)
+        wall = time.perf_counter() - t0
+        got = (r.max_score, r.max_i, r.max_j, r.last_cell)
+        require(s_ == want[0] and got == want,
+                f"{mode} band {BAND} {ALIGN_N}^2: {s_}, {got} != {want}")
+        check_alignment(r, a, b, mode)
+        lines.append(f"[{mode}] band {BAND} {ALIGN_N}^2 -> {got}; score() "
+                     f"{ms:.3f} ms, align wall {wall:.3f} s")
+    return lines
+
+
 def check_alignment(r, a, b, mode: str) -> None:
     """The walked strings re-score to the max and are substrings of the
     inputs ending at the max cell."""
@@ -353,6 +683,7 @@ def main() -> int:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
+    start = time.perf_counter()
 
     t0 = time.perf_counter()
     _cuda.library()
@@ -361,8 +692,23 @@ def main() -> int:
           f" {build_line()})")
 
     recs = kernels_vs_plain(dev)
+    recs.update(band_vs_plain(dev))
+    block_err = block_vs_plain(dev)
+    for entry, e in rows_vs_plain(dev).items():
+        block_err[entry] = max(block_err[entry], e)
+    walk_err = walk_vs_plain(dev)
+    for mode in MODES:
+        block_rec, walk_rec, line = lean_parts(mode, dev)
+        block = sf.block_kernel_name(*MODELS[mode][:2])
+        block_rec["max_abs_err"] = max(block_rec["max_abs_err"],
+                                       block_err[block])
+        recs[block] = block_rec
+        if mode == "linear":        # the benchmark pair's walk
+            walk_rec["max_abs_err"] = max(walk_rec["max_abs_err"], walk_err)
+            recs[sf.WALK_KERNEL] = walk_rec
+        phase(mode, line)
 
-    # independent references for the main path, on the host
+    # independent references for the main paths, on the host
     t0 = time.perf_counter()
     refs = {}
     for (mode, m, n), known in KNOWN.items():
@@ -370,11 +716,25 @@ def main() -> int:
         refs[mode, m, n] = row_scan(*make(m, n), sc, S)
         require(refs[mode, m, n] == known, f"row scan {mode} {m}x{n} "
                 f"{refs[mode, m, n]} != known {known}")
+    n = HIRSCH_AFFINE_N
+    refs["dna_affine", n, n] = row_scan(*random_pair(n, n, seed=0),
+                                        DNA_AFFINE)
+    for mode, (sc, S, _, make) in MODELS.items():
+        # the banded scan against the plain fill on a small pair first
+        a, b = _small_pair(mode, 300, 280, 5)
+        for band in (0, 3, BAND):
+            want = sf.stripe_fill_plain(
+                *on_card(a, b, dev=torch.device("cpu")), sc,
+                None if S is None else torch.from_numpy(S), band)
+            require(list(row_scan(a, b, sc, S, band)) == want.best.tolist(),
+                    f"banded row scan {mode} band {band} != plain fill")
+        refs[mode, "band", ALIGN_N] = row_scan(*make(ALIGN_N, ALIGN_N), sc,
+                                               S, BAND)
     phase("reference", f"numpy row scans of {len(refs)} pairs in "
           f"{time.perf_counter() - t0:.1f} s, equal to the known values "
           f"{refs}")
 
-    # ---- the main path: public calls only, counted from zero ----
+    # ---- the full-P path: public calls only, counted from zero ----
     sf.reset_counts()
     r = swtpu_torch.align(swtpu_torch.BUILTIN_A, swtpu_torch.BUILTIN_B,
                           device="cuda")
@@ -395,14 +755,37 @@ def main() -> int:
 
     launches = dict(sf.launches)
     plain = dict(sf.plain_calls)
-    # ---- end of the main path ----
-    require(all(v > 0 for v in launches.values()), f"launches {launches}")
+    # ---- end of the full-P path ----
+    full_p = [sf.kernel_name(*MODELS[mode][:2], p)
+              for mode in MODES for p in (False, True)]
+    require(all(launches[k] > 0 for k in full_p), f"launches {launches}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
-    phase("path", f"kernel launches {launches}, plain calls {plain}")
+    phase("path", f"full-P path: kernel launches {launches}, plain calls "
+          f"{plain}")
 
-    kernels = [dict(name=k, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES, launches=launches[k], **recs[k])
+    # ---- the lean and banded path: public calls only, from zero ----
+    sf.reset_counts()
+    t0 = time.perf_counter()
+    lines = drive_lean(refs)
+    lean_s = time.perf_counter() - t0
+    lean = dict(sf.launches)
+    plain = dict(sf.plain_calls)
+    # ---- end of the lean and banded path ----
+    for ln in lines:
+        phase("lean", ln)
+    lean_path = [n for n in sf.launches if n not in full_p] + [
+        sf.kernel_name(*MODELS[mode][:2], p)
+        for mode in MODES for p in (False, True)]
+    require(all(lean[k] > 0 for k in lean_path), f"launches {lean}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    phase("path", f"lean and banded path in {lean_s:.1f} s: kernel "
+          f"launches {lean}, plain calls {plain}")
+
+    kernels = [dict(name=k, route="cuda", source=origin(k)[0],
+                    replaces=origin(k)[1], launches=launches[k] + lean[k],
+                    **recs[k])
                for k in sf.launches]
+    phase("done", f"all phases in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

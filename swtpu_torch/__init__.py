@@ -4,8 +4,10 @@ Exact int32 Smith-Waterman scoring and alignment of one pair, linear or
 affine gaps, match/mismatch or a substitution table such as BLOSUM62, with
 the same public calls and the same answers as the JAX package ``swtpu``:
 max score, first row-major end cell, ``last_cell``, predecessor codes and
-alignment strings. On a CUDA device the fill runs hand-written CUDA kernels
-(``csrc/stripe_fill.cu``); on the CPU it runs the PyTorch ``scan`` plan.
+alignment strings, full-P or lean (locate + windowed refill, Hirschberg)
+traceback, banded or not. On a CUDA device the fills and the walk of P run
+hand-written CUDA kernels (``csrc/``); on the CPU their plain PyTorch
+versions run.
 
 This package imports torch and numpy and never JAX or ``swtpu``.
 """
@@ -26,12 +28,13 @@ from .core.config import (
 )
 from .core.encode import decode, encode, random_batch, random_pair, revcomp
 from .engine.align import Alignment, align, score
+from .engine.traceback import AnchoredReverseMismatch
 
 __version__ = "0.1.0"
 
 __all__ = [
     "align", "score",
-    "Alignment", "Scoring", "EngineConfig",
+    "Alignment", "Scoring", "EngineConfig", "AnchoredReverseMismatch",
     "encode", "decode", "random_pair", "random_batch", "revcomp",
     "NONE", "UP", "LEFT", "DIAGONAL", "PATH",
     "BUILTIN_A", "BUILTIN_B", "BUILTIN_MAX_SCORE", "BUILTIN_MAX_POS",

@@ -5,10 +5,11 @@
 
 ``--device`` picks the torch device (default ``cuda``; ``cpu`` runs the
 scan plan), ``--plan`` forces an execution plan, ``--skip-backtrack`` is
-the score-only benchmark mode and ``--debug`` prints H and the arrow
-predecessor matrix. ``--affine`` takes Gotoh gaps (``--gap-open``,
-``--gap-extend``); ``--blosum62`` aligns random 20-letter protein pairs
-from ``--seed`` under BLOSUM62 and needs explicit sizes, e.g.
+the score-only benchmark mode, ``--band`` keeps the cells with
+|i-j| <= band and ``--debug`` prints H and the arrow predecessor matrix.
+``--affine`` takes Gotoh gaps (``--gap-open``, ``--gap-extend``);
+``--blosum62`` aligns random 20-letter protein pairs from ``--seed`` under
+BLOSUM62 and needs explicit sizes, e.g.
 ``python -m swtpu_torch 60 50 --blosum62 --affine --gap-open -11
 --gap-extend -1 --device cpu``.
 """
@@ -44,6 +45,8 @@ def main(argv=None) -> int:
     ap.add_argument("--gap", type=int, default=-2)
     ap.add_argument("--gap-open", type=int, default=-4)
     ap.add_argument("--gap-extend", type=int, default=-1)
+    ap.add_argument("--band", type=int, default=None,
+                    help="band half-width: keep cells with |i-j| <= band")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--debug", action="store_true",
                     help="print H and predecessor matrices (-DDEBUG analog)")
@@ -94,7 +97,7 @@ def main(argv=None) -> int:
         gap_open=args.gap_open, gap_extend=args.gap_extend,
         mode="affine" if args.affine else "linear",
     )
-    config = EngineConfig(traceback=not args.skip_backtrack)
+    config = EngineConfig(band=args.band, traceback=not args.skip_backtrack)
     kw = dict(scoring=scoring, config=config, plan=args.plan, device=device,
               substitution=sub, **alphabet_kw)
 
@@ -127,7 +130,7 @@ def main(argv=None) -> int:
         marked = oracle.mark_path(r.P, r.max_pos) if r.max_score > 0 else r.P
         sys.stdout.write(format_predecessor_matrix(marked))
 
-    if use_builtin and not args.affine:
+    if use_builtin and not args.affine and args.band is None:
         ok = (res.max_score == BUILTIN_MAX_SCORE
               and res.max_pos == BUILTIN_MAX_POS
               and res.last_cell == BUILTIN_LAST_CELL)

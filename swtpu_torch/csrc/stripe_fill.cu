@@ -1,270 +1,46 @@
-// Smith-Waterman stripe fill for one pair on Hopper (sm_90a).
+// The single-pair stripe fill entries, K1-K4 and their band mode K4b
+// (design in stripe_kernel.cuh).
 //
 // Replaces the Pallas stripe kernel of the JAX package
-// (swtpu/kernels/pallas_fill.py, body `_kernel`, launched by `_stripe_call`)
-// in these of its modes:
+// (swtpu/kernels/pallas_fill.py `_kernel`, `_stripe_call` -> pallas_call
+// :1008) in its local single-pair modes:
 //   * sw_stripe_score_linear  - K1, local linear score-only: max score, its
 //     first row-major end cell, the right column H[:, m] and H[n, m];
 //   * sw_stripe_fill_p_linear - K4, the same walk plus the `return_p`
-//     predecessor capture, one int8 code per cell written straight into a
-//     row-major (n+1) x (m+1) P with row 0 and column 0 left NONE;
-//   * sw_stripe_score_affine / sw_stripe_fill_p_affine - K2 (and K4 on
-//     it), Gotoh affine gaps: E(i,j) = max(H(i,j-1)+open, E(i,j-1)+extend),
-//     F(i,j) = max(H(i-1,j)+open, F(i-1,j)+extend), with the E_EXT/F_EXT
-//     state bits in P (a tie counts as extension);
+//     predecessor capture into a row-major (n+1) x (m+1) int8 P;
+//   * sw_stripe_score_affine / sw_stripe_fill_p_affine - K2 (and K4 on it),
+//     Gotoh affine gaps with the E_EXT/F_EXT state bits in P;
 //   * sw_stripe_score_sub / sw_stripe_fill_p_sub - K3 (and K4 on it), a
-//     substitution matrix S[a_code, b_code] in place of the match/mismatch
-//     compare, with linear or affine gaps (a flag picks the instantiation).
+//     substitution matrix S[a_code, b_code] with linear or affine gaps (a
+//     flag picks the instantiation).
 //
-// What bounds it on the card. The fill is a chain of dependent steps: every
-// cell needs its left and upper neighbours, so a stripe advances one
-// anti-diagonal per step, and each step pays a block barrier and a shared
-// memory round trip between warps. P capture adds one byte store per cell;
-// stores from neighbouring threads land m+1 bytes apart, so it is bound by
-// the bytes of P it writes (about (n+1)(m+1)) as much as by the chain.
-//
-// What the design does about it. Rows are cut into stripes of T = blockDim.x
-// rows, one thread block per stripe and one row per thread (register
-// blocking R > 1 is later work). Thread k of stripe s owns row
-// i = s*T + k + 1 and visits column j = t - k + 1 at step t. UP and DIAG
-// (and, affine, F) come from thread k-1 by a warp shuffle inside a warp and
-// through two-slot shared arrays between warps, one __syncthreads() per
-// step; E is the thread's own LEFT chain, in a register. Many stripes run
-// at once as a wavefront of blocks: stripe s writes its last row's H (and
-// F) to global boundary rows and publishes its progress every kPublish
-// columns with a release store; stripe s+1's thread 0 waits on that counter
-// with acquire loads before it reads H(s*T, j) and F(s*T, j).
-//
-// Substitution mode builds a per-block query profile in shared memory at
-// the start, s_prof[q*T + k] = S[q, b_i] for the block's rows (the GPU
-// counterpart of `_build_profile`): thread k then reads s_prof[a_j*T + k],
-// so a warp's reads hit 32 consecutive banks whatever the codes. Sentinel
-// codes (< 0) score NEG_SUB without a table read. The caller refuses codes
-// outside [-3, A) and keeps A*T*4 bytes within the opt-in shared memory.
-//
-// Blocks are scheduled in no order, so a block waiting on one that is not
-// resident would hang the card. A block therefore takes its stripe index
-// from an atomic ticket (zeroed by the caller for each launch), not from
-// blockIdx: the block it waits on took its ticket earlier, is resident,
-// and never waits on a later one.
-//
-// Edges are masked explicitly (rows > n, columns outside 1..m); nothing
-// relies on the penalties decaying garbage cells. The argmax keeps the
-// reference's first row-major occurrence: each thread keeps (best, j) for
-// its row under a strict '>' while j ascends, the block takes the smallest
-// row among the threads holding its max, and the caller reduces the
-// stripes, the first stripe holding the global max winning.
-//
-// Each C entry launches on the given stream, allocates nothing, and returns
-// cudaGetLastError() after its launch.
+// K4b, the band mode (pallas_fill.py `_kernel` :358-363, :571-574,
+// :594-596, reached through `stripe_fill_raw(band=)` :1084, :1127): each
+// entry takes a band half-width last before the stream. kNoBand picks the
+// unbanded instantiation, so K1-K4 run the code they ran before the band
+// was added; any other value picks the kBand instantiation, where a cell
+// with |i - j| > band gets H = 0 and P = NONE, and E = F = NEG, as the JAX
+// scan does (a negative band keeps no cell). The TPU kernel leaves E and F
+// of such cells unmasked, which gives the same H and P for the negative
+// penalties the entries take. The banded fill is bound like the unbanded
+// one, since every step still walks the whole anti-diagonal; skipping the
+// stripes and steps outside the band is later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "stripe_kernel.cuh"
 
 namespace {
 
-constexpr int kNone = 0, kUp = 1, kLeft = 2, kDiagonal = 3;
-constexpr int kEExt = 4, kFExt = 8;     // Gotoh state bits of affine P
-constexpr int kNeg = -(1 << 30);        // affine minus infinity
-constexpr int kNegSub = -(1 << 20);     // a sentinel code's score
-constexpr int kPublish = 32;     // columns between progress publications
-constexpr int kMaxThreads = 1024;
-constexpr int kStaticSmemMax = 48 * 1024;
-
-// The scoring model. Linear: match/mismatch and gap. Affine: open/extend
-// replace gap. Substitution: sub (A x A, row-major S[a_code, b_code])
-// replaces match/mismatch.
-struct Model {
-  int match, mismatch, gap, open, extend;
-  const int* sub;
-  int A;
-};
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// sync:  [0] the stripe ticket, [1 + s] the last column stripe s published.
-// bnd:   (stripes - 1) x (m + 1) int32, row s = H(s*T + T, :).
-// bnd_f: the same for F, only when kAffine.
-// best:  (stripes, 4) int32, row s = (score, i, j, 0) of the stripe's first
-//        max, or zeros when the stripe holds no positive cell.
-// right: (n + 1) int32, right[i] = H(i, m); right[0] is left to the caller.
-// P:     (n + 1) x (m + 1) int8 row-major, only when kCaptureP.
+// the band's instantiation when sc.band != kNoBand, else the plain one
 template <bool kCaptureP, bool kAffine, bool kSub>
-__global__ void __launch_bounds__(kMaxThreads)
-stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-              int m, int n, Model sc, int* __restrict__ sync,
-              int* __restrict__ bnd, int* __restrict__ bnd_f,
-              int* __restrict__ best_out, int* __restrict__ right,
-              int8_t* __restrict__ P) {
-  __shared__ int s_stripe, s_best, s_k;
-  __shared__ int s_edge[2][kMaxThreads / 32];  // last lane of each warp: H
-  __shared__ int s_fedge[2][kAffine ? kMaxThreads / 32 : 1];   // and F
-  extern __shared__ int s_prof[];              // kSub: A x T query profile
-
-  const int k = threadIdx.x;
-  const int T = blockDim.x;
-  const int lane = k & 31;
-  const int warp = k >> 5;
-  if (k == 0) {
-    s_stripe = atomicAdd(&sync[0], 1);
-    s_best = 0;
-    s_k = T;
+int launch_fill(const int8_t* a, const int8_t* b, int m, int n,
+                const Model& sc, int T, int* sync, int* bnd, int* bnd_f,
+                int* best, int* right, int8_t* P, cudaStream_t stream) {
+  if (sc.band != kNoBand) {
+    return launch<kCaptureP, kAffine, kSub, true>(
+        a, b, m, n, sc, Block{}, T, sync, bnd, bnd_f, best, right, P, stream);
   }
-  if (k < kMaxThreads / 32) s_edge[0][k] = s_edge[1][k] = 0;
-  if constexpr (kAffine) {
-    if (k < kMaxThreads / 32) s_fedge[0][k] = s_fedge[1][k] = kNeg;
-  }
-  __syncthreads();
-
-  const int s = s_stripe;
-  const int i = s * T + k + 1;
-  const bool row_ok = i <= n;
-  const int bi = row_ok ? b[i - 1] : -1;
-  if constexpr (kSub) {
-    // only thread k reads column k of the profile, so no barrier is needed
-    if (bi >= 0) {
-      for (int q = 0; q < sc.A; ++q) {
-        s_prof[q * T + k] = __ldg(&sc.sub[q * sc.A + bi]);
-      }
-    }
-  }
-  const int rows = min(T, n - s * T);
-  const int steps = m + rows - 1;
-  const size_t m1 = (size_t)m + 1;
-  const size_t up_off = s > 0 ? (size_t)(s - 1) * m1 : 0;
-  const size_t down_off = (size_t)s * m1;           // written if publish
-  int* progress = sync + 1 + s;
-  const int* wait_on = sync + s;                    // stripe s-1's counter
-  const bool publish = k == T - 1 && (size_t)(s + 1) * T < (size_t)n;
-
-  int h = 0;        // H(i, j) after this step: the next step's LEFT
-  int up_prev = 0;  // this step's UP: the next step's DIAG
-  int e = kNeg;     // affine: E(i, j) after this step, the LEFT chain
-  int f = kNeg;     // affine: F(i, j) after this step, read by thread k+1
-  int best = 0, best_j = 0;
-  int seen = 0;     // thread 0: stripe s-1's progress seen so far
-
-  for (int t = 0; t < steps; ++t) {
-    const int j = t - k + 1;
-    // UP: H(i-1, j) is thread k-1's H after step t-1 (F likewise)
-    int up_in = __shfl_up_sync(0xffffffffu, h, 1);
-    int f_up = kNeg;
-    if constexpr (kAffine) f_up = __shfl_up_sync(0xffffffffu, f, 1);
-    if (lane == 0) {
-      if (k == 0) {
-        up_in = 0;                          // stripe 0 reads the zero row
-        f_up = kNeg;                        // and F(0, j) = NEG
-        if (s > 0 && j <= m) {
-          while (seen < j) seen = load_acquire(wait_on);
-          up_in = __ldcg(&bnd[up_off + j]);
-          if constexpr (kAffine) f_up = __ldcg(&bnd_f[up_off + j]);
-        }
-      } else {
-        up_in = s_edge[(t + 1) & 1][warp - 1];   // written at step t-1
-        if constexpr (kAffine) f_up = s_fedge[(t + 1) & 1][warp - 1];
-      }
-    }
-
-    int h_new = 0;
-    int f_new = kNeg;
-    if (row_ok && j >= 1 && j <= m) {
-      const int aj = __ldg(&a[j - 1]);
-      int sub;
-      if constexpr (kSub) {
-        sub = (aj < 0 || bi < 0) ? kNegSub : s_prof[aj * T + k];
-      } else {
-        sub = aj == bi ? sc.match : sc.mismatch;
-      }
-      const int diag = up_prev + sub;
-      int up, left;
-      int e_new = kNeg;
-      if constexpr (kAffine) {
-        e_new = max(h + sc.open, e + sc.extend);
-        f_new = max(up_in + sc.open, f_up + sc.extend);
-        up = f_new;
-        left = e_new;
-      } else {
-        up = up_in + sc.gap;
-        left = h + sc.gap;
-      }
-      if constexpr (kCaptureP) {
-        // reference tie order: DIAG > UP > LEFT > staying at 0/NONE
-        int code = kNone;
-        if (diag > h_new) { h_new = diag; code = kDiagonal; }
-        if (up > h_new) { h_new = up; code = kUp; }
-        if (left > h_new) { h_new = left; code = kLeft; }
-        if constexpr (kAffine) {
-          if (e_new == e + sc.extend) code += kEExt;
-          if (f_new == f_up + sc.extend) code += kFExt;
-        }
-        P[(size_t)i * m1 + j] = (int8_t)code;
-      } else {
-        h_new = max(max(diag, up), max(left, 0));
-      }
-      if constexpr (kAffine) e = e_new;
-      if (h_new > best) { best = h_new; best_j = j; }
-      if (j == m) right[i] = h_new;
-      if (publish) {
-        bnd[down_off + j] = h_new;
-        if constexpr (kAffine) bnd_f[down_off + j] = f_new;
-        if (j % kPublish == 0 || j == m) store_release(progress, j);
-      }
-    }
-    h = h_new;
-    up_prev = up_in;
-    if constexpr (kAffine) f = f_new;
-    if (lane == 31) {
-      s_edge[t & 1][warp] = h;
-      if constexpr (kAffine) s_fedge[t & 1][warp] = f;
-    }
-    __syncthreads();
-  }
-
-  // stripe argmax: score desc, then row asc; j is already the row's first
-  if (best > 0) atomicMax(&s_best, best);
-  __syncthreads();
-  if (best > 0 && best == s_best) atomicMin(&s_k, k);
-  __syncthreads();
-  int* out = best_out + 4 * (size_t)s;
-  if (k == s_k) {
-    out[0] = best; out[1] = i; out[2] = best_j; out[3] = 0;
-  } else if (k == 0 && s_best == 0) {
-    out[0] = out[1] = out[2] = out[3] = 0;
-  }
-}
-
-template <bool kCaptureP, bool kAffine, bool kSub>
-int launch(const int8_t* a, const int8_t* b, int m, int n, const Model& sc,
-           int T, int* sync, int* bnd, int* bnd_f, int* best, int* right,
-           int8_t* P, cudaStream_t stream) {
-  if (m < 1 || n < 1 || T < 32 || T > kMaxThreads || T % 32) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (kSub && (sc.sub == nullptr || sc.A < 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = kSub ? (size_t)sc.A * T * sizeof(int) : 0;
-  if (smem > (size_t)kStaticSmemMax) {
-    // above 48 KB a block's dynamic shared memory needs an opt-in
-    const cudaError_t err = cudaFuncSetAttribute(
-        stripe_kernel<kCaptureP, kAffine, kSub>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int stripes = (n + T - 1) / T;
-  stripe_kernel<kCaptureP, kAffine, kSub><<<stripes, T, smem, stream>>>(
-      a, b, m, n, sc, sync, bnd, bnd_f, best, right, P);
-  return (int)cudaGetLastError();
+  return launch<kCaptureP, kAffine, kSub>(a, b, m, n, sc, Block{}, T, sync,
+                                          bnd, bnd_f, best, right, P, stream);
 }
 
 }  // namespace
@@ -276,32 +52,33 @@ extern "C" const char* sw_error_string(int err) {
 extern "C" int sw_stripe_score_linear(const int8_t* a, const int8_t* b,
                                       int m, int n, int match, int mismatch,
                                       int gap, int T, int* sync, int* bnd,
-                                      int* best, int* right,
+                                      int* best, int* right, int band,
                                       cudaStream_t stream) {
-  const Model sc{match, mismatch, gap, 0, 0, nullptr, 0};
-  return launch<false, false, false>(a, b, m, n, sc, T, sync, bnd, nullptr,
-                                     best, right, nullptr, stream);
+  const Model sc{match, mismatch, gap, 0, 0, nullptr, 0, band};
+  return launch_fill<false, false, false>(a, b, m, n, sc, T, sync, bnd,
+                                          nullptr, best, right, nullptr,
+                                          stream);
 }
 
 extern "C" int sw_stripe_fill_p_linear(const int8_t* a, const int8_t* b,
                                        int m, int n, int match, int mismatch,
                                        int gap, int T, int* sync, int* bnd,
                                        int* best, int* right, int8_t* P,
-                                       cudaStream_t stream) {
-  const Model sc{match, mismatch, gap, 0, 0, nullptr, 0};
-  return launch<true, false, false>(a, b, m, n, sc, T, sync, bnd, nullptr,
-                                    best, right, P, stream);
+                                       int band, cudaStream_t stream) {
+  const Model sc{match, mismatch, gap, 0, 0, nullptr, 0, band};
+  return launch_fill<true, false, false>(a, b, m, n, sc, T, sync, bnd,
+                                         nullptr, best, right, P, stream);
 }
 
 extern "C" int sw_stripe_score_affine(const int8_t* a, const int8_t* b,
                                       int m, int n, int match, int mismatch,
                                       int gap_open, int gap_extend, int T,
                                       int* sync, int* bnd, int* bnd_f,
-                                      int* best, int* right,
+                                      int* best, int* right, int band,
                                       cudaStream_t stream) {
-  const Model sc{match, mismatch, 0, gap_open, gap_extend, nullptr, 0};
-  return launch<false, true, false>(a, b, m, n, sc, T, sync, bnd, bnd_f,
-                                    best, right, nullptr, stream);
+  const Model sc{match, mismatch, 0, gap_open, gap_extend, nullptr, 0, band};
+  return launch_fill<false, true, false>(a, b, m, n, sc, T, sync, bnd, bnd_f,
+                                         best, right, nullptr, stream);
 }
 
 extern "C" int sw_stripe_fill_p_affine(const int8_t* a, const int8_t* b,
@@ -309,10 +86,10 @@ extern "C" int sw_stripe_fill_p_affine(const int8_t* a, const int8_t* b,
                                        int gap_open, int gap_extend, int T,
                                        int* sync, int* bnd, int* bnd_f,
                                        int* best, int* right, int8_t* P,
-                                       cudaStream_t stream) {
-  const Model sc{match, mismatch, 0, gap_open, gap_extend, nullptr, 0};
-  return launch<true, true, false>(a, b, m, n, sc, T, sync, bnd, bnd_f,
-                                   best, right, P, stream);
+                                       int band, cudaStream_t stream) {
+  const Model sc{match, mismatch, 0, gap_open, gap_extend, nullptr, 0, band};
+  return launch_fill<true, true, false>(a, b, m, n, sc, T, sync, bnd, bnd_f,
+                                        best, right, P, stream);
 }
 
 // sub: (A, A) int32 row-major on the device; affine != 0 takes
@@ -321,15 +98,17 @@ extern "C" int sw_stripe_score_sub(const int8_t* a, const int8_t* b, int m,
                                    int n, const int* sub, int A, int affine,
                                    int gap, int gap_open, int gap_extend,
                                    int T, int* sync, int* bnd, int* bnd_f,
-                                   int* best, int* right,
+                                   int* best, int* right, int band,
                                    cudaStream_t stream) {
-  const Model sc{0, 0, gap, gap_open, gap_extend, sub, A};
+  const Model sc{0, 0, gap, gap_open, gap_extend, sub, A, band};
   if (affine) {
-    return launch<false, true, true>(a, b, m, n, sc, T, sync, bnd, bnd_f,
-                                     best, right, nullptr, stream);
+    return launch_fill<false, true, true>(a, b, m, n, sc, T, sync, bnd,
+                                          bnd_f, best, right, nullptr,
+                                          stream);
   }
-  return launch<false, false, true>(a, b, m, n, sc, T, sync, bnd, nullptr,
-                                    best, right, nullptr, stream);
+  return launch_fill<false, false, true>(a, b, m, n, sc, T, sync, bnd,
+                                         nullptr, best, right, nullptr,
+                                         stream);
 }
 
 extern "C" int sw_stripe_fill_p_sub(const int8_t* a, const int8_t* b, int m,
@@ -337,12 +116,12 @@ extern "C" int sw_stripe_fill_p_sub(const int8_t* a, const int8_t* b, int m,
                                     int gap, int gap_open, int gap_extend,
                                     int T, int* sync, int* bnd, int* bnd_f,
                                     int* best, int* right, int8_t* P,
-                                    cudaStream_t stream) {
-  const Model sc{0, 0, gap, gap_open, gap_extend, sub, A};
+                                    int band, cudaStream_t stream) {
+  const Model sc{0, 0, gap, gap_open, gap_extend, sub, A, band};
   if (affine) {
-    return launch<true, true, true>(a, b, m, n, sc, T, sync, bnd, bnd_f,
-                                    best, right, P, stream);
+    return launch_fill<true, true, true>(a, b, m, n, sc, T, sync, bnd, bnd_f,
+                                         best, right, P, stream);
   }
-  return launch<true, false, true>(a, b, m, n, sc, T, sync, bnd, nullptr,
-                                   best, right, P, stream);
+  return launch_fill<true, false, true>(a, b, m, n, sc, T, sync, bnd,
+                                        nullptr, best, right, P, stream);
 }

@@ -3,7 +3,8 @@
 The port decides by the device of the request. On a CUDA device, a
 problem the stripe kernels take (``stripe_fill_supported``, the JAX
 package's gates: negative penalties, or negative gaps with a substitution
-table) runs the ``stripe`` plan, the hand-written CUDA kernels;
+table) runs the ``stripe`` plan, the hand-written CUDA kernels, banded or
+not;
 anything else runs the ``scan`` plan, as the JAX package does for a
 scoring its kernel rejects. On the CPU the ``scan`` plan runs.
 
@@ -36,8 +37,7 @@ def choose_exec(m: int, n: int, config: EngineConfig = EngineConfig(),
                 substitution=None) -> ExecPlan:
     """Plan for a problem of m columns and n rows on ``device``;
     ``substitution``: the (A, A) table, or None for match/mismatch."""
-    if device.type == "cuda" and config.band is None \
-            and stripe_fill_supported(m, n, traceback, scoring,
-                                      substitution):
+    if device.type == "cuda" and stripe_fill_supported(
+            m, n, traceback, scoring, substitution):
         return ExecPlan("stripe")
     return ExecPlan("scan")

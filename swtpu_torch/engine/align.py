@@ -10,10 +10,16 @@ Scoring: linear or affine (Gotoh) gaps, with the match/mismatch compare or,
 given ``substitution=``, an (A, A) table S[a_code, b_code] such as
 ``core.substitution.BLOSUM62`` (protein codes over ``PROTEIN_ALPHABET``).
 
-Traceback walks the full predecessor matrix P on the host
-(``oracle.backtrack``), the JAX package's exact route below
-``full_p_max_cells``. Its lean routes above that cap (``windowed``,
-``hirschberg``) are not ported: such a request raises.
+Traceback up to ``full_p_max_cells`` walks the full predecessor matrix P
+on the host (``oracle.backtrack``), the JAX package's exact route. Above
+it, ``traceback_method='auto'`` takes the lean route of
+``engine.traceback``: ``windowed`` (locate by a forward score pass and an
+anchored reverse NW pass, refill the window with P and walk it on the
+device), or ``hirschberg`` (linear space), either returning the strings
+without ``path``; on a card its passes launch the kernels whatever the
+plan, so it takes the scorings they take (negative penalties) and raises
+for the others. ``config.band`` keeps the cells with |i - j| <= band, on
+score-only calls too, and always takes full P.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..dispatch.plan import choose_exec
 from ..kernels.scan_fill import diag_to_rowmajor, embed_table, scan_fill
 from ..kernels.stripe_fill import (stripe_fill, stripe_fill_supported,
                                    stripe_score)
+from . import traceback as tb
 
 
 @dataclasses.dataclass
@@ -129,17 +136,27 @@ def align(
     if plan not in ("stripe", "scan"):
         raise ValueError(f"unknown plan {plan!r} (use 'stripe' or 'scan')")
 
+    # memory-lean traceback: locate + windowed refill / Hirschberg, no
+    # full P (engine/traceback.py); like the JAX package, it serves every
+    # plan, on a card through the kernels
     method = _resolve_traceback_method(m, n, config)
-    if want_tb and method != "full" and not return_matrices:
-        raise NotImplementedError(
-            f"traceback_method={method!r} for {m}x{n}: the lean traceback "
-            "(engine/traceback.py) is not ported to swtpu_torch yet "
-            "(ROADMAP Queue 1 item 6); raise full_p_max_cells or set "
-            "traceback_method='full'")
+    if want_tb and method in ("windowed", "hirschberg") \
+            and not return_matrices:
+        lean = tb.windowed if method == "windowed" else tb.hirschberg
+        got = lean(a_codes, b_codes, scoring, sub=sub_np, alphabet=alphabet,
+                   device=dev)
+        if got is None:
+            res = Alignment(max_score=0, max_i=0, max_j=0, last_cell=0)
+        else:
+            score_v, loc, ra, rb = got
+            res = Alignment(max_score=score_v, max_i=loc.end_i,
+                            max_j=loc.end_j, last_cell=loc.last_cell,
+                            aligned_a=ra, aligned_b=rb)
+        res._m1 = m + 1
+        return res
 
-    if plan == "stripe" and (return_matrices or config.band is not None
-                             or not stripe_fill_supported(m, n, want_tb,
-                                                          scoring, sub_np)):
+    if plan == "stripe" and (return_matrices or not stripe_fill_supported(
+            m, n, want_tb, scoring, sub_np)):
         plan = "scan"     # the stripe kernels never materialize H
 
     a_t = torch.from_numpy(a_codes).to(dev)
@@ -149,7 +166,7 @@ def align(
     if plan == "stripe":
         fill = stripe_fill if want_tb else stripe_score
         out = fill(a_t, b_t, scoring, T=config.stripe_rows,
-                   substitution=sub_t)
+                   substitution=sub_t, band=config.band)
         vals = out.best.tolist()                         # one small fetch
         if want_tb:
             P = out.P.cpu().numpy()

@@ -1,11 +1,12 @@
 """Build and bind the CUDA kernels of ``swtpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ctypes, at first use and once per
-process. The library lands in ``swtpu_torch/build/``, named by a hash of
-the sources and flags, so an edited source is rebuilt and a stale library
-is never loaded. Nothing is compiled at import time, and a failed build
-raises: there is no fallback.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` process
+per source, all started together, and linked into one shared library with
+a plain C interface, loaded with ctypes at first use and once per process.
+The library lands in ``swtpu_torch/build/``, named by a hash of the
+sources, headers and flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing is compiled at import time, and a failed
+build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stripe_fill.cu",)
+SOURCES = tuple(_PKG / "csrc" / f for f in (
+    "stripe_fill.cu", "stripe_block.cu", "walk_p.cu"))
+HEADERS = (_PKG / "csrc" / "stripe_kernel.cuh",)
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the CUDA toolkit's default install prefix, tried after CUDA_HOME,
 # CUDA_PATH and PATH
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -40,16 +43,27 @@ _AFFINE = [_ptr, _ptr] + [_int] * 7 + [_ptr] * 5
 # a, b, m, n, sub, A, affine, gap, gap_open, gap_extend, T, sync, bnd,
 # bnd_f, best, right
 _SUB = [_ptr, _ptr, _int, _int, _ptr] + [_int] * 6 + [_ptr] * 5
-ARGTYPES = {
-    # each score entry ends with the stream; its fill_p twin takes P
-    # before the stream
-    "sw_stripe_score_linear": _LINEAR + [_ptr],
-    "sw_stripe_fill_p_linear": _LINEAR + [_ptr, _ptr],
-    "sw_stripe_score_affine": _AFFINE + [_ptr],
-    "sw_stripe_fill_p_affine": _AFFINE + [_ptr, _ptr],
-    "sw_stripe_score_sub": _SUB + [_ptr],
-    "sw_stripe_fill_p_sub": _SUB + [_ptr, _ptr],
-}
+ARGTYPES = {}
+for _mode, _args in (("linear", _LINEAR), ("affine", _AFFINE),
+                     ("sub", _SUB)):
+    # each score entry then takes the band and the stream; its fill_p twin
+    # takes P before them
+    ARGTYPES[f"sw_stripe_score_{_mode}"] = _args + [_int, _ptr]
+    ARGTYPES[f"sw_stripe_fill_p_{_mode}"] = _args + [_ptr, _int, _ptr]
+# K5: the model, T, local, then the boundaries, the scratch and outputs
+# a, b, m, n, match, mismatch, gap, T, local, top, left, sync, bnd, best,
+# right, bottom, stream
+ARGTYPES["sw_stripe_block_linear"] = [_ptr, _ptr] + [_int] * 7 + [_ptr] * 8
+# a, b, m, n, match, mismatch, gap_open, gap_extend, T, local, top, left,
+# top_f, left_e, sync, bnd, bnd_f, best, right, right_e, bottom, bottom_f,
+# stream
+ARGTYPES["sw_stripe_block_affine"] = [_ptr, _ptr] + [_int] * 8 + [_ptr] * 13
+# a, b, m, n, sub, A, affine, gap, gap_open, gap_extend, T, local, then as
+# the affine entry from top on
+ARGTYPES["sw_stripe_block_sub"] = ([_ptr, _ptr, _int, _int, _ptr]
+                                   + [_int] * 7 + [_ptr] * 13)
+# P, m1, wn, wm, moves, count, stream
+ARGTYPES["sw_walk_p"] = [_ptr] + [_int] * 3 + [_ptr] * 3
 
 
 @dataclasses.dataclass
@@ -81,9 +95,36 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, out_dir: str) -> str:
+    """Compile every source to an object in ``out_dir`` at once, link them
+    into ``out_dir/lib.so``; return nvcc's output. Raises on a failure."""
+    procs = []
+    for src in SOURCES:
+        obj = os.path.join(out_dir, src.stem + ".o")
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj}: nvcc failed ({proc.returncode})")
+    if failed:
+        raise RuntimeError("\n".join(failed + log))
+    lib = os.path.join(out_dir, "lib.so")
+    proc = subprocess.run([nvcc, "-shared", "-o", lib,
+                           *(obj for obj, _ in procs)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return "".join(log)
 
 
 def library() -> ctypes.CDLL:
@@ -96,25 +137,14 @@ def library() -> ctypes.CDLL:
     if not path.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build to a temporary name and rename, so a concurrent process
-        # never loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        # build in a temporary directory and rename, so a concurrent
+        # process never loads a half-written library
         t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            log = _compile(nvcc, tmp)
+            os.replace(os.path.join(tmp, "lib.so"), path)
         BUILD.seconds = time.perf_counter() - t0
-        BUILD.log = proc.stdout + proc.stderr
+        BUILD.log = log
     lib = ctypes.CDLL(str(path))
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)

@@ -31,8 +31,19 @@ per-cell score from an (A+3, A+3) table indexed by ``code + 3``
 (``core.substitution.embed_sentinels``) in place of the match/mismatch
 compare.
 
-Only local, unbanded fills without boundary injection are ported; the
-other modes raise ``NotImplementedError`` (ROADMAP Queue 1 item 2).
+Boundary injection (``top_row``/``left_col``, affine ``top_f``/``left_e``)
+replaces the zero row 0 and column 0: lane 0 reads H(0, j) and F(0, j)
+from the top row as its UP inflow, and a lane carries ``left_col[i]``
+(and ``left_e[i]``) until it enters the matrix, so its first LEFT and DIAG
+reads see the injected column. ``local=False`` is the global
+(Needleman-Wunsch) recurrence: no zero floor, DIAG the default code; the
+max still counts positive cells only (the anchored-reverse contract).
+``band`` keeps the cells with ``|i - j| <= band`` (``|2k - t| <= band``);
+a cell outside carries its lane's boundary H, P ``NONE``, E ``e_init`` and
+F ``NEG``, as the JAX scan does. A banded step computes only the lanes of
+the band plus one on each side (the lane leaving it, which must be reset,
+and the lane entering it, whose DIAG carry must be current), so a narrow
+band costs a narrow step.
 """
 
 from __future__ import annotations
@@ -44,7 +55,6 @@ import torch
 from ..core.config import DIAGONAL, E_EXT, F_EXT, LEFT, NONE, UP, Scoring
 from ..core.substitution import NEG_SUB
 
-_UNPORTED = "not ported to swtpu_torch yet (ROADMAP Queue 1 item 2)"
 # affine "minus infinity": E before column 1 and F above row 1; adding a
 # gap penalty to it cannot wrap int32
 NEG = -(1 << 30)
@@ -83,6 +93,19 @@ class FillOut(NamedTuple):
     right_col: torch.Tensor     # (n+1,) int32: H[:, m]
     p_diag: Optional[torch.Tensor]    # (n+m-1, n) int8 or None
     h_diag: Optional[torch.Tensor]    # (n+m-1, n) int32 or None
+    bottom_f: Optional[torch.Tensor] = None   # (m+1,) F[n, :] (affine)
+    right_e: Optional[torch.Tensor] = None    # (n+1,) E[:, m] (affine)
+
+
+def _boundary(x: Optional[torch.Tensor], size: int, fill: int,
+              dev: torch.device, name: str) -> torch.Tensor:
+    """An injected boundary vector as int32 on ``dev``, or ``fill``."""
+    if x is None:
+        return torch.full((size,), fill, dtype=torch.int32, device=dev)
+    if x.shape != (size,):
+        raise ValueError(f"{name} must have shape ({size},), got "
+                         f"{tuple(x.shape)}")
+    return x.to(device=dev, dtype=torch.int32)
 
 
 def scan_fill(
@@ -102,13 +125,10 @@ def scan_fill(
 ) -> FillOut:
     """Fill the (n+1)x(m+1) DP matrix for one pair. a: (m,) codes, b: (n,)
     codes, both integer tensors on one device; m, n >= 1. ``sub_table``:
-    (A+3, A+3) int32 embedded substitution table on the same device."""
-    if band is not None:
-        raise NotImplementedError(f"banded scan_fill is {_UNPORTED}")
-    if any(x is not None for x in (top_row, left_col, top_f, left_e)):
-        raise NotImplementedError(f"boundary injection is {_UNPORTED}")
-    if not local:
-        raise NotImplementedError(f"global (NW) scan_fill is {_UNPORTED}")
+    (A+3, A+3) int32 embedded substitution table on the same device.
+    ``top_row`` (m+1,) / ``left_col`` (n+1,): H of row 0 / column 0, both
+    holding the corner H[0, 0]; ``top_f`` (m+1,) / ``left_e`` (n+1,): F of
+    row 0 / E of column 0 (affine only, NEG when None)."""
     m, n = a.numel(), b.numel()
     if m < 1 or n < 1:
         raise ValueError(f"scan_fill needs non-empty sequences, got m={m}, n={n}")
@@ -129,24 +149,48 @@ def scan_fill(
         flat_sub = sub_table.to(i32).reshape(-1)
         ar = (ar + 3) * A3            # row offsets into the flat table
         b32 = b32 + 3
+    top = _boundary(top_row, m + 1, 0, dev, "top_row")
+    left = _boundary(left_col, n + 1, 0, dev, "left_col")
+    h_init = left[1:]                 # a lane's H before it enters
     # hx[k+1] = lane k's H after the last step; hx[0] is lane 0's UP inflow,
-    # the zero top row
-    hx = torch.zeros(n + 1, dtype=i32, device=dev)
-    up_prev = torch.zeros(n, dtype=i32, device=dev)   # next step's DIAG
+    # H(0, t+1) of the top row
+    hx = torch.cat([top[1:2], h_init])
+    # next step's DIAG; a lane enters with H(i-1, 0), lane 0 with the corner
+    up_prev = torch.cat([top[:1], left[1:n]])
     if affine:
-        ex = torch.full((n,), NEG, dtype=i32, device=dev)      # E(i, j-1)
-        fx = torch.full((n + 1,), NEG, dtype=i32, device=dev)  # like hx, F
+        ftop = _boundary(top_f, m + 1, NEG, dev, "top_f")
+        e_init = _boundary(left_e, n + 1, NEG, dev, "left_e")[1:]
+        ex = e_init.clone()                                    # E(i, j-1)
+        fx = torch.cat([ftop[1:2],                             # like hx, F
+                        torch.full((n,), NEG, dtype=i32, device=dev)])
+        right_e = torch.cat([torch.full((1,), NEG, dtype=i32, device=dev),
+                             e_init])
+        bottom_f = torch.full((m + 1,), NEG, dtype=i32, device=dev)
     lane_best = torch.zeros(n, dtype=i32, device=dev)
     lane_t = torch.zeros(n, dtype=i32, device=dev)    # step of lane_best
-    right_col = torch.zeros(n + 1, dtype=i32, device=dev)
-    bottom_row = torch.zeros(m + 1, dtype=i32, device=dev)
+    # a lane not computed at its edge step (outside the band) holds h_init
+    right_col = torch.cat([top[m:], h_init])
+    bottom_row = left[n:].repeat(m + 1)
     p_diag = (torch.zeros((steps, n), dtype=torch.int8, device=dev)
               if return_p else None)
     h_diag = (torch.zeros((steps, n), dtype=i32, device=dev)
               if return_h else None)
+    lanes = torch.arange(n, dtype=i32, device=dev)
 
     for t in range(steps):
-        lo, hi = max(0, t - m + 1), min(n - 1, t) + 1     # lanes [lo, hi)
+        mlo = max(0, t - m + 1)       # lanes [mlo, hi) lie in the matrix
+        lo, hi = mlo, min(n - 1, t) + 1
+        if band is not None:
+            # the band's lanes ceil((t-band)/2) .. floor((t+band)/2), one
+            # more on each side
+            lo = max(lo, (t - band + 1) // 2 - 1)
+            hi = min(hi, (t + band) // 2 + 2)
+            if lo >= hi:
+                continue
+        if lo == 0 and top_row is not None:
+            hx[0] = top[t + 1]
+        if lo == 0 and affine and top_f is not None:
+            fx[0] = ftop[t + 1]
         w = ar[m - 1 - t + lo:m - 1 - t + hi]
         if sub_table is not None:
             sub = flat_sub[w + b32[lo:hi]]
@@ -156,39 +200,57 @@ def scan_fill(
         diag = up_prev[lo:hi] + sub
         if affine:
             e_prev, f_prev = ex[lo:hi], fx[lo:hi]
-            left = torch.maximum(hx[lo + 1:hi + 1] + g_open, e_prev + g_ext)
+            left_g = torch.maximum(hx[lo + 1:hi + 1] + g_open, e_prev + g_ext)
             up_g = torch.maximum(up + g_open, f_prev + g_ext)
-            e_ext = left == e_prev + g_ext
+            e_ext = left_g == e_prev + g_ext
             f_ext = up_g == f_prev + g_ext
-            ex[lo:hi] = left
-            fx[lo + 1:hi + 1] = up_g
         else:
-            left = hx[lo + 1:hi + 1] + gap
+            left_g = hx[lo + 1:hi + 1] + gap
             up_g = up + gap
         up_prev[lo:hi] = up
-        # tie order DIAG > UP > LEFT > staying at 0/NONE, strict '>'
-        h = diag.clamp(min=0)
+        # tie order DIAG > UP > LEFT (> staying at 0/NONE), strict '>'
+        h = diag.clamp(min=0) if local else diag
         take_up = up_g > h
         h = torch.where(take_up, up_g, h)
-        take_left = left > h
-        h = torch.where(take_left, left, h)
+        take_left = left_g > h
+        h = torch.where(take_left, left_g, h)
         if return_p:
-            p = torch.where(diag > 0, DIAGONAL, NONE).to(torch.int8)
+            p = (torch.where(diag > 0, DIAGONAL, NONE) if local
+                 else torch.full_like(diag, DIAGONAL)).to(torch.int8)
             p.masked_fill_(take_up, UP)
             p.masked_fill_(take_left, LEFT)
             if affine:
                 p += (e_ext * E_EXT + f_ext * F_EXT).to(torch.int8)
+        inb = None
+        if band is not None:
+            inb = (2 * lanes[lo:hi] - t).abs() <= band
+            h = torch.where(inb, h, h_init[lo:hi])
+            if return_p:
+                p.masked_fill_(~inb, NONE)
+            if affine:
+                left_g = torch.where(inb, left_g, e_init[lo:hi])
+                up_g = torch.where(inb, up_g, NEG)
+        if affine:
+            ex[lo:hi] = left_g
+            fx[lo + 1:hi + 1] = up_g
+        if return_p:
             p_diag[t, lo:hi] = p
         if return_h:
-            h_diag[t, lo:hi] = h
+            h_diag[t, lo:hi] = h if inb is None else torch.where(inb, h, 0)
         hx[lo + 1:hi + 1] = h
         better = h > lane_best[lo:hi]
-        lane_best[lo:hi] = torch.maximum(lane_best[lo:hi], h)
+        if inb is not None:
+            better &= inb
+        lane_best[lo:hi] = torch.where(better, h, lane_best[lo:hi])
         lane_t[lo:hi].masked_fill_(better, t)
-        if t >= m - 1:            # lane lo sits on column m
+        if t >= m - 1 and lo == mlo:      # lane mlo sits on column m
             right_col[lo + 1] = h[0]
-        if hi == n:               # lane n-1 sits on row n
+            if affine:
+                right_e[lo + 1] = left_g[0]
+        if hi == n:                       # lane n-1 sits on row n
             bottom_row[t - n + 2] = h[-1]
+            if affine:
+                bottom_f[t - n + 2] = up_g[-1]
 
     kk = torch.arange(n, dtype=i32, device=dev)
     best = lane_best.max()
@@ -200,6 +262,8 @@ def scan_fill(
         max_score=best, max_i=max_i, max_j=max_j, last_cell=right_col[n],
         bottom_row=bottom_row, right_col=right_col,
         p_diag=p_diag, h_diag=h_diag,
+        bottom_f=bottom_f if affine else None,
+        right_e=right_e if affine else None,
     )
 
 

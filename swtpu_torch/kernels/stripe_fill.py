@@ -1,6 +1,7 @@
-"""The CUDA stripe kernels of the single-pair path, and their plain versions.
+"""The CUDA kernels of the single-pair path, and their plain versions.
 
-Counterpart of ``swtpu.kernels.pallas_fill``'s single-pair entry points:
+Counterpart of ``swtpu.kernels.pallas_fill``'s single-pair entry points and
+of the device walk of ``swtpu.engine.traceback``:
 
 * ``stripe_score`` (the ``stripe_score_fn`` counterpart): max score, its
   first row-major end cell and ``last_cell`` reduced on the device into one
@@ -9,21 +10,33 @@ Counterpart of ``swtpu.kernels.pallas_fill``'s single-pair entry points:
 * ``stripe_fill`` (the ``stripe_fill`` counterpart with ``return_p=True``):
   the same, plus the predecessor codes as a row-major (n+1, m+1) int8 P on
   the device.
+* ``band=`` on both (``stripe_fill_raw(band=)``): cells with |i-j| > band
+  are H = 0, P = NONE.
+* ``stripe_block`` (the ``stripe_block_fn`` counterpart): a fill with
+  injected row 0 and column 0, local or global (NW), exporting the right
+  column, E of column m and, on request, H and F of row n.
+* ``walk_p`` (the device walk of ``_stripe_window_walk``): the Gotoh walk
+  of a row-major P from a corner, the moves end-first.
 
-Each routes by the scoring to one of six kernels: linear match/mismatch
-(K1 ``sw_stripe_score_linear``, K4 ``sw_stripe_fill_p_linear``), affine
+The scoring picks the kernel: linear match/mismatch (K1
+``sw_stripe_score_linear``, K4 ``sw_stripe_fill_p_linear``), affine
 match/mismatch (K2 ``sw_stripe_score_affine``, ``sw_stripe_fill_p_affine``)
 and a substitution table with linear or affine gaps (K3
-``sw_stripe_score_sub``, ``sw_stripe_fill_p_sub``).
+``sw_stripe_score_sub``, ``sw_stripe_fill_p_sub``); each of the six takes
+a band, which launches its banded instantiation (K4b); and a block entry
+(K5 ``sw_stripe_block_linear``, ``sw_stripe_block_affine``,
+``sw_stripe_block_sub``) serves each scoring. The walk is ``sw_walk_p``.
 
-Both run the hand-written kernels of ``csrc/stripe_fill.cu`` for a tensor
-on a CUDA device and their plain PyTorch versions (``stripe_score_plain``,
-``stripe_fill_plain``, built on ``scan_fill``) for a tensor on the CPU,
-and nowhere else. A CUDA tensor launches the kernel or raises: a failed
-build or launch is never answered by the plain version.
+Each runs its hand-written kernel of ``csrc/`` for a tensor on a CUDA
+device and its plain version (``stripe_score_plain``,
+``stripe_fill_plain``, ``stripe_block_plain``, built on ``scan_fill``, and
+``walk_p_plain``, a host loop) for a tensor on the CPU, and nowhere else. A
+CUDA tensor launches the kernel or raises: a failed build or launch is
+never answered by the plain version.
 
-``launches`` counts the kernel launches and ``plain_calls`` the plain
-versions' calls, so a run can show which one served it.
+``launches`` counts the kernel launches, a banded one under its entry's
+name plus ``BAND_SUFFIX``, and ``plain_calls`` the plain versions' calls,
+so a run can show which one served it.
 """
 
 from __future__ import annotations
@@ -32,12 +45,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.config import Scoring
+from ..core.config import E_EXT, F_EXT, LEFT, NONE, UP, Scoring
 from . import _cuda
-from .scan_fill import check_codes, diag_to_rowmajor, embed_table, scan_fill
+from .scan_fill import (NEG, check_codes, diag_to_rowmajor, embed_table,
+                        scan_fill)
 
 # widest a the kernels take; the same gate as the JAX package
 MAX_WIDTH = 1 << 20
+# the band argument of an unbanded launch (kNoBand in csrc/)
+NO_BAND = -(1 << 31)
 # rows per stripe (threads per block) when the caller names none
 DEFAULT_STRIPE_ROWS = 256
 # shared memory a block may opt into on an H100 (227 KB), less room for
@@ -50,6 +66,11 @@ SCORE_AFFINE_KERNEL = "sw_stripe_score_affine"
 FILL_P_AFFINE_KERNEL = "sw_stripe_fill_p_affine"
 SCORE_SUB_KERNEL = "sw_stripe_score_sub"
 FILL_P_SUB_KERNEL = "sw_stripe_fill_p_sub"
+BAND_SUFFIX = "[band]"
+BLOCK_KERNELS = {"linear": "sw_stripe_block_linear",
+                 "affine": "sw_stripe_block_affine",
+                 "sub": "sw_stripe_block_sub"}
+WALK_KERNEL = "sw_walk_p"
 # (capture P, mode) -> the C entry of csrc/stripe_fill.cu
 _KERNELS = {
     (False, "linear"): SCORE_KERNEL, (True, "linear"): FILL_P_KERNEL,
@@ -57,8 +78,11 @@ _KERNELS = {
     (True, "affine"): FILL_P_AFFINE_KERNEL,
     (False, "sub"): SCORE_SUB_KERNEL, (True, "sub"): FILL_P_SUB_KERNEL,
 }
-launches = dict.fromkeys(_KERNELS.values(), 0)
-plain_calls = {"stripe_score_plain": 0, "stripe_fill_plain": 0}
+launches = dict.fromkeys(
+    [*_KERNELS.values(), *(k + BAND_SUFFIX for k in _KERNELS.values()),
+     *BLOCK_KERNELS.values(), WALK_KERNEL], 0)
+plain_calls = {"stripe_score_plain": 0, "stripe_fill_plain": 0,
+               "stripe_block_plain": 0, "walk_p_plain": 0}
 
 
 def reset_counts() -> None:
@@ -67,11 +91,22 @@ def reset_counts() -> None:
             counts[name] = 0
 
 
-def kernel_name(scoring: Scoring, substitution, capture_p: bool) -> str:
-    """The C entry that serves this scoring on a CUDA device."""
-    mode = ("sub" if substitution is not None
+def _mode(scoring: Scoring, substitution) -> str:
+    return ("sub" if substitution is not None
             else "affine" if scoring.is_affine else "linear")
-    return _KERNELS[capture_p, mode]
+
+
+def kernel_name(scoring: Scoring, substitution, capture_p: bool,
+                banded: bool = False) -> str:
+    """The launch counter of the C entry that serves this scoring on a
+    CUDA device: the entry's name, plus ``BAND_SUFFIX`` when banded."""
+    name = _KERNELS[capture_p, _mode(scoring, substitution)]
+    return name + BAND_SUFFIX if banded else name
+
+
+def block_kernel_name(scoring: Scoring, substitution) -> str:
+    """The K5 entry that serves this scoring on a CUDA device."""
+    return BLOCK_KERNELS[_mode(scoring, substitution)]
 
 
 class StripeOut(NamedTuple):
@@ -81,13 +116,30 @@ class StripeOut(NamedTuple):
     P: Optional[torch.Tensor]   # (n+1, m+1) int8 row-major, stripe_fill only
 
 
+class BlockOut(NamedTuple):
+    """``stripe_block`` results as tensors on the input's device."""
+    best: torch.Tensor          # (4,) int32: positive max, i, j, H[n, m]
+    bottom_row: Optional[torch.Tensor]  # (m+1,) H[n, :] when want_bottom
+    right_col: torch.Tensor     # (n+1,) H[:, m]; [0] = top_row[m]
+    bottom_f: Optional[torch.Tensor]    # (m+1,) F[n, :], affine, want_bottom
+    right_e: Optional[torch.Tensor]     # (n+1,) E[:, m], affine
+
+
 def stripe_fill_supported(m: int, n: int, traceback: bool,
                           scoring: Scoring = Scoring(),
                           substitution=None) -> bool:
-    """The JAX package's gates: m >= 2, n >= 1, m <= MAX_WIDTH, and
-    negative penalties (``_penalties_negative``), or, with a substitution
-    table, only negative gaps (``_sub_gaps_ok``)."""
-    if not (m >= 2 and n >= 1 and m <= MAX_WIDTH):
+    """The JAX package's gates, which pick the stripe plan: m >= 2, and
+    what the wrappers take (``kernels_take``)."""
+    return m >= 2 and kernels_take(m, n, scoring, substitution)
+
+
+def kernels_take(m: int, n: int, scoring: Scoring = Scoring(),
+                 substitution=None) -> bool:
+    """What the wrappers take, on a card and on the CPU: 1 <= m <=
+    MAX_WIDTH, n >= 1, and negative penalties (``_penalties_negative``),
+    or, with a substitution table, only negative gaps (``_sub_gaps_ok``).
+    The kernels mask their edges, so a width of 1 needs no gate."""
+    if not (1 <= m <= MAX_WIDTH and n >= 1):
         return False
     if substitution is not None:
         return _sub_gaps_ok(scoring)
@@ -108,45 +160,137 @@ def _sub_gaps_ok(scoring: Scoring) -> bool:
 
 def stripe_score(a: torch.Tensor, b: torch.Tensor,
                  scoring: Scoring = Scoring(), T: Optional[int] = None,
-                 substitution: Optional[torch.Tensor] = None) -> StripeOut:
+                 substitution: Optional[torch.Tensor] = None,
+                 band: Optional[int] = None) -> StripeOut:
     """Score-only local fill of a (m,) against b (n,), int8 codes on one
     device. ``T``: rows per stripe (CUDA only). ``substitution``: an (A, A)
     int32 table S[a_code, b_code] on the same device, or None for the
-    match/mismatch compare."""
+    match/mismatch compare. ``band``: keep only the cells with
+    |i - j| <= band (None: every cell)."""
     if _route(a, b, scoring, substitution) == "cpu":
-        return stripe_score_plain(a, b, scoring, substitution)
-    return _launch(a, b, scoring, T, substitution, capture_p=False)
+        return stripe_score_plain(a, b, scoring, substitution, band)
+    return _launch(a, b, scoring, T, substitution, False, band)
 
 
 def stripe_fill(a: torch.Tensor, b: torch.Tensor,
                 scoring: Scoring = Scoring(), T: Optional[int] = None,
-                substitution: Optional[torch.Tensor] = None) -> StripeOut:
+                substitution: Optional[torch.Tensor] = None,
+                band: Optional[int] = None) -> StripeOut:
     """``stripe_score`` plus the row-major predecessor matrix P."""
     if _route(a, b, scoring, substitution) == "cpu":
-        return stripe_fill_plain(a, b, scoring, substitution)
-    return _launch(a, b, scoring, T, substitution, capture_p=True)
+        return stripe_fill_plain(a, b, scoring, substitution, band)
+    return _launch(a, b, scoring, T, substitution, True, band)
 
 
 def stripe_score_plain(a: torch.Tensor, b: torch.Tensor,
                        scoring: Scoring = Scoring(),
-                       substitution: Optional[torch.Tensor] = None
-                       ) -> StripeOut:
+                       substitution: Optional[torch.Tensor] = None,
+                       band: Optional[int] = None) -> StripeOut:
     """Plain PyTorch version of the score kernels, on any device."""
     plain_calls["stripe_score_plain"] += 1
-    out = scan_fill(a, b, scoring=scoring, sub_table=_table(substitution))
+    out = scan_fill(a, b, scoring=scoring, sub_table=_table(substitution),
+                    band=band)
     return StripeOut(_pack(out), out.right_col, None)
 
 
 def stripe_fill_plain(a: torch.Tensor, b: torch.Tensor,
                       scoring: Scoring = Scoring(),
-                      substitution: Optional[torch.Tensor] = None
-                      ) -> StripeOut:
+                      substitution: Optional[torch.Tensor] = None,
+                      band: Optional[int] = None) -> StripeOut:
     """Plain PyTorch version of the fill_p kernels, on any device."""
     plain_calls["stripe_fill_plain"] += 1
     out = scan_fill(a, b, scoring=scoring, return_p=True,
-                    sub_table=_table(substitution))
+                    sub_table=_table(substitution), band=band)
     P = diag_to_rowmajor(out.p_diag, b.numel(), a.numel())
     return StripeOut(_pack(out), out.right_col, P)
+
+
+def stripe_block(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
+                 top_row: torch.Tensor, left_col: torch.Tensor,
+                 top_f: Optional[torch.Tensor] = None,
+                 left_e: Optional[torch.Tensor] = None, local: bool = True,
+                 substitution: Optional[torch.Tensor] = None,
+                 want_bottom: bool = False,
+                 T: Optional[int] = None) -> BlockOut:
+    """Fill a (m,) against b (n,) with row 0 = ``top_row`` (m+1,) and
+    column 0 = ``left_col`` (n+1,), int32, both holding the corner H[0, 0];
+    affine also F of row 0 = ``top_f`` (m+1,) and E of column 0 =
+    ``left_e`` (n+1,), NEG where None. ``local=False`` runs the global
+    (Needleman-Wunsch) recurrence; the max then counts positive cells
+    only. ``want_bottom``: also export H and F of row n."""
+    dev = _route(a, b, scoring, substitution)
+    bounds = _check_block(a, b, scoring, top_row, left_col, top_f, left_e)
+    if dev == "cpu":
+        return stripe_block_plain(a, b, scoring, *bounds, local=local,
+                                  substitution=substitution,
+                                  want_bottom=want_bottom)
+    return _launch_block(a, b, scoring, T, substitution, *bounds, local,
+                         want_bottom)
+
+
+def stripe_block_plain(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
+                       top_row: torch.Tensor, left_col: torch.Tensor,
+                       top_f: Optional[torch.Tensor] = None,
+                       left_e: Optional[torch.Tensor] = None,
+                       local: bool = True,
+                       substitution: Optional[torch.Tensor] = None,
+                       want_bottom: bool = False) -> BlockOut:
+    """Plain PyTorch version of the block kernels, on any device."""
+    plain_calls["stripe_block_plain"] += 1
+    out = scan_fill(a, b, scoring=scoring, top_row=top_row,
+                    left_col=left_col, top_f=top_f, left_e=left_e,
+                    local=local, sub_table=_table(substitution))
+    return BlockOut(_pack(out), out.bottom_row if want_bottom else None,
+                    out.right_col,
+                    out.bottom_f if want_bottom else None, out.right_e)
+
+
+def walk_p(P: torch.Tensor, wn: int, wm: int) -> torch.Tensor:
+    """Walk the row-major int8 predecessor matrix P from (wn, wm) with the
+    Gotoh state machine until a NONE code or row or column 0. Returns the
+    moves (UP, LEFT, DIAGONAL codes), end-first, as an int8 tensor on the
+    CPU: on a card only they leave it."""
+    if P.dtype != torch.int8 or P.dim() != 2:
+        raise ValueError(f"P must be a 2-D int8 tensor, got {P.dtype} "
+                         f"{tuple(P.shape)}")
+    if not (0 <= wn < P.shape[0] and 0 <= wm < P.shape[1]):
+        raise ValueError(f"corner ({wn}, {wm}) outside P {tuple(P.shape)}")
+    if P.device.type == "cpu":
+        return walk_p_plain(P, wn, wm)
+    if P.device.type != "cuda":
+        raise ValueError(f"no walk for device {P.device}")
+    P = P.contiguous()
+    moves = torch.empty(max(wn + wm, 1), dtype=torch.int8, device=P.device)
+    count = torch.empty(1, dtype=torch.int32, device=P.device)
+    _call(WALK_KERNEL, P.device, [P.data_ptr(), P.shape[1], wn, wm,
+                                  moves.data_ptr(), count.data_ptr()])
+    return moves[:int(count)].cpu()
+
+
+def walk_p_plain(P: torch.Tensor, wn: int, wm: int) -> torch.Tensor:
+    """Plain version of the walk: a host loop over P copied to the host
+    (the JAX package's ``_scan_window_walk`` loop)."""
+    plain_calls["walk_p_plain"] += 1
+    Pn = P.cpu().numpy()
+    moves = []
+    i, j, state = wn, wm, 0
+    while i > 0 and j > 0:
+        code = int(Pn[i, j])
+        move = state if state else code & 3
+        if move == NONE:
+            break
+        moves.append(move)
+        if move == UP:
+            state = UP if code & F_EXT else 0
+            i -= 1
+        elif move == LEFT:
+            state = LEFT if code & E_EXT else 0
+            j -= 1
+        else:
+            state = 0
+            i -= 1
+            j -= 1
+    return torch.tensor(moves, dtype=torch.int8)
 
 
 def _table(substitution: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -170,9 +314,9 @@ def _route(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no stripe fill for device {a.device}")
     m, n = a.numel(), b.numel()
-    if not stripe_fill_supported(m, n, False, scoring, substitution):
+    if not kernels_take(m, n, scoring, substitution):
         raise ValueError(
-            f"stripe kernel needs 2 <= m <= {MAX_WIDTH}, n >= 1 and negative "
+            f"stripe kernel needs 1 <= m <= {MAX_WIDTH}, n >= 1 and negative "
             "gap penalties, and a negative mismatch without a substitution "
             f"table (m={m}, n={n}, {scoring})")
     if substitution is not None:
@@ -209,46 +353,136 @@ def _stripe_rows(n: int, T: Optional[int], A: int = 0) -> int:
     return T
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
-            T: Optional[int], sub: Optional[torch.Tensor],
-            capture_p: bool) -> StripeOut:
-    name = kernel_name(scoring, sub, capture_p)
+def _check_block(a, b, scoring, top_row, left_col, top_f, left_e):
+    """Validate the injected boundaries; return them as (top_row,
+    left_col, top_f, left_e), the affine ones NEG where None (and None for
+    a linear scoring)."""
     m, n = a.numel(), b.numel()
-    T = _stripe_rows(n, T, 0 if sub is None else sub.shape[0])
-    stripes = -(-n // T)
-    dev = a.device
-    i32 = torch.int32
-    a, b = a.contiguous(), b.contiguous()
-    sync = torch.zeros(stripes + 1, dtype=i32, device=dev)
-    bnd = torch.empty(max(stripes - 1, 1) * (m + 1), dtype=i32, device=dev)
-    best = torch.empty((stripes, 4), dtype=i32, device=dev)
-    right = torch.zeros(n + 1, dtype=i32, device=dev)
-    # the F row between stripes; the linear substitution entry takes null
-    bnd_f = torch.empty_like(bnd) if scoring.is_affine else None
-    bnds = [bnd.data_ptr()]
-    if sub is not None or scoring.is_affine:
-        bnds.append(None if bnd_f is None else bnd_f.data_ptr())
-    if sub is not None:
-        sub = sub.contiguous()
-        model = [sub.data_ptr(), sub.shape[0], int(scoring.is_affine),
-                 scoring.gap, scoring.gap_open, scoring.gap_extend]
-    elif scoring.is_affine:
-        model = [scoring.match, scoring.mismatch, scoring.gap_open,
-                 scoring.gap_extend]
+    want = {"top_row": (top_row, m + 1), "left_col": (left_col, n + 1)}
+    if scoring.is_affine:
+        neg = dict(dtype=torch.int32, device=a.device)
+        if top_f is None:
+            top_f = torch.full((m + 1,), NEG, **neg)
+        if left_e is None:
+            left_e = torch.full((n + 1,), NEG, **neg)
+        want.update(top_f=(top_f, m + 1), left_e=(left_e, n + 1))
     else:
-        model = [scoring.match, scoring.mismatch, scoring.gap]
-    args = [a.data_ptr(), b.data_ptr(), m, n, *model, T, sync.data_ptr(),
-            *bnds, best.data_ptr(), right.data_ptr()]
-    P = None
-    if capture_p:
-        P = torch.zeros((n + 1, m + 1), dtype=torch.int8, device=dev)
-        args.append(P.data_ptr())
+        top_f = left_e = None
+    for name, (x, size) in want.items():
+        if x.dtype != torch.int32 or x.shape != (size,):
+            raise ValueError(f"{name} must be int32 of shape ({size},), got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != a.device:
+            raise ValueError(f"{name} on {x.device}, codes on {a.device}")
+    return top_row, left_col, top_f, left_e
+
+
+def _model(scoring: Scoring, sub: Optional[torch.Tensor]) -> list:
+    """The scoring arguments of a C entry."""
+    if sub is not None:
+        return [sub.data_ptr(), sub.shape[0], int(scoring.is_affine),
+                scoring.gap, scoring.gap_open, scoring.gap_extend]
+    if scoring.is_affine:
+        return [scoring.match, scoring.mismatch, scoring.gap_open,
+                scoring.gap_extend]
+    return [scoring.match, scoring.mismatch, scoring.gap]
+
+
+def _call(name: str, dev: torch.device, args: list,
+          counter: Optional[str] = None) -> None:
+    """Launch the C entry ``name`` on ``dev``'s current stream; count it
+    under ``counter`` (default: the name)."""
     lib = _cuda.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda.check(name, getattr(lib, name)(*args, stream))
-    launches[name] += 1
+    launches[counter or name] += 1
+
+
+def _scratch(n: int, m: int, T: Optional[int], sub, affine: bool,
+             dev: torch.device):
+    """(T, sync, bnd, bnd_f, best) of one launch: the stripe ticket and
+    progress counters (zeroed), the H (and affine F) rows handed between
+    stripes, the per-stripe firsts."""
+    T = _stripe_rows(n, T, 0 if sub is None else sub.shape[0])
+    stripes = -(-n // T)
+    i32 = torch.int32
+    sync = torch.zeros(stripes + 1, dtype=i32, device=dev)
+    bnd = torch.empty(max(stripes - 1, 1) * (m + 1), dtype=i32, device=dev)
+    bnd_f = torch.empty_like(bnd) if affine else None
+    best = torch.empty((stripes, 4), dtype=i32, device=dev)
+    return T, sync, bnd, bnd_f, best
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
+            T: Optional[int], sub: Optional[torch.Tensor],
+            capture_p: bool, band: Optional[int]) -> StripeOut:
+    name = kernel_name(scoring, sub, capture_p)
+    m, n = a.numel(), b.numel()
+    dev = a.device
+    a, b = a.contiguous(), b.contiguous()
+    sub = None if sub is None else sub.contiguous()
+    T, sync, bnd, bnd_f, best = _scratch(n, m, T, sub, scoring.is_affine,
+                                         dev)
+    right = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    # the linear substitution entry takes a null F row
+    bnds = [bnd.data_ptr()]
+    if sub is not None or scoring.is_affine:
+        bnds.append(_ptr(bnd_f))
+    args = [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T,
+            sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr()]
+    P = None
+    if capture_p:
+        P = torch.zeros((n + 1, m + 1), dtype=torch.int8, device=dev)
+        args.append(P.data_ptr())
+    # |i - j| < m + n everywhere: a wider band changes nothing and a band
+    # below -1 keeps no more cells than -1
+    args.append(NO_BAND if band is None else max(-1, min(int(band), m + n)))
+    _call(name, dev, args, kernel_name(scoring, sub, capture_p,
+                                       band is not None))
     return StripeOut(_reduce(best, right, n), right, P)
+
+
+def _launch_block(a, b, scoring, T, sub, top_row, left_col, top_f, left_e,
+                  local, want_bottom) -> BlockOut:
+    name = block_kernel_name(scoring, sub)
+    m, n = a.numel(), b.numel()
+    dev = a.device
+    i32 = torch.int32
+    a, b = a.contiguous(), b.contiguous()
+    sub = None if sub is None else sub.contiguous()
+    top_row, left_col = top_row.contiguous(), left_col.contiguous()
+    T, sync, bnd, bnd_f, best = _scratch(n, m, T, sub, scoring.is_affine,
+                                         dev)
+    # [0] of each export is the boundary's, set here; the kernel writes
+    # the rest
+    right = torch.empty(n + 1, dtype=i32, device=dev)
+    right[0] = top_row[m]
+    bottom = bottom_f = right_e = None
+    if want_bottom:
+        bottom = torch.empty(m + 1, dtype=i32, device=dev)
+        bottom[0] = left_col[n]
+    args = [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T,
+            int(local), top_row.data_ptr(), left_col.data_ptr()]
+    if scoring.is_affine:
+        top_f, left_e = top_f.contiguous(), left_e.contiguous()
+        right_e = torch.full((n + 1,), NEG, dtype=i32, device=dev)
+        if want_bottom:
+            bottom_f = torch.full((m + 1,), NEG, dtype=i32, device=dev)
+    if scoring.is_affine or sub is not None:
+        args += [_ptr(top_f), _ptr(left_e), sync.data_ptr(), bnd.data_ptr(),
+                 _ptr(bnd_f), best.data_ptr(), right.data_ptr(),
+                 _ptr(right_e), _ptr(bottom), _ptr(bottom_f)]
+    else:
+        args += [sync.data_ptr(), bnd.data_ptr(), best.data_ptr(),
+                 right.data_ptr(), _ptr(bottom)]
+    _call(name, dev, args)
+    return BlockOut(_reduce(best, right, n), bottom, right, bottom_f,
+                    right_e)
 
 
 def _reduce(best: torch.Tensor, right: torch.Tensor, n: int) -> torch.Tensor:

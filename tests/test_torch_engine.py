@@ -100,10 +100,16 @@ def test_return_matrices_matches_jax(plan):
 
 
 def test_traceback_above_full_p_cap_raises():
+    # above the cap the lean route (locate + windowed refill) runs, as in
+    # the JAX package (whose CPU host tier, which answers before the lean
+    # route there, plan='scan' skips): the same score, end cell and
+    # strings, no path
     a, b = random_pair(64, 64, seed=27)
-    _, _, ps, pc = _pair_of_configs(full_p_max_cells=64 * 64 - 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        swtpu_torch.align(a, b, ps, pc, device="cpu")
+    js, jc, ps, pc = _pair_of_configs(full_p_max_cells=64 * 64 - 1)
+    want = swtpu.align(a, b, js, jc, plan="scan")
+    got = swtpu_torch.align(a, b, ps, pc, device="cpu")
+    assert _fields(got) == _fields(want)
+    assert got.path is None and got.aligned_a
     # at the cap the full-P route runs
     _, _, ps, pc = _pair_of_configs(full_p_max_cells=64 * 64)
     assert swtpu_torch.align(a, b, ps, pc, device="cpu").path

@@ -73,7 +73,8 @@ def test_scan_fill_without_captures_returns_none():
 
 
 @pytest.mark.parametrize("kwargs", [
-    # affine and sub_table fills are ported; their boundary injection is not
+    # modes that raised before boundary injection, band and NW were ported;
+    # each now equals the JAX scan
     {"scoring": Scoring(mode="affine"),
      "top_f": torch.zeros(21, dtype=torch.int32)},
     {"band": 4},
@@ -86,5 +87,18 @@ def test_scan_fill_without_captures_returns_none():
 ], ids=["affine", "band", "top_row", "left_col", "global", "sub_table"])
 def test_unported_modes_raise(kwargs):
     a, b = random_pair(20, 30, seed=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scan_fill(torch.from_numpy(a), torch.from_numpy(b), **kwargs)
+    pt = scan_fill(torch.from_numpy(a), torch.from_numpy(b), return_p=True,
+                   return_h=True, **kwargs)
+    jkw = {k: (jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v)
+           for k, v in kwargs.items()}
+    if "scoring" in kwargs:
+        jkw["scoring"] = swtpu.Scoring(mode="affine")
+    jx = jax_scan_fill(jnp.asarray(a), jnp.asarray(b), return_p=True,
+                       return_h=True, **jkw)
+    for name in ("max_score", "max_i", "max_j", "last_cell", "bottom_row",
+                 "right_col", "p_diag", "h_diag", "bottom_f", "right_e"):
+        got, want = getattr(pt, name), getattr(jx, name)
+        assert (got is None) == (want is None), name
+        if got is not None:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          name)

@@ -84,14 +84,16 @@ def test_cpu_tensors_run_the_plain_versions():
     sf.stripe_score(*_torch(a, b))
     sf.stripe_fill(*_torch(a, b))
     assert sf.plain_calls == {"stripe_score_plain": 1,
-                              "stripe_fill_plain": 1}
-    assert sf.launches == {
-        sf.SCORE_KERNEL: 0, sf.FILL_P_KERNEL: 0,
-        sf.SCORE_AFFINE_KERNEL: 0, sf.FILL_P_AFFINE_KERNEL: 0,
-        sf.SCORE_SUB_KERNEL: 0, sf.FILL_P_SUB_KERNEL: 0}
+                              "stripe_fill_plain": 1,
+                              "stripe_block_plain": 0, "walk_p_plain": 0}
+    assert sf.launches == dict.fromkeys(sf.launches, 0)
+    assert {sf.SCORE_KERNEL, sf.FILL_P_KERNEL, sf.SCORE_AFFINE_KERNEL,
+            sf.FILL_P_AFFINE_KERNEL, sf.SCORE_SUB_KERNEL,
+            sf.FILL_P_SUB_KERNEL} < set(sf.launches)
     sf.reset_counts()
     assert sf.plain_calls == {"stripe_score_plain": 0,
-                              "stripe_fill_plain": 0}
+                              "stripe_fill_plain": 0,
+                              "stripe_block_plain": 0, "walk_p_plain": 0}
 
 
 def test_stripe_reduce_takes_first_stripe_of_the_max():
@@ -105,13 +107,21 @@ def test_stripe_reduce_takes_first_stripe_of_the_max():
 
 @pytest.mark.parametrize("args, err", [
     ((np.zeros(5, np.int32), np.zeros(6, np.int8)), TypeError),
-    ((np.zeros(1, np.int8), np.zeros(6, np.int8)), ValueError),
+    # a width of 1 is taken: the kernels mask their edges, and the JAX
+    # package's m >= 2 only picks the plan (stripe_fill_supported)
+    ((np.zeros(1, np.int8), np.zeros(6, np.int8)), None),
+    ((np.zeros(0, np.int8), np.zeros(6, np.int8)), ValueError),
     ((np.zeros(5, np.int8), np.zeros(0, np.int8)), ValueError),
     ((np.zeros((2, 5), np.int8), np.zeros(6, np.int8)), ValueError),
-], ids=["dtype", "m_is_1", "n_is_0", "2d"])
+], ids=["dtype", "m_is_1", "m_is_0", "n_is_0", "2d"])
 def test_wrappers_reject_bad_inputs(args, err):
     a, b = (torch.from_numpy(x) for x in args)
     for fn in (sf.stripe_score, sf.stripe_fill):
+        if err is None:
+            # one column of matches: 3 in every row, first at (1, 1)
+            assert fn(a, b).best.tolist() == [3, 1, 1, 3]
+            assert not sf.stripe_fill_supported(1, 6, False)
+            continue
         with pytest.raises(err):
             fn(a, b)
 

@@ -200,7 +200,8 @@ def test_stripe_wrappers_new_modes_match_pallas(case):
     score = sf.stripe_score(_t(a), _t(b), sc, substitution=sub)
     fill = sf.stripe_fill(_t(a), _t(b), sc, substitution=sub)
     assert sf.plain_calls == {"stripe_score_plain": 1,
-                              "stripe_fill_plain": 1}
+                              "stripe_fill_plain": 1,
+                              "stripe_block_plain": 0, "walk_p_plain": 0}
     assert not any(sf.launches.values())
     assert score.best.tolist() == want
     assert fill.best.tolist() == want
@@ -218,10 +219,15 @@ def test_kernel_names_follow_the_scoring():
     for sc in (PROTEIN_LINEAR, PROTEIN_AFFINE):
         assert sf.kernel_name(sc, BLOSUM62, False) == sf.SCORE_SUB_KERNEL
         assert sf.kernel_name(sc, BLOSUM62, True) == sf.FILL_P_SUB_KERNEL
+    six = ["sw_stripe_score_linear", "sw_stripe_fill_p_linear",
+           "sw_stripe_score_affine", "sw_stripe_fill_p_affine",
+           "sw_stripe_score_sub", "sw_stripe_fill_p_sub"]
+    # each counts its banded launches apart; then the block entries and
+    # the walk
     assert sorted(sf.launches) == sorted(
-        ["sw_stripe_score_linear", "sw_stripe_fill_p_linear",
-         "sw_stripe_score_affine", "sw_stripe_fill_p_affine",
-         "sw_stripe_score_sub", "sw_stripe_fill_p_sub"])
+        six + [k + "[band]" for k in six]
+        + ["sw_stripe_block_linear", "sw_stripe_block_affine",
+           "sw_stripe_block_sub", "sw_walk_p"])
 
 
 def test_substitution_gates_take_only_negative_gaps():

@@ -1,0 +1,453 @@
+"""The port's lean traceback (``swtpu_torch.engine.traceback``) and its K5
+block fill against the JAX package.
+
+On the CPU the port's ``locate``, ``windowed``, ``hirschberg`` and
+``walk_from_end`` are held against the same functions of
+``swtpu.engine.traceback`` (its scan route there) in DNA linear, DNA affine
+and BLOSUM62 protein scoring; ``stripe_block_plain`` against the Pallas
+``stripe_block_fn`` in interpret mode. The DP is integer: every comparison
+is exact. The ``gpu`` tests hold the block and walk kernels against their
+plain versions on the card and skip elsewhere."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import swtpu
+import swtpu_torch
+from swtpu.core.encode import PROTEIN_ALPHABET, random_pair
+from swtpu.core.substitution import BLOSUM62 as JAX_BLOSUM62
+from swtpu.engine import traceback as jtb
+from swtpu.kernels.pallas_fill import stripe_block_fn
+from swtpu_torch import Scoring
+from swtpu_torch.convert import substitution_from_jax
+from swtpu_torch.engine import traceback as tb
+from swtpu_torch.kernels import stripe_fill as sf
+
+NEG = -(1 << 30)
+DNA_AFFINE = Scoring(mode="affine")                          # 3/-3, -4/-1
+PROTEIN_AFFINE = Scoring(mode="affine", gap_open=-11, gap_extend=-1)
+BLOSUM62 = substitution_from_jax(JAX_BLOSUM62)
+ALPHA = {"dna_linear": "ACGT", "dna_affine": "ACGT",
+         "protein": PROTEIN_ALPHABET}
+
+
+def _jax_scoring(sc: Scoring) -> swtpu.Scoring:
+    return swtpu.Scoring(match=sc.match, mismatch=sc.mismatch, gap=sc.gap,
+                         gap_open=sc.gap_open, gap_extend=sc.gap_extend,
+                         mode=sc.mode)
+
+
+def _protein(m, n, seed, plant=None):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 20, m).astype(np.int8)
+    b = rng.integers(0, 20, n).astype(np.int8)
+    if plant:                       # a shared segment: a long alignment
+        i0, j0, ln = plant
+        b[i0:i0 + ln] = a[j0:j0 + ln]
+        b = np.delete(b, [i0 + 5, i0 + 6, i0 + 20])   # gaps inside it
+    return a, b
+
+
+def _case(kind, m=120, n=100, seed=0):
+    """(a, b, port scoring, JAX scoring, port table, JAX table)."""
+    if kind == "protein":
+        a, b = _protein(m, n, 300 + seed,
+                        plant=(n // 4, m // 5, min(n // 2, m - m // 5)))
+        return (a, b, PROTEIN_AFFINE, _jax_scoring(PROTEIN_AFFINE),
+                BLOSUM62, JAX_BLOSUM62)
+    a, b = random_pair(m, n, seed=310 + seed)
+    sc = Scoring() if kind == "dna_linear" else DNA_AFFINE
+    return a, b, sc, _jax_scoring(sc), None, None
+
+
+KINDS = ["dna_linear", "dna_affine", "protein"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_locate_matches_jax(kind, seed):
+    a, b, sc, js, S, jS = _case(kind, seed=seed)
+    sf.reset_counts()
+    got = tb.locate(a, b, sc, S, device="cpu")
+    want = jtb.locate(a, b, js, sub=jS)
+    assert got == tuple(want) and got.score > 0
+    assert isinstance(got, tb.Located)
+    # the forward pass and the anchored reverse pass, both plain on the CPU
+    assert sf.plain_calls["stripe_score_plain"] == 1
+    assert sf.plain_calls["stripe_block_plain"] == 1
+    assert not any(sf.launches.values())
+
+
+def test_locate_nothing_scores():
+    a = np.zeros(30, np.int8)
+    b = np.ones(20, np.int8)
+    assert tb.locate(a, b, Scoring(), device="cpu") is None
+    assert jtb.locate(a, b, swtpu.Scoring()) is None
+    assert tb.windowed(a, b, Scoring(), device="cpu") is None
+    assert tb.hirschberg(a, b, Scoring(), device="cpu") is None
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_windowed_matches_jax(kind):
+    a, b, sc, js, S, jS = _case(kind, seed=2)
+    sf.reset_counts()
+    got = tb.windowed(a, b, sc, sub=S, alphabet=ALPHA[kind], device="cpu")
+    want = jtb.windowed(a, b, js, sub=jS, alphabet=ALPHA[kind])
+    assert got[0] == want[0] and got[1] == tuple(want[1])
+    assert got[2:] == want[2:]
+    assert sf.plain_calls["stripe_fill_plain"] == 1
+    assert sf.plain_calls["walk_p_plain"] == 1
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_windowed_small_budget_takes_hirschberg(kind, monkeypatch):
+    a, b, sc, js, S, jS = _case(kind, seed=3)
+    monkeypatch.setattr(tb, "_BASE_CELLS", 64)
+    monkeypatch.setattr(jtb, "_BASE_CELLS", 64)
+    sf.reset_counts()
+    got = tb.windowed(a, b, sc, max_window_cells=100, sub=S,
+                      alphabet=ALPHA[kind], device="cpu")
+    want = jtb.windowed(a, b, js, max_window_cells=100, sub=jS,
+                        alphabet=ALPHA[kind])
+    assert got[0] == want[0] and got[1] == tuple(want[1])
+    assert got[2:] == want[2:]
+    assert sf.plain_calls["stripe_fill_plain"] == 0    # no window refill
+    assert sf.plain_calls["stripe_block_plain"] > 3    # the row passes
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("base", [64, 1 << 18], ids=["recursing", "base"])
+def test_hirschberg_matches_jax(kind, base, monkeypatch):
+    # _BASE_CELLS monkeypatched small forces the divide and conquer (the
+    # Myers-Miller state split for affine gaps) down to tiny host cases
+    a, b, sc, js, S, jS = _case(kind, m=90, n=110, seed=4)
+    monkeypatch.setattr(tb, "_BASE_CELLS", base)
+    monkeypatch.setattr(jtb, "_BASE_CELLS", base)
+    got = tb.hirschberg(a, b, sc, sub=S, alphabet=ALPHA[kind], device="cpu")
+    want = jtb.hirschberg(a, b, js, sub=jS, alphabet=ALPHA[kind])
+    assert got[0] == want[0] and got[1] == tuple(want[1])
+    assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize("tbg", [0, -3], ids=["open_border", "g0"])
+@pytest.mark.parametrize("kind", ["dna_affine", "protein"])
+def test_nw_last_rows_match_jax(kind, tbg):
+    a, b, sc, js, S, jS = _case(kind, m=50, n=37, seed=5)
+    H, F = tb._nw_last_rows_affine(a, b, sc, tbg, S, device="cpu")
+    jH, jF = jtb._nw_last_rows_affine(a, b, js, tbg, sub=jS)
+    np.testing.assert_array_equal(H, jH)
+    np.testing.assert_array_equal(F, jF)
+    row = tb._nw_last_row(a, b, Scoring(), device="cpu")
+    np.testing.assert_array_equal(row, jtb._nw_last_row(a, b,
+                                                        swtpu.Scoring()))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_walk_from_end_matches_jax(kind):
+    a, b, sc, js, S, jS = _case(kind, seed=6)
+    loc = tb.locate(a, b, sc, S, device="cpu")
+    got = tb.walk_from_end(a, b, sc, loc.score, loc.end_i, loc.end_j,
+                           loc.last_cell, alphabet=ALPHA[kind], sub=S,
+                           device="cpu")
+    want = jtb.walk_from_end(a, b, js, loc.score, loc.end_i, loc.end_j,
+                             loc.last_cell, alphabet=ALPHA[kind], sub=jS)
+    assert got[0] == want[0] and got[1] == tuple(want[1])
+    assert got[2:] == want[2:]
+    assert (got[1].end_i, got[1].end_j) == (loc.end_i, loc.end_j)
+
+
+def _bad_reverse(score):
+    return lambda *args, **kw: (score, 1, 1)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_anchored_reverse_mismatch_matches_jax(kind, monkeypatch):
+    a, b, sc, js, S, jS = _case(kind, seed=7)
+    fwd = tb.locate(a, b, sc, S, device="cpu").score
+    monkeypatch.setattr(tb, "_nw_argmax", _bad_reverse(fwd - 1))
+    monkeypatch.setattr(jtb, "_nw_argmax", _bad_reverse(fwd - 1))
+    with pytest.raises(swtpu_torch.AnchoredReverseMismatch) as got:
+        tb.locate(a, b, sc, S, device="cpu")
+    with pytest.raises(jtb.AnchoredReverseMismatch) as want:
+        jtb.locate(a, b, js, sub=jS)
+    for name in ("forward_score", "reverse_score", "end_i", "end_j",
+                 "last_cell"):
+        assert getattr(got.value, name) == getattr(want.value, name), name
+    assert str(got.value) == str(want.value)
+    assert isinstance(got.value, RuntimeError)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_windowed_fallback_matches_jax(kind, monkeypatch):
+    # a broken reverse pass: windowed recovers through walk_from_end when
+    # [1..end] fits the budget, and re-raises the typed error otherwise
+    a, b, sc, js, S, jS = _case(kind, seed=8)
+    monkeypatch.setattr(tb, "_nw_argmax", _bad_reverse(-1))
+    monkeypatch.setattr(jtb, "_nw_argmax", _bad_reverse(-1))
+    got = tb.windowed(a, b, sc, sub=S, alphabet=ALPHA[kind], device="cpu")
+    want = jtb.windowed(a, b, js, sub=jS, alphabet=ALPHA[kind])
+    assert got[0] == want[0] and got[1] == tuple(want[1])
+    assert got[2:] == want[2:]
+    with pytest.raises(tb.AnchoredReverseMismatch):
+        tb.windowed(a, b, sc, max_window_cells=4, sub=S, device="cpu")
+
+
+def _one_column(kind, n, seed):
+    """(a of one letter that b holds, b, port scoring, JAX scoring, port
+    table, JAX table): every pass over a is one column wide."""
+    a, b, sc, js, S, jS = _case(kind, m=120, n=n, seed=seed)
+    return b[n // 3:n // 3 + 1].copy(), b, sc, js, S, jS
+
+
+def _row_split(a, b, sc, S, pkg, **kw):
+    """The recursion's global alignment of a against b: Hirschberg for
+    linear gaps, Myers-Miller for affine."""
+    if not sc.is_affine:
+        return pkg._hirschberg(a, b, sc, S, **kw)
+    g0 = sc.gap_open - sc.gap_extend
+    return pkg._mm_affine(a, b, sc, g0, g0, S, **kw)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_width_one_passes_match_jax(kind, monkeypatch):
+    # _BASE_CELLS small makes the recursion's row passes one column wide
+    a, b, sc, js, S, jS = _one_column(kind, 90, seed=13)
+    monkeypatch.setattr(tb, "_BASE_CELLS", 16)
+    monkeypatch.setattr(jtb, "_BASE_CELLS", 16)
+    got = tb.windowed(a, b, sc, sub=S, alphabet=ALPHA[kind], device="cpu")
+    want = jtb.windowed(a, b, js, sub=jS, alphabet=ALPHA[kind])
+    assert got[0] == want[0] > 0 and got[1] == tuple(want[1])
+    assert got[2:] == want[2:]
+    sf.reset_counts()
+    got = _row_split(a, b, sc, S, tb, device="cpu")
+    want = _row_split(a, b, js, jS, jtb)
+    assert [list(map(int, x)) for x in got] == \
+        [list(map(int, x)) for x in want]
+    assert sf.plain_calls["stripe_block_plain"] > 3
+
+
+# ------------------------------------------------- K5: the block fill
+
+def _bounds(m, n, seed, anchored, affine):
+    """Random finite boundaries (corner shared), or the anchored reverse
+    pass's NEG boundaries with a zero origin."""
+    rng = np.random.default_rng(seed)
+    if anchored:
+        top = np.full(m + 1, NEG, np.int32)
+        left = np.full(n + 1, NEG, np.int32)
+        top[0] = left[0] = 0
+        tf, le = np.full(m + 1, NEG, np.int32), np.full(n + 1, NEG, np.int32)
+    else:
+        top = rng.integers(-40, 40, m + 1).astype(np.int32)
+        left = rng.integers(-40, 40, n + 1).astype(np.int32)
+        left[0] = top[0]
+        tf = rng.integers(-50, 20, m + 1).astype(np.int32)
+        le = rng.integers(-50, 20, n + 1).astype(np.int32)
+    return top, left, (tf, le) if affine else (None, None)
+
+
+# (kind, m, n, local, anchored, want_bottom): n > 128 spans several of
+# the Pallas kernel's stripes; want_bottom there needs n % 128 == 0
+BLOCK_CASES = [
+    ("dna_linear", 70, 200, False, False, False),
+    ("dna_linear", 60, 128, True, False, True),
+    ("dna_linear", 90, 150, False, True, False),
+    ("dna_affine", 70, 256, False, False, True),
+    ("dna_affine", 80, 130, False, True, False),
+    ("protein", 64, 128, False, False, True),
+    ("protein", 75, 140, True, True, False),
+]
+
+
+@pytest.mark.parametrize("kind, m, n, local, anchored, want_bottom",
+                         BLOCK_CASES)
+def test_stripe_block_plain_matches_pallas(kind, m, n, local, anchored,
+                                           want_bottom):
+    a, b, sc, js, S, jS = _case(kind, m=m, n=n + 3, seed=m)
+    b = b[:n]
+    top, left, (tf, le) = _bounds(m, n, m + n, anchored, sc.is_affine)
+    fn = stripe_block_fn(m, n, js, T=128, local=local,
+                         want_bottom=want_bottom, substitution=jS)
+    jargs = [jnp.asarray(x) for x in (a, b, top, left)]
+    if sc.is_affine:
+        jargs += [jnp.asarray(tf), jnp.asarray(le)]
+    want = fn(*jargs)
+    t = (lambda x: None if x is None else torch.from_numpy(x))
+    sf.reset_counts()
+    got = sf.stripe_block(t(a), t(b), sc, t(top), t(left), t(tf), t(le),
+                          local=local, substitution=t(S),
+                          want_bottom=want_bottom)
+    assert sf.plain_calls["stripe_block_plain"] == 1
+    assert got.best.tolist()[:3] == [int(v) for v in want[:3]]
+    if anchored:
+        # the Pallas kernel clamps NEG E/F boundaries to -2^24, so only
+        # the (positive) max is comparable; the scan below checks the rest
+        assert got.best.tolist()[0] > 0
+        return
+    assert int(got.best[3]) == int(want[3])
+    np.testing.assert_array_equal(got.right_col.numpy(), want[5])
+    if want_bottom:
+        np.testing.assert_array_equal(got.bottom_row.numpy(), want[4])
+    else:
+        assert got.bottom_row is None
+    if sc.is_affine:
+        # [0] is each package's NEG sentinel (-2^30 here, -2^24 there)
+        assert int(got.right_e[0]) == NEG
+        np.testing.assert_array_equal(got.right_e[1:].numpy(),
+                                      np.asarray(want[7])[1:])
+        if want_bottom:
+            np.testing.assert_array_equal(got.bottom_f[1:].numpy(),
+                                          np.asarray(want[6])[1:])
+    else:
+        assert got.right_e is None and got.bottom_f is None
+
+
+def test_stripe_block_validates_boundaries():
+    a, b = (torch.from_numpy(x) for x in random_pair(20, 30, seed=9))
+    top = torch.zeros(21, dtype=torch.int32)
+    left = torch.zeros(31, dtype=torch.int32)
+    for bad_top, bad_left in ((top[:20], left), (top, left.to(torch.int64)),
+                              (top, left[:5])):
+        with pytest.raises(ValueError, match="int32 of shape"):
+            sf.stripe_block(a, b, Scoring(), bad_top, bad_left)
+    with pytest.raises(ValueError, match="top_f"):
+        sf.stripe_block(a, b, DNA_AFFINE, top, left,
+                        top_f=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="stripe kernel"):
+        sf.stripe_block(a, b, Scoring(gap=0), top, left)
+
+
+def test_walk_p_plain_follows_the_state_bits():
+    # a 3x4 P: (3,4) LEFT with E_EXT, (3,3) LEFT ends the run, (3,2) UP
+    # with F_EXT, (2,2) UP ends it, (1,2) DIAGONAL, (0,1) stops at row 0
+    P = torch.zeros((4, 5), dtype=torch.int8)
+    P[3, 4] = 2 + 4
+    P[3, 3] = 2
+    P[3, 2] = 1 + 8
+    P[2, 2] = 3          # state UP overrides the DIAGONAL code
+    P[1, 2] = 3
+    moves = sf.walk_p(P, 3, 4)
+    assert moves.tolist() == [2, 2, 1, 1, 3]
+    assert sf.walk_p(P, 0, 4).tolist() == []
+    with pytest.raises(ValueError, match="outside"):
+        sf.walk_p(P, 4, 4)
+    with pytest.raises(ValueError, match="int8"):
+        sf.walk_p(P.to(torch.int32), 3, 4)
+
+
+# ------------------------------------------------------------- the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+# (kind, m, n, local, anchored): T=32, so n spans many stripes; ragged n
+CARD_BLOCK = [
+    ("dna_linear", 300, 9 * 32 + 7, False, False),
+    ("dna_linear", 250, 1500, True, False),
+    ("dna_linear", 400, 2000, False, True),
+    ("dna_affine", 300, 1000 + 5, False, False),
+    ("dna_affine", 500, 1200, False, True),
+    ("dna_affine", 2, 700, True, False),
+    ("protein", 300, 900 + 9, False, False),
+    ("protein", 350, 1100, False, True),
+    ("protein_linear", 200, 600 + 1, False, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind, m, n, local, anchored", CARD_BLOCK)
+def test_block_kernels_match_plain_on_card(cuda, kind, m, n, local,
+                                           anchored):
+    a, b, sc, _, S, _ = _case("protein" if kind.startswith("protein")
+                              else kind, m=m, n=n + 3, seed=n)
+    if kind == "protein_linear":
+        sc = Scoring(gap=-6)
+    b = b[:n]
+    top, left, (tf, le) = _bounds(m, n, m * n, anchored, sc.is_affine)
+    t = (lambda x: None if x is None else torch.from_numpy(x).to(cuda))
+    args = (t(a), t(b), sc, t(top), t(left), t(tf), t(le))
+    plain = sf.stripe_block_plain(*args, local=local, substitution=t(S),
+                                  want_bottom=True)
+    sf.reset_counts()
+    for T in (32, 256):
+        got = sf.stripe_block(*args, local=local, substitution=t(S),
+                              want_bottom=True, T=T)
+        torch.cuda.synchronize()
+        for x, y in zip(got, plain):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y), T
+    assert sf.launches[sf.block_kernel_name(sc, S)] == 2
+    assert sf.plain_calls["stripe_block_plain"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+def test_walk_kernel_matches_plain_on_card(cuda, kind):
+    a, b, sc, _, S, _ = _case(kind, m=700, n=650, seed=11)
+    t = (lambda x: None if x is None else torch.from_numpy(x).to(cuda))
+    out = sf.stripe_fill(t(a), t(b), sc, substitution=t(S), T=32)
+    _, i, j, _ = out.best.tolist()
+    n, m = len(b), len(a)
+    for corner in ((i, j), (n, m), (0, 5)):
+        assert torch.equal(sf.walk_p(out.P, *corner),
+                           sf.walk_p_plain(out.P, *corner))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+def test_lean_routes_on_card_match_cpu(cuda, kind, monkeypatch):
+    a, b, sc, _, S, _ = _case(kind, m=600, n=500, seed=12)
+    monkeypatch.setattr(tb, "_BASE_CELLS", 1 << 14)
+    for fn in (tb.windowed, tb.hirschberg):
+        want = fn(a, b, sc, sub=S, alphabet=ALPHA[kind], device="cpu")
+        sf.reset_counts()
+        got = fn(a, b, sc, sub=S, alphabet=ALPHA[kind], device=cuda)
+        assert got == want
+        assert not any(sf.plain_calls.values()), sf.plain_calls
+        assert sf.launches[sf.block_kernel_name(sc, S)] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+def test_width_one_launches_the_kernels_on_card(cuda, kind, monkeypatch):
+    # one-column passes launch the kernels on the card, as wider ones do
+    a, b, sc, js, S, _ = _one_column(kind, 700, seed=14)
+    monkeypatch.setattr(tb, "_BASE_CELLS", 64)
+    t = (lambda x: None if x is None else torch.from_numpy(x).to(cuda))
+    want = tb.windowed(a, b, sc, sub=S, alphabet=ALPHA[kind], device="cpu")
+    want_rows = _row_split(a, b, sc, S, tb, device="cpu")
+    sf.reset_counts()
+    assert tb.windowed(a, b, sc, sub=S, alphabet=ALPHA[kind],
+                       device=cuda) == want
+    assert _row_split(a, b, sc, S, tb, device=cuda) == want_rows
+    assert not any(sf.plain_calls.values()), sf.plain_calls
+    for name in (sf.kernel_name(sc, S, False), sf.kernel_name(sc, S, True),
+                 sf.block_kernel_name(sc, S), sf.WALK_KERNEL):
+        assert sf.launches[name] > 0, name
+    # and each wrapper at m = 1 against its plain version
+    at, bt, St = t(a), t(b), t(S)
+    top, left, (tf, le) = _bounds(1, len(b), 15, False, sc.is_affine)
+    pairs = [
+        (sf.stripe_score(at, bt, sc, T=32, substitution=St),
+         sf.stripe_score_plain(at, bt, sc, St)),
+        (sf.stripe_fill(at, bt, sc, T=32, substitution=St),
+         sf.stripe_fill_plain(at, bt, sc, St)),
+        (sf.stripe_block(at, bt, sc, t(top), t(left), t(tf), t(le),
+                         local=False, substitution=St, want_bottom=True,
+                         T=32),
+         sf.stripe_block_plain(at, bt, sc, t(top), t(left), t(tf), t(le),
+                               local=False, substitution=St,
+                               want_bottom=True)),
+    ]
+    for got, plain in pairs:
+        for x, y in zip(got, plain):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y)
