@@ -8,21 +8,25 @@ plain PyTorch version on the card, then drives the public ``align()`` and
 ``score()`` at the benchmark sizes, in three scorings (DNA linear 3/-3/-2,
 DNA affine 3/-3 -4/-1, BLOSUM62 protein affine -11/-1), and checks the
 answers against independent numpy row scans and the known values for those
-seeded pairs. Two paths are driven, each with the launch counts set to 0
+seeded pairs. Three paths are driven, each with the launch counts set to 0
 just before it and read just after: the full-P path (score 25632^2, align
-16384^2) and the lean and banded path (align 25632^2 through locate +
+16384^2), the lean and banded path (align 25632^2 through locate +
 windowed refill + the device walk, Hirschberg at 16384^2 linear and
-4096^2 affine, banded score and align at 16384^2). Each phase prints one
-line; any failure raises, so the exit code is not 0. The line before the
-last is a JSON object describing each kernel of the paths (launches in the
-paths' runs, exactness, kernel and plain times); the last line is a JSON
-object naming the device.
+4096^2 affine, banded score and align at 16384^2), and the batch path
+(``batch_score`` on 64 pairs of 1056^2 through each plan and banded, and
+on 64 pairs of 1000^2, ``batch_align`` on the first, ``score_many`` and
+``align_many`` on 16 mixed pairs of 14500-16300). Each phase prints one line; any failure raises, so
+the exit code is not 0. The line before the last is a JSON object
+describing each kernel of the paths (launches in the paths' runs,
+exactness, kernel and plain times, and the least time the card could take
+for the same work); the last line is a JSON object naming the device.
 
 Without a CUDA device it fails before printing any result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -33,12 +37,13 @@ import numpy as np
 import torch
 
 import swtpu_torch
-from swtpu_torch import EngineConfig, Scoring, random_pair
+from swtpu_torch import EngineConfig, Scoring, random_batch, random_pair
 from swtpu_torch.core.encode import DNA_ALPHABET, PROTEIN_ALPHABET, decode
 from swtpu_torch.core.substitution import BLOSUM62
 from swtpu_torch.engine import traceback as tb
 from swtpu_torch.instrument.metrics import gcups
 from swtpu_torch.kernels import _cuda
+from swtpu_torch.kernels import pairs_fill as pf
 from swtpu_torch.kernels import stripe_fill as sf
 
 SCORING = Scoring()               # linear 3/-3/-2, the benchmark's scoring
@@ -71,14 +76,93 @@ ORIGIN = {
               "swtpu/kernels/pallas_fill.py:1466"),    # stripe_block_fn
     "walk": (CSRC + "walk_p.cu",
              "swtpu/engine/traceback.py:561"),         # the jitted walk
+    "pairs": (CSRC + "pairs_fill.cu",
+              "swtpu/kernels/pallas_fill.py:1962"),    # pairs_score_fn
+    "packed": (CSRC + "pairs_fill.cu",
+               "swtpu/kernels/pallas_fill.py:1730"),   # pairs_packed_score_fn
 }
+BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
+# a batch of the same size whose n no stripe height of K7 fits (no multiple
+# of 32 up to 1024 divides 1000 or is a multiple of it): 'auto' runs K8
+NO_FIT = (64, 1000)
+# the 16 mixed mid-size pairs of the JAX package's score_many probe
+# (scripts/tpu_round4.py amortize_probe): random_pair(m, n, seed=s), twice
+MIXED = [(16000, 15000), (15000, 16000), (14500, 15500), (15500, 14500),
+         (16300, 16300), (15000, 15000), (16000, 16000), (14500, 16300)]
+# (label, B, m, n, T, plant a motif twice) of the batch kernels' small
+# shapes: the JAX batch tests' own, plus m = 1 and B = 1
+PAIR_SHAPES = [("6x40x300", 6, 40, 300, None, False),
+               ("45x40x5 T=32", 45, 40, 5, 32, False),
+               ("45x40x5 T=256", 45, 40, 5, 256, False),
+               ("ties 8x64x96", 8, 64, 96, None, True),
+               ("7x52x33", 7, 52, 33, None, False),
+               ("5x30x44", 5, 30, 44, None, False),
+               ("m=1 3x1x70", 3, 1, 70, 64, False),
+               ("B=1 1x60x90", 1, 60, 90, 32, False)]
+
+# The least time the card could take (bound_ms): the larger of the int32
+# operations over the card's int32 rate and the bytes over its memory rate.
+# Memory: 3.35 TB/s (H100 SXM HBM3, NVIDIA's data sheet). int32: 64 results
+# per clock per SM for 32-bit integer add, compare, min and max at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), times the SMs and the maximum SM clock this card reports.
+MEM_BYTES_PER_S = 3.35e12
+INT32_PER_CLOCK_PER_SM = 64
+# int32 operations per cell, counted from the kernels' step: linear
+# H = max(0, DIAG + s, UP + g, LEFT + g) is a compare and a select for s,
+# three adds and three maxes, plus the argmax's compare (9); affine adds
+# E and F (an add each to open, an add each to extend, a max each) in
+# place of the two gap adds (13); a table lookup replaces the compare and
+# select (protein, affine: 12). P capture adds the code's three selects
+# (and, affine, the two extension tests); a band, its distance and compare.
+OPS_PER_CELL = {"linear": 9, "dna_affine": 13, "protein": 12}
+P_OPS = {"linear": 3, "dna_affine": 5, "protein": 5}
+BAND_OPS = 2
+WALK_OPS = 6              # per move: the P load's address, decode, state
 
 
 def origin(name: str) -> tuple:
-    kind = ("band" if name.endswith(sf.BAND_SUFFIX)
+    kind = ("pairs" if name.startswith("sw_pairs_")
+            else "packed" if name.startswith("sw_packed_")
+            else "band" if name.endswith(sf.BAND_SUFFIX)
             else "block" if name in sf.BLOCK_KERNELS.values()
             else "walk" if name == sf.WALK_KERNEL else "stripe")
     return ORIGIN[kind]
+
+
+@functools.cache
+def int32_rate() -> float:
+    """int32 operations per second of card 0 at its maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "--id=0"],
+        capture_output=True, text=True, check=True, timeout=60).stdout)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_PER_CLOCK_PER_SM * mhz * 1e6
+
+
+def bound(cells: float, ops_per_cell: float, nbytes: float) -> dict:
+    """bound_ms, bound_by and library_ms (no single PyTorch call computes
+    a Smith-Waterman fill or walk) of a kernel record."""
+    op_ms = cells * ops_per_cell / int32_rate() * 1e3
+    byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes",
+                library_ms=None)
+
+
+def band_cells(m: int, n: int, band: int) -> int:
+    """Cells (i, j) of an n x m matrix with |i - j| <= band."""
+    i = np.arange(1, n + 1, dtype=np.int64)
+    return int(np.clip(np.minimum(m, i + band) - np.maximum(1, i - band) + 1,
+                       0, None).sum())
+
+
+def fill_bytes(m: int, n: int, S=None, p: bool = False) -> int:
+    """Bytes a single-pair fill must move: the codes (and table) in; the
+    right column, the (4,) best (and P) out."""
+    table = 0 if S is None else 4 * S.size
+    return m + n + table + 4 * (n + 1) + 16 + ((n + 1) * (m + 1) if p else 0)
 
 
 def phase(name: str, msg: str) -> None:
@@ -208,16 +292,17 @@ def on_card(*arrays, dev) -> tuple:
 
 def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
-    the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock>, and the
-    walk."""
+    the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
+    kPacked>, and the walk."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
-        got = re.search(r"stripe_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                        ln)
+        got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 7, ln)
         if "Compiling entry function" in ln and got:
-            p, aff, sub, band, blk = (int(v) for v in got.groups())
-            name = (f"{'fill_p' if p else 'block' if blk else 'score'}_"
-                    f"{'sub_' if sub else ''}"
+            p, aff, sub, band, blk, pairs, packed = (int(v)
+                                                     for v in got.groups())
+            kind = ("fill_p" if p else "block" if blk else "pairs" if pairs
+                    else "packed" if packed else "score")
+            name = (f"{kind}_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}{'_band' if band else ''}")
         elif "Compiling entry function" in ln and "walk_p_kernel" in ln:
             name = "walk"
@@ -322,7 +407,9 @@ def kernels_vs_plain(dev) -> dict:
         e = max(diff(ks.best, ps.best), diff(ks.right_col, ps.right_col))
         require(e == 0, f"{ks_name} != plain at the benchmark size")
         recs[ks_name] = dict(ms=k_ms, plain_ms=p_ms,
-                             max_abs_err=max(e, err[ks_name]))
+                             max_abs_err=max(e, err[ks_name]),
+                             **bound(SCORE_N ** 2, OPS_PER_CELL[mode],
+                                     fill_bytes(SCORE_N, SCORE_N, S)))
         phase("kernels", f"{ks_name} {SCORE_N}^2 [{mode}]: "
               f"{ks.best.tolist()} kernel {k_ms:.3f} ms "
               f"({gcups(SCORE_N ** 2, k_ms / 1e3):.2f} GCUPS), "
@@ -337,7 +424,10 @@ def kernels_vs_plain(dev) -> dict:
                 diff(kf.P, pf.P))
         require(e == 0, f"{kf_name} != plain at the align size")
         recs[kf_name] = dict(ms=k_ms, plain_ms=p_ms,
-                             max_abs_err=max(e, err[kf_name]))
+                             max_abs_err=max(e, err[kf_name]),
+                             **bound(ALIGN_N ** 2,
+                                     OPS_PER_CELL[mode] + P_OPS[mode],
+                                     fill_bytes(ALIGN_N, ALIGN_N, S, True)))
         phase("kernels", f"{kf_name} {ALIGN_N}^2 [{mode}]: "
               f"{kf.best.tolist()} kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.1f} ms, P bit-equal")
@@ -396,7 +486,12 @@ def band_vs_plain(dev) -> dict:
             e = max(diff(k.best, p.best), diff(k.right_col, p.right_col),
                     0 if k.P is None else diff(k.P, p.P))
             require(e == 0, f"{name} != plain at the banded path's size")
-            recs[name] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e)
+            recs[name] = dict(
+                ms=k_ms, plain_ms=p_ms, max_abs_err=e,
+                **bound(band_cells(ALIGN_N, ALIGN_N, BAND),
+                        OPS_PER_CELL[mode] + BAND_OPS
+                        + (P_OPS[mode] if capture_p else 0),
+                        fill_bytes(ALIGN_N, ALIGN_N, S, capture_p)))
             phase("kernels", f"{name} {ALIGN_N}^2 band {BAND}: "
                   f"{k.best.tolist()} kernel {k_ms:.3f} ms, plain "
                   f"{p_ms:.1f} ms, equal")
@@ -551,7 +646,12 @@ def lean_parts(mode: str, dev) -> tuple:
     require(e == 0, f"{name} != plain at the reverse pass's size")
     rs, ri, rj, _ = k.best.tolist()
     require(rs == score, f"{mode}: reverse pass {rs} != forward {score}")
-    block_rec = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e)
+    # in: codes, table, top and left (affine: and F, E); out: the right
+    # column (affine: and E), the best
+    sides = (2 if sc.is_affine else 1) * 4 * (ej + 1 + 2 * (ei + 1))
+    block_rec = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e,
+                     **bound(ei * ej, OPS_PER_CELL[mode],
+                             fill_bytes(ej, ei, S) - 4 * (ei + 1) + sides))
     del ar, br, k, p
     si, sj = ei - ri + 1, ej - rj + 1
     wn, wm = ei - si + 1, ej - sj + 1
@@ -568,7 +668,9 @@ def lean_parts(mode: str, dev) -> tuple:
                              moves.tolist())
     tb._render(ca, cb, alphabet)
     host_s = time.perf_counter() - t0
-    walk_rec = dict(ms=w_ms, plain_ms=pw_ms, max_abs_err=0)
+    # one byte of P read and one move written per move
+    walk_rec = dict(ms=w_ms, plain_ms=pw_ms, max_abs_err=0,
+                    **bound(len(moves), WALK_OPS, 2 * len(moves) + 4))
     line = (f"{SCORE_N}^2 parts: forward {fwd_s * 1e3:.1f} ms (wall); "
             f"reverse {name} {k_ms:.3f} ms (plain {p_ms:.1f} ms, equal); "
             f"window {wn}x{wm} refill {f_ms:.3f} ms; walk {len(moves)} "
@@ -672,6 +774,261 @@ def drive(mode: str, refs: dict) -> str:
             f"wall {wall:.3f} s")
 
 
+def hits_diff(x, y) -> int:
+    """Max abs difference of two (scores, max_i, max_j) triples."""
+    return max(diff(u, v) for u, v in zip(x, y))
+
+
+def _pairs_batch(mode: str, B: int, m: int, n: int, seed: int,
+                 ties: bool = False) -> tuple:
+    """A small batch of the mode's alphabet with a planted shared prefix;
+    ``ties``: one motif planted twice in every pair (the JAX batch tests'
+    tie-rich batch)."""
+    rng = np.random.default_rng(seed)
+    A = 20 if mode == "protein" else 4
+    aa = rng.integers(0, A, (B, m)).astype(np.int8)
+    bb = rng.integers(0, A, (B, n)).astype(np.int8)
+    k = min(m, n) // 2
+    bb[:, :k] = aa[:, :k]
+    if ties:
+        aa[:, 10:18] = aa[:, 40:48]
+        bb[:, 5:13] = aa[:, 10:18]
+        bb[:, 60:68] = aa[:, 10:18]
+    return aa, bb
+
+
+def full_batch(mode: str) -> tuple:
+    """The 64 x 1056^2 batch: random_batch(64, 1056, 1056, seed=0) for DNA,
+    20 letters from default_rng(0) for protein."""
+    B, n = BATCH
+    if mode == "protein":
+        rng = np.random.default_rng(0)
+        return (rng.integers(0, 20, (B, n)).astype(np.int8),
+                rng.integers(0, 20, (B, n)).astype(np.int8))
+    return random_batch(B, n, n, seed=0)
+
+
+def mixed_set() -> tuple:
+    pairs = [random_pair(m, n, seed=s) for s, (m, n) in enumerate(MIXED)] * 2
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def pairs_vs_plain(dev) -> dict:
+    """K8 (and banded at bands 0, 1, 8 and BAND) and K7 (the shape's T
+    and its own) against their plain version at the small shapes; returns
+    the max error per counter."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    err = dict.fromkeys(pf.launches, 0)
+    for mode in MODES:
+        sc, S = MODELS[mode][:2]
+        sub = None if S is None else table
+        k8, k7 = pf.pairs_kernel_name(sc, S), pf.packed_kernel_name(sc, S)
+        k8b = pf.pairs_kernel_name(sc, S, True)
+        for label, B, m, n, T, ties in PAIR_SHAPES:
+            at, bt = on_card(*_pairs_batch(mode, B, m, n, B + m + n, ties),
+                             dev=dev)
+            p = pf.pairs_score_plain(at, bt, sc, sub)
+            runs = [(k8, pf.pairs_score(at, bt, sc, T, sub)),
+                    (k7, pf.pairs_packed_score(at, bt, sc, T, sub)),
+                    (k7, pf.pairs_packed_score(at, bt, sc, None, sub))]
+            runs += [(k8b, pf.pairs_score(at, bt, sc, T, sub, band),
+                      pf.pairs_score_plain(at, bt, sc, sub, band))
+                     for band in (0, 1, 8, BAND)]
+            torch.cuda.synchronize()
+            for name, k, *plain in runs:
+                e = hits_diff(k, plain[0] if plain else p)
+                err[name] = max(err[name], e)
+                require(e == 0, f"{name} {label} [{mode}]: kernel != plain")
+        phase("kernels", f"{k8}, {k8b} (bands "
+              f"0/1/8/{BAND}) and {k7} [{mode}] at {len(PAIR_SHAPES)} batch "
+              "shapes: equal")
+    return err
+
+
+def pairs_full(dev) -> tuple:
+    """K8 and K7 at 64 x 1056^2 in each scoring, against the plain batched
+    fill and the per-pair single-pair kernels (K1-K3), kernel min of 3
+    after a warm-up, plain once; K8 also at K7's stripe height, K7 also at
+    T=256 (its chain then crosses pairs); K8 banded at BAND likewise.
+    Returns (records, plain results per mode, banded plain results per
+    mode)."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    B, n = BATCH
+    cells = B * n * n
+    recs, want, want_band = {}, {}, {}
+    for mode in MODES:
+        sc, S = MODELS[mode][:2]
+        sub = None if S is None else table
+        at, bt = on_card(*full_batch(mode), dev=dev)
+        io = 2 * B * n + 12 * B + (0 if S is None else 4 * S.size)
+        p_ms, p = timed_ms(lambda: pf.pairs_score_plain(at, bt, sc, sub), 1)
+        single = torch.stack([sf.stripe_score(at[g], bt[g], sc,
+                                              substitution=sub).best[:3]
+                              for g in range(B)]).T
+        require(hits_diff(p, single) == 0,
+                f"{mode}: the plain batch != the per-pair kernels")
+        times = {}
+        fit = pf.chain_cutting_rows(n, 0 if S is None else S.shape[0])
+        for label, fn in (
+                ("K8", lambda: pf.pairs_score(at, bt, sc, substitution=sub)),
+                (f"K8 T={fit}", lambda: pf.pairs_score(
+                    at, bt, sc, T=fit, substitution=sub)),
+                (f"K7 T={fit}", lambda: pf.pairs_packed_score(
+                    at, bt, sc, substitution=sub)),
+                ("K7 T=256", lambda: pf.pairs_packed_score(
+                    at, bt, sc, T=256, substitution=sub))):
+            times[label], k = timed_ms(fn, 3)
+            require(hits_diff(k, p) == 0,
+                    f"{label} [{mode}] {B}x{n}^2: kernel != plain")
+        pb_ms, pb = timed_ms(
+            lambda: pf.pairs_score_plain(at, bt, sc, sub, BAND), 1)
+        kb_ms, kb = timed_ms(
+            lambda: pf.pairs_score(at, bt, sc, substitution=sub, band=BAND), 3)
+        require(hits_diff(kb, pb) == 0,
+                f"band {BAND} [{mode}] {B}x{n}^2: kernel != plain")
+        ops = OPS_PER_CELL[mode]
+        k8, k7 = pf.pairs_kernel_name(sc, S), pf.packed_kernel_name(sc, S)
+        k8b = pf.pairs_kernel_name(sc, S, True)
+        recs[k8] = dict(ms=times["K8"], plain_ms=p_ms, max_abs_err=0,
+                        **bound(cells, ops, io))
+        recs[k7] = dict(ms=times[f"K7 T={fit}"], plain_ms=p_ms,
+                        max_abs_err=0, **bound(cells, ops, io))
+        recs[k8b] = dict(ms=kb_ms, plain_ms=pb_ms, max_abs_err=0,
+                         **bound(B * band_cells(n, n, BAND), ops + BAND_OPS,
+                                 io))
+        want[mode] = [x.tolist() for x in p]
+        want_band[mode] = [x.tolist() for x in pb]
+        phase("batch", f"[{mode}] {B}x{n}^2: " + ", ".join(
+            f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
+            for k, v in times.items())
+            + f"; plain {p_ms:.1f} ms; equal to the plain version and to "
+            f"{B} x {sf.kernel_name(sc, S, False)}; {k8b} band {BAND} "
+            f"{kb_ms:.3f} ms (plain {pb_ms:.1f} ms), equal")
+        del at, bt
+    return recs, want, want_band
+
+
+def no_fit_batch(dev) -> tuple:
+    """K8 and K7 at NO_FIT, linear, where K7 runs at the default T=256 and
+    its chain crosses pairs: kernel min of 3 after a warm-up, plain once,
+    all equal. Returns (the plain result, the phase line)."""
+    B, n = NO_FIT
+    cells = B * n * n
+    at, bt = on_card(*random_batch(B, n, n, seed=0), dev=dev)
+    p_ms, p = timed_ms(lambda: pf.pairs_score_plain(at, bt), 1)
+    times = {}
+    for label, fn in (("K8", lambda: pf.pairs_score(at, bt)),
+                      (f"K7 T={pf.packed_stripe_rows(n, B)}",
+                       lambda: pf.pairs_packed_score(at, bt))):
+        times[label], k = timed_ms(fn, 3)
+        require(hits_diff(k, p) == 0, f"{label} {B}x{n}^2: kernel != plain")
+    return ([x.tolist() for x in p],
+            f"[linear] {B}x{n}^2 (no stripe height cuts K7's chain): "
+            + ", ".join(f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
+                        for k, v in times.items())
+            + f"; plain {p_ms:.1f} ms; equal")
+
+
+def bucket_kernels(dev) -> str:
+    """K8 and K7 at the score_many bucket of the mixed set (16 x 16384^2,
+    padded as score_many pads it), kernel min of 3 after a warm-up; both
+    equal. Returns the phase line."""
+    a_list, b_list = mixed_set()
+    nb = 1 << (max(max(s) for s in MIXED) - 1).bit_length()
+    aa = np.full((len(a_list), nb), -3, np.int8)
+    bb = np.full((len(b_list), nb), -2, np.int8)
+    for r, (a, b) in enumerate(zip(a_list, b_list)):
+        aa[r, :len(a)], bb[r, :len(b)] = a, b
+    at, bt = on_card(aa, bb, dev=dev)
+    cells = sum(len(a) * len(b) for a, b in zip(a_list, b_list))
+    times, outs = {}, []
+    for label, fn in (
+            ("K8", lambda: pf.pairs_score(at, bt)),
+            ("K7", lambda: pf.pairs_packed_score(at, bt))):
+        times[label], k = timed_ms(fn, 3)
+        outs.append(k)
+    require(all(hits_diff(k, outs[0]) == 0 for k in outs),
+            "the bucket's kernels disagree")
+    return (f"score_many bucket {len(aa)}x{nb}^2 ({cells / 1e9:.2f} G real "
+            "cells): " + ", ".join(
+                f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
+                for k, v in times.items()) + ", equal")
+
+
+def check_records(recs: list, scores: list, top: int, mode: str,
+                  pair) -> None:
+    """batch_align's contract: the best ``top`` positive pairs, best
+    first, ties by index, scores equal to the batch's, strings that
+    re-score to them."""
+    order = sorted((i for i, s in enumerate(scores) if s > 0),
+                   key=lambda i: (-scores[i], i))[:top]
+    require([i for i, _ in recs] == order, f"{mode}: not best-first")
+    for i, r in recs:
+        require(r.max_score == scores[i], f"{mode}: pair {i} re-aligned "
+                f"to {r.max_score}, batch {scores[i]}")
+        check_alignment(r, *pair(i), mode)
+
+
+def drive_batch(want: dict, want_band: dict, want_no_fit: list,
+                dev) -> tuple:
+    """The batch path through the public calls on ``dev``; returns (phase
+    lines, score_many's hits, its wall in s)."""
+    lines = []
+    B, n = NO_FIT
+    k7 = dict(pf.launches)
+    t0 = time.perf_counter()
+    got = [x.tolist() for x in swtpu_torch.batch_score(
+        *random_batch(B, n, n, seed=0), device=dev)]
+    wall = time.perf_counter() - t0
+    require(got == want_no_fit, f"batch_score {B}x{n}^2 != the plain version")
+    require(pf.launches == {**k7, "sw_pairs_score_linear":
+                            k7["sw_pairs_score_linear"] + 1},
+            f"batch_score {B}x{n}^2 did not run K8 alone")
+    lines.append(f"[linear] batch_score {B}x{n}^2 auto: K8, wall "
+                 f"{wall * 1e3:.1f} ms, equal")
+    B, n = BATCH
+    for mode in MODES:
+        sc, S, alphabet, _ = MODELS[mode]
+        aa, bb = full_batch(mode)
+        kw = dict(substitution=S, device=dev)
+        walls = {}
+        for plan in ("auto", "stripe", "packed"):
+            t0 = time.perf_counter()
+            got = [x.tolist() for x in swtpu_torch.batch_score(
+                aa, bb, sc, plan=plan, **kw)]
+            walls[plan] = time.perf_counter() - t0
+            require(got == want[mode],
+                    f"{mode} batch_score plan={plan} != the plain version")
+        got = [x.tolist() for x in swtpu_torch.batch_score(
+            aa, bb, sc, band=BAND, **kw)]
+        require(got == want_band[mode], f"{mode} banded batch_score != "
+                "the plain version")
+        t0 = time.perf_counter()
+        recs = swtpu_torch.batch_align(aa, bb, sc, top=8, alphabet=alphabet,
+                                       **kw)
+        wall = time.perf_counter() - t0
+        check_records(recs, want[mode][0], 8, mode, lambda i: (aa[i], bb[i]))
+        lines.append(
+            f"[{mode}] batch_score {B}x{n}^2 wall " + ", ".join(
+                f"{p} {s * 1e3:.1f} ms" for p, s in walls.items())
+            + f" (conversion, copy, kernel and fetch), banded {BAND} equal; "
+            f"batch_align top=8 {wall:.3f} s, scores "
+            f"{[r.max_score for _, r in recs]}, strings re-score")
+    a_list, b_list = mixed_set()
+    t0 = time.perf_counter()
+    hits = swtpu_torch.score_many(a_list, b_list, device=dev)
+    many_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = swtpu_torch.align_many(a_list, b_list, top=4, device=dev)
+    wall = time.perf_counter() - t0
+    check_records(recs, hits.scores.tolist(), 4, "linear",
+                  lambda i: (a_list[i], b_list[i]))
+    lines.append(f"[linear] score_many {len(a_list)} mixed pairs wall "
+                 f"{many_s:.3f} s; align_many top=4 {wall:.3f} s, scores "
+                 f"{[r.max_score for _, r in recs]}, strings re-score")
+    return lines, hits, many_s
+
+
 def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -707,6 +1064,14 @@ def main() -> int:
             walk_rec["max_abs_err"] = max(walk_rec["max_abs_err"], walk_err)
             recs[sf.WALK_KERNEL] = walk_rec
         phase(mode, line)
+    pair_err = pairs_vs_plain(dev)
+    batch_recs, batch_want, batch_want_band = pairs_full(dev)
+    for entry, rec in batch_recs.items():
+        rec["max_abs_err"] = max(rec["max_abs_err"], pair_err[entry])
+    recs.update(batch_recs)
+    batch_want_no_fit, line = no_fit_batch(dev)
+    phase("batch", line)
+    phase("batch", bucket_kernels(dev))
 
     # independent references for the main paths, on the host
     t0 = time.perf_counter()
@@ -781,10 +1146,44 @@ def main() -> int:
     phase("path", f"lean and banded path in {lean_s:.1f} s: kernel "
           f"launches {lean}, plain calls {plain}")
 
+    # ---- the batch path: public calls only, from zero ----
+    pf.reset_counts()
+    t0 = time.perf_counter()
+    lines, hits, many_s = drive_batch(batch_want, batch_want_band,
+                                      batch_want_no_fit, dev)
+    batch_s = time.perf_counter() - t0
+    batch = {**sf.launches, **pf.launches}
+    plain = {**sf.plain_calls, **pf.plain_calls}
+    # ---- end of the batch path ----
+    for ln in lines:
+        phase("batch", ln)
+    require(all(batch[k] > 0 for k in pf.launches), f"launches {batch}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    phase("path", f"batch path in {batch_s:.1f} s: kernel launches "
+          f"{ {k: v for k, v in batch.items() if v} }, plain calls {plain}")
+    a_list, b_list = mixed_set()
+    t0 = time.perf_counter()
+    per = [swtpu_torch.score(a, b, device="cuda")
+           for a, b in zip(a_list, b_list)]
+    per_s = time.perf_counter() - t0
+    ends = [swtpu_torch.align(a, b, traceback=False, device="cuda")
+            for a, b in zip(a_list, b_list)]
+    require(hits.scores.tolist() == per
+            == [r.max_score for r in ends]
+            and hits.max_i.tolist() == [r.max_i for r in ends]
+            and hits.max_j.tolist() == [r.max_j for r in ends],
+            f"score_many {hits} != per-pair score() {per}")
+    phase("batch", f"score_many on the {len(per)} mixed pairs equals "
+          f"per-pair score() and align(traceback=False): {per}; wall "
+          f"score_many {many_s:.3f} s, {len(per)} x score() {per_s:.3f} s")
+
+    # launches: the three paths' runs; the K7/K8 counters run on the batch
+    # path alone
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
-                    replaces=origin(k)[1], launches=launches[k] + lean[k],
+                    replaces=origin(k)[1],
+                    launches=launches.get(k, 0) + lean.get(k, 0) + batch[k],
                     **recs[k])
-               for k in sf.launches]
+               for k in batch]
     phase("done", f"all phases in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """swtpu_torch — the PyTorch/CUDA port of swtpu for one NVIDIA H100.
 
-Exact int32 Smith-Waterman scoring and alignment of one pair, linear or
-affine gaps, match/mismatch or a substitution table such as BLOSUM62, with
-the same public calls and the same answers as the JAX package ``swtpu``:
-max score, first row-major end cell, ``last_cell``, predecessor codes and
-alignment strings, full-P or lean (locate + windowed refill, Hirschberg)
-traceback, banded or not. On a CUDA device the fills and the walk of P run
-hand-written CUDA kernels (``csrc/``); on the CPU their plain PyTorch
-versions run.
+Exact int32 Smith-Waterman scoring and alignment, linear or affine gaps,
+match/mismatch or a substitution table such as BLOSUM62, with the same
+public calls and the same answers as the JAX package ``swtpu``. One pair:
+``align``/``score``, the max score, first row-major end cell,
+``last_cell``, predecessor codes and alignment strings, full-P or lean
+(locate + windowed refill, Hirschberg) traceback, banded or not. Many
+pairs: ``batch_score`` (one shape), ``score_many`` (any shapes, bucketed),
+``batch_align`` and ``align_many`` (strings for the best pairs). On a CUDA
+device the fills and the walk of P run hand-written CUDA kernels
+(``csrc/``); on the CPU their plain PyTorch versions run.
 
 This package imports torch and numpy and never JAX or ``swtpu``.
 """
@@ -27,6 +29,7 @@ from .core.config import (
     Scoring,
 )
 from .core.encode import decode, encode, random_batch, random_pair, revcomp
+from .dist.batch import align_many, batch_align, batch_score, score_many
 from .engine.align import Alignment, align, score
 from .engine.traceback import AnchoredReverseMismatch
 
@@ -34,6 +37,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "align", "score",
+    "batch_score", "score_many", "batch_align", "align_many",
     "Alignment", "Scoring", "EngineConfig", "AnchoredReverseMismatch",
     "encode", "decode", "random_pair", "random_batch", "revcomp",
     "NONE", "UP", "LEFT", "DIAGONAL", "PATH",

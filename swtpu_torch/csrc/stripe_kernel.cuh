@@ -1,6 +1,6 @@
-// Smith-Waterman stripe fill for one pair on Hopper (sm_90a): the kernel
-// template shared by the C entries of stripe_fill.cu (K1-K4 and their band
-// mode K4b) and stripe_block.cu (K5).
+// Smith-Waterman stripe fill on Hopper (sm_90a): the kernel template shared
+// by the C entries of stripe_fill.cu (K1-K4 and their band mode K4b),
+// stripe_block.cu (K5) and pairs_fill.cu (the batch modes K8 and K7).
 //
 // Replaces the Pallas stripe kernel of the JAX package
 // (swtpu/kernels/pallas_fill.py, body `_kernel`, launched by `_stripe_call`)
@@ -18,9 +18,13 @@
 //   * kBlock - boundary injection and the global (Needleman-Wunsch) mode of
 //     `stripe_block_fn`: row 0 and column 0 (and affine F of row 0, E of
 //     column 0) come from the caller, `local == 0` drops the zero floor, and
-//     the block exports E of column m and, on request, H and F of row n.
+//     the block exports E of column m and, on request, H and F of row n;
+//   * kPairs - the pair grid of `pairs_score_fn` (K8): B independent pairs
+//     of one shape in one launch, each cut into its own stripes (below);
+//   * kPacked - the packed pairs of `pairs_packed_score_fn` (K7): the B*n
+//     target rows of B pairs back to back in one stripe chain (below).
 // A flag left off adds nothing to the step loop, so K1's instantiation runs
-// the loop it always ran.
+// the loop it always ran; the flags added after it go last, with defaults.
 //
 // What bounds it on the card. The fill is a chain of dependent steps: every
 // cell needs its left and upper neighbours, so a stripe advances one
@@ -61,6 +65,22 @@
 // from an atomic ticket (zeroed by the caller for each launch), not from
 // blockIdx: the block it waits on took its ticket earlier, is resident,
 // and never waits on a later one.
+//
+// kPairs: the launch holds B pairs x S stripes of blocks. A ticket names a
+// (pair, stripe) in pair-major order, so stripe s of a pair takes its
+// ticket after stripe s-1 of the same pair and the ticket argument above
+// still holds. (Stripe-major order was measured no faster: PERF.md.) The block then moves a, b,
+// the progress counters, the boundary rows, the stripe bests and the right
+// column to its pair's slice and runs the single-pair body unchanged.
+//
+// kPacked: n is the B*rows packed target rows; thread k owns global row
+// i = s*T + k + 1, which is local row (i-1) % rows + 1 of pair
+// g = (i-1) / rows, and reads its query from a + g*m (the GPU form of the
+// TPU kernel's per-pair stream injection: the column at step t is still
+// t - k + 1). A pair's first row is a reset row: UP = DIAG = 0 and
+// F = NEG, the pair's own zero row 0, so a stripe whose thread 0 sits on
+// one waits on no earlier stripe. Each thread exports its row's
+// (best, first column) and the caller reduces per pair.
 //
 // Edges are masked explicitly (rows > n, columns outside 1..m); nothing
 // relies on the penalties decaying garbage cells. The argmax keeps the
@@ -120,6 +140,17 @@ struct Block {
   int local;
 };
 
+// The batch modes' geometry. kPairs: pairs B and stripes S per pair,
+// tickets handed out pair by pair. kPacked: rows, the target rows of one
+// pair (n is then B * rows), and row_best, (n, 2) int32, each row's (best,
+// first column holding it).
+struct Batch {
+  int pairs;
+  int stripes;
+  int rows;
+  int* row_best;
+};
+
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
@@ -142,15 +173,25 @@ __device__ __forceinline__ void store_release(int* p, int v) {
 // blk:   kBlock's boundaries and exports; last, so that the other
 //        parameters keep the offsets (and K1 the code) they had before
 //        the block mode was added.
-template <bool kCaptureP, bool kAffine, bool kSub, bool kBand, bool kBlock>
+// bt:    the batch modes' geometry, after blk for the same reason.
+// kPairs: sync, bnd, bnd_f, best and right hold one slice per pair, in
+//        pair order: 1 + B*S counters after the ticket, B*(S-1) boundary
+//        rows, B*S bests, B*(n+1) right columns.
+// kPacked: the per-stripe bests are not written; bt.row_best is.
+template <bool kCaptureP, bool kAffine, bool kSub, bool kBand, bool kBlock,
+          bool kPairs = false, bool kPacked = false>
 __global__ void __launch_bounds__(kMaxThreads)
 stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
               int m, int n, Model sc, int* __restrict__ sync,
               int* __restrict__ bnd, int* __restrict__ bnd_f,
               int* __restrict__ best_out, int* __restrict__ right,
-              int8_t* __restrict__ P, Block blk) {
+              int8_t* __restrict__ P, Block blk, Batch bt) {
   static_assert(!(kCaptureP && kBlock), "block mode captures no P");
   static_assert(!(kBand && kBlock), "block mode takes no band");
+  static_assert(!((kPairs || kPacked) && (kCaptureP || kBlock)),
+                "the batch modes capture no P and inject no boundary");
+  static_assert(!(kPairs && kPacked), "one batch mode at a time");
+  static_assert(!(kPacked && kBand), "packed pairs take no band");
   __shared__ int s_stripe, s_best, s_k;
   __shared__ int s_edge[2][kMaxThreads / 32];  // last lane of each warp: H
   __shared__ int s_fedge[2][kAffine ? kMaxThreads / 32 : 1];   // and F
@@ -171,9 +212,29 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
   __syncthreads();
 
-  const int s = s_stripe;
+  int s = s_stripe;
+  if constexpr (kPairs) {
+    const int S = bt.stripes;
+    const int g = s / S;   // pair-major: a pair's stripes take consecutive
+    s -= g * S;            // tickets, so a block waits only on earlier ones
+    a += (size_t)g * m;
+    b += (size_t)g * n;
+    sync += (size_t)g * S;
+    bnd += (size_t)g * (S - 1) * ((size_t)m + 1);
+    if constexpr (kAffine) bnd_f += (size_t)g * (S - 1) * ((size_t)m + 1);
+    best_out += (size_t)g * S * 4;
+    right += (size_t)g * ((size_t)n + 1);
+  }
   const int i = s * T + k + 1;
   const bool row_ok = i <= n;
+  bool reset = false;   // kPacked: row i is its pair's first
+  if constexpr (kPacked) {
+    if (row_ok) {
+      const int g = (i - 1) / bt.rows;
+      a += (size_t)g * m;                 // this row's pair's query
+      reset = i - 1 == g * bt.rows;
+    }
+  }
   const int bi = row_ok ? b[i - 1] : -1;
   if constexpr (kSub) {
     // only thread k reads column k of the profile, so no barrier is needed
@@ -231,7 +292,7 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
             if constexpr (kAffine) f_up = __ldg(&blk.top_f[j]);
           }
         }
-        if (s > 0 && j <= m) {
+        if (s > 0 && j <= m && !(kPacked && reset)) {
           while (seen < j) seen = load_acquire(wait_on);
           up_in = __ldcg(&bnd[up_off + j]);
           if constexpr (kAffine) f_up = __ldcg(&bnd_f[up_off + j]);
@@ -239,6 +300,12 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       } else {
         up_in = s_edge[(t + 1) & 1][warp - 1];   // written at step t-1
         if constexpr (kAffine) f_up = s_fedge[(t + 1) & 1][warp - 1];
+      }
+    }
+    if constexpr (kPacked) {
+      if (reset) {                          // the pair's zero row 0
+        up_in = 0;
+        f_up = kNeg;
       }
     }
 
@@ -315,6 +382,13 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     __syncthreads();
   }
 
+  if constexpr (kPacked) {
+    if (row_ok) {
+      bt.row_best[2 * (size_t)(i - 1)] = best;
+      bt.row_best[2 * (size_t)(i - 1) + 1] = best_j;
+    }
+    return;
+  }
   // stripe argmax: score desc, then row asc; j is already the row's first
   if (best > 0) atomicMax(&s_best, best);
   __syncthreads();
@@ -328,12 +402,23 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
+// kPairs: n is one pair's rows and the grid is bt.pairs x the pair's
+// stripes; kPacked: n is all B * bt.rows rows.
 template <bool kCaptureP, bool kAffine, bool kSub, bool kBand = false,
-          bool kBlock = false>
+          bool kBlock = false, bool kPairs = false, bool kPacked = false>
 int launch(const int8_t* a, const int8_t* b, int m, int n, const Model& sc,
            const Block& blk, int T, int* sync, int* bnd, int* bnd_f,
-           int* best, int* right, int8_t* P, cudaStream_t stream) {
+           int* best, int* right, int8_t* P, cudaStream_t stream,
+           const Batch& bt = Batch{}) {
   if (m < 1 || n < 1 || T < 32 || T > kMaxThreads || T % 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int stripes = (n + T - 1) / T;
+  if (kPairs && (bt.pairs < 1 || bt.stripes != stripes ||
+                 (long long)bt.pairs * stripes > INT_MAX)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kPacked && (bt.rows < 1 || n % bt.rows || bt.row_best == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (kSub && (sc.sub == nullptr || sc.A < 1)) {
@@ -347,16 +432,17 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, const Model& sc,
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = kSub ? (size_t)sc.A * T * sizeof(int) : 0;
-  auto* kernel = stripe_kernel<kCaptureP, kAffine, kSub, kBand, kBlock>;
+  auto* kernel = stripe_kernel<kCaptureP, kAffine, kSub, kBand, kBlock,
+                               kPairs, kPacked>;
   if (smem > (size_t)kStaticSmemMax) {
     // above 48 KB a block's dynamic shared memory needs an opt-in
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int stripes = (n + T - 1) / T;
-  kernel<<<stripes, T, smem, stream>>>(a, b, m, n, sc, sync, bnd, bnd_f,
-                                       best, right, P, blk);
+  const int blocks = kPairs ? bt.pairs * stripes : stripes;
+  kernel<<<blocks, T, smem, stream>>>(a, b, m, n, sc, sync, bnd, bnd_f,
+                                      best, right, P, blk, bt);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,7 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "stripe_fill.cu", "stripe_block.cu", "walk_p.cu"))
+    "stripe_fill.cu", "stripe_block.cu", "walk_p.cu", "pairs_fill.cu"))
 HEADERS = (_PKG / "csrc" / "stripe_kernel.cuh",)
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,6 +64,22 @@ ARGTYPES["sw_stripe_block_sub"] = ([_ptr, _ptr, _int, _int, _ptr]
                                    + [_int] * 7 + [_ptr] * 13)
 # P, m1, wn, wm, moves, count, stream
 ARGTYPES["sw_walk_p"] = [_ptr] + [_int] * 3 + [_ptr] * 3
+# K8: a, b, B, m, n, the model, T, sync, bnd, [bnd_f], best, right, band,
+# stream
+ARGTYPES["sw_pairs_score_linear"] = ([_ptr, _ptr] + [_int] * 7 + [_ptr] * 4
+                                     + [_int, _ptr])
+ARGTYPES["sw_pairs_score_affine"] = ([_ptr, _ptr] + [_int] * 8 + [_ptr] * 5
+                                     + [_int, _ptr])
+# a, b, B, m, n, sub, A, affine, gap, gap_open, gap_extend, T, sync, bnd,
+# bnd_f, best, right, band, stream
+ARGTYPES["sw_pairs_score_sub"] = ([_ptr, _ptr] + [_int] * 3 + [_ptr]
+                                  + [_int] * 6 + [_ptr] * 5 + [_int, _ptr])
+# K7: a, b, B, m, n, the model, T, sync, bnd, [bnd_f], row_best, right,
+# stream
+ARGTYPES["sw_packed_score_linear"] = [_ptr, _ptr] + [_int] * 7 + [_ptr] * 5
+ARGTYPES["sw_packed_score_affine"] = [_ptr, _ptr] + [_int] * 8 + [_ptr] * 6
+ARGTYPES["sw_packed_score_sub"] = ([_ptr, _ptr] + [_int] * 3 + [_ptr]
+                                   + [_int] * 6 + [_ptr] * 6)
 
 
 @dataclasses.dataclass

@@ -44,6 +44,12 @@ F ``NEG``, as the JAX scan does. A banded step computes only the lanes of
 the band plus one on each side (the lane leaving it, which must be reset,
 and the lane entering it, whose DIAG carry must be current), so a narrow
 band costs a narrow step.
+
+``batch_scan_fill`` is the same local sweep over B same-shape pairs at
+once, the batch dimension written out where the JAX package vmaps its
+scan (``swtpu.dist.batch``): every pair shares m and n, so every step
+computes the same lane range for all of them. It is the plain version of
+the batch kernels (``kernels/pairs_fill.py``).
 """
 
 from __future__ import annotations
@@ -265,6 +271,102 @@ def scan_fill(
         bottom_f=bottom_f if affine else None,
         right_e=right_e if affine else None,
     )
+
+
+def batch_scan_fill(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    scoring: Scoring = Scoring(),
+    band: Optional[int] = None,
+    sub_table: Optional[torch.Tensor] = None,
+) -> tuple:
+    """Local fill of B pairs at once: a (B, m) against b (B, n) codes, both
+    on one device, m, n >= 1. Returns (scores, max_i, max_j), each (B,)
+    int32 on that device: every pair's max and its first row-major end
+    cell, (0, 0, 0) for a pair with no positive cell. ``band`` and
+    ``sub_table`` as in ``scan_fill``."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"a (B, m) and b (B, n) must share B, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    (B, m), n = a.shape, b.shape[1]
+    if m < 1 or n < 1:
+        raise ValueError(f"batch_scan_fill needs non-empty sequences, got "
+                         f"m={m}, n={n}")
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device}, b on {b.device}")
+    dev = a.device
+    i32 = torch.int32
+    affine = scoring.is_affine
+    gap, g_open, g_ext = scoring.gap, scoring.gap_open, scoring.gap_extend
+
+    ar = a.to(i32).flip(1)            # ar[:, m-1-t+k] == a[:, t-k]
+    b32 = b.to(i32)
+    if sub_table is not None:
+        A3 = sub_table.shape[0]
+        check_codes(a, b, A3 - 3)
+        flat_sub = sub_table.to(i32).reshape(-1)
+        ar = (ar + 3) * A3
+        b32 = b32 + 3
+    # hx[:, k+1] = lane k's H after the last step; hx[:, 0] = 0 is row 0
+    hx = torch.zeros((B, n + 1), dtype=i32, device=dev)
+    up_prev = torch.zeros((B, n), dtype=i32, device=dev)       # next DIAG
+    if affine:
+        ex = torch.full((B, n), NEG, dtype=i32, device=dev)    # E(i, j-1)
+        fx = torch.full((B, n + 1), NEG, dtype=i32, device=dev)
+    lane_best = torch.zeros((B, n), dtype=i32, device=dev)
+    lane_t = torch.zeros((B, n), dtype=i32, device=dev)
+    lanes = torch.arange(n, dtype=i32, device=dev)
+
+    for t in range(n + m - 1):
+        lo, hi = max(0, t - m + 1), min(n - 1, t) + 1
+        if band is not None:
+            lo = max(lo, (t - band + 1) // 2 - 1)
+            hi = min(hi, (t + band) // 2 + 2)
+            if lo >= hi:
+                continue
+        w = ar[:, m - 1 - t + lo:m - 1 - t + hi]
+        if sub_table is not None:
+            sub = flat_sub[w + b32[:, lo:hi]]
+        else:
+            sub = torch.where(w == b32[:, lo:hi], scoring.match,
+                              scoring.mismatch)
+        up = hx[:, lo:hi]
+        diag = up_prev[:, lo:hi] + sub
+        if affine:
+            left_g = torch.maximum(hx[:, lo + 1:hi + 1] + g_open,
+                                   ex[:, lo:hi] + g_ext)
+            up_g = torch.maximum(up + g_open, fx[:, lo:hi] + g_ext)
+        else:
+            left_g = hx[:, lo + 1:hi + 1] + gap
+            up_g = up + gap
+        up_prev[:, lo:hi] = up
+        h = torch.maximum(torch.maximum(diag.clamp(min=0), up_g), left_g)
+        inb = None
+        if band is not None:
+            inb = (2 * lanes[lo:hi] - t).abs() <= band
+            h = torch.where(inb, h, 0)
+            if affine:
+                left_g = torch.where(inb, left_g, NEG)
+                up_g = torch.where(inb, up_g, NEG)
+        if affine:
+            ex[:, lo:hi] = left_g
+            fx[:, lo + 1:hi + 1] = up_g
+        hx[:, lo + 1:hi + 1] = h
+        better = h > lane_best[:, lo:hi]
+        if inb is not None:
+            better &= inb
+        lane_best[:, lo:hi] = torch.where(better, h, lane_best[:, lo:hi])
+        lane_t[:, lo:hi].masked_fill_(better, t)
+
+    best = lane_best.max(dim=1).values
+    kk = torch.arange(n, dtype=i32, device=dev)
+    k = torch.where(lane_best == best[:, None], kk, n).min(dim=1).values
+    has = best > 0
+    t_at = lane_t.gather(1, k[:, None].long()).squeeze(1)
+    max_i = torch.where(has, k + 1, 0).to(i32)
+    max_j = torch.where(has, t_at - k + 1, 0).to(i32)
+    return best, max_i, max_j
 
 
 def diag_to_rowmajor(diag: torch.Tensor, n: int, m: int) -> torch.Tensor:

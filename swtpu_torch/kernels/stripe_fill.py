@@ -303,17 +303,24 @@ def _pack(out) -> torch.Tensor:
 
 
 def _route(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
-           substitution: Optional[torch.Tensor]) -> str:
-    """Validate the inputs; return their device type, 'cpu' or 'cuda'."""
+           substitution: Optional[torch.Tensor], batched: bool = False) -> str:
+    """Validate the inputs, one pair (1-D) or, ``batched``, B >= 1 pairs
+    of one shape ((B, m) and (B, n)); return their device type, 'cpu' or
+    'cuda'."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"codes must be int8, got {a.dtype} and {b.dtype}")
-    if a.dim() != 1 or b.dim() != 1:
+    if batched:
+        if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0] \
+                or a.shape[0] < 1:
+            raise ValueError(f"a (B, m) and b (B, n) must share B >= 1, got "
+                             f"{tuple(a.shape)} and {tuple(b.shape)}")
+    elif a.dim() != 1 or b.dim() != 1:
         raise ValueError("a and b must be 1-D code tensors")
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no stripe fill for device {a.device}")
-    m, n = a.numel(), b.numel()
+    m, n = a.shape[-1], b.shape[-1]
     if not kernels_take(m, n, scoring, substitution):
         raise ValueError(
             f"stripe kernel needs 1 <= m <= {MAX_WIDTH}, n >= 1 and negative "
@@ -389,14 +396,16 @@ def _model(scoring: Scoring, sub: Optional[torch.Tensor]) -> list:
 
 
 def _call(name: str, dev: torch.device, args: list,
-          counter: Optional[str] = None) -> None:
+          counter: Optional[str] = None,
+          counts: Optional[dict] = None) -> None:
     """Launch the C entry ``name`` on ``dev``'s current stream; count it
-    under ``counter`` (default: the name)."""
+    under ``counter`` (default: the name) in ``counts`` (default:
+    ``launches``)."""
     lib = _cuda.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda.check(name, getattr(lib, name)(*args, stream))
-    launches[counter or name] += 1
+    (launches if counts is None else counts)[counter or name] += 1
 
 
 def _scratch(n: int, m: int, T: Optional[int], sub, affine: bool,

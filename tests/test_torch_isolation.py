@@ -4,6 +4,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,7 @@ def test_port_imports_no_jax_and_no_swtpu():
         "import sys\n"
         "import swtpu_torch, swtpu_torch.__main__, swtpu_torch.convert\n"
         "import swtpu_torch.kernels.stripe_fill, swtpu_torch.dispatch.plan\n"
+        "import swtpu_torch.dist.batch, swtpu_torch.kernels.pairs_fill\n"
         "import swtpu_torch.instrument.metrics\n"
         "import swtpu_torch.instrument.printers\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -42,6 +44,27 @@ def test_cuda_request_without_a_card_raises(no_card, call):
         call("ACGTACGT", "ACGTTT", device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call("ACGTACGT", "ACGTTT")          # 'cuda' is the default
+
+
+@pytest.mark.parametrize("call", [
+    swtpu_torch.batch_score, swtpu_torch.batch_align,
+    swtpu_torch.score_many, swtpu_torch.align_many])
+def test_batch_request_without_a_card_raises(no_card, call):
+    aa = np.zeros((2, 8), np.int8)
+    bb = np.ones((2, 6), np.int8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(aa, bb)                        # 'cuda' is the default
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(aa, bb, device="cuda")
+
+
+@pytest.mark.parametrize("kw", [dict(plan="host-simd"), dict(mesh=object())],
+                         ids=["host_simd", "mesh"])
+def test_unported_batch_routes_raise(kw):
+    aa = np.zeros((2, 8), np.int8)
+    for call in (swtpu_torch.batch_score, swtpu_torch.score_many):
+        with pytest.raises(ValueError, match="not ported"):
+            call(aa, aa, device="cpu", **kw)
 
 
 def test_unknown_device_or_plan_raises():
