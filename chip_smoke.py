@@ -19,7 +19,11 @@ on 64 pairs of 1000^2, ``batch_align`` on the first, ``score_many`` and
 (``search`` of 2048 reads of 152 against a 1 Mb reference in each scoring,
 ``align_hits`` of the best 512 hits, ``map_reads`` single-end on 2048
 reads of 150 and paired-end on 1024 pairs against the reference as two
-records, and ``python -m swtpu_torch map`` on 256 of those reads). Each
+records, and ``python -m swtpu_torch map`` on 256 of those reads), and the
+sanitize path (``swtpu_torch.sanitize`` at 4096^2 and
+``sanitize_pairs_packed`` on 16 pairs of 1056^2, every cell of the K9
+capture checked against the numpy oracle, and ``python -m swtpu_torch
+4096 4096 --skip-backtrack --sanitize``). Each
 phase prints one line; any failure raises, so the exit code is not 0. The line before the last is a JSON object
 describing each kernel of the paths (launches in the paths' runs,
 exactness, kernel and plain times, and the least time the card could take
@@ -50,8 +54,10 @@ from swtpu_torch.core.encode import (DNA_ALPHABET, PROTEIN_ALPHABET, decode,
 from swtpu_torch.core.substitution import BLOSUM62
 from swtpu_torch.dist import database as db
 from swtpu_torch.engine import traceback as tb
+from swtpu_torch.instrument import sanitize as san
 from swtpu_torch.instrument.metrics import gcups
 from swtpu_torch.kernels import _cuda
+from swtpu_torch.kernels import debug_fill as df
 from swtpu_torch.kernels import pairs_fill as pf
 from swtpu_torch.kernels import stripe_fill as sf
 from swtpu_torch.kernels import window_fill as wf
@@ -92,6 +98,8 @@ ORIGIN = {
                "swtpu/kernels/pallas_fill.py:1730"),   # pairs_packed_score_fn
     "window": (CSRC + "window_fill.cu",
                "swtpu/kernels/pallas_fill.py:1608"),   # batch_score_fn
+    "sanitize": (CSRC + "sanitize_fill.cu",
+                 "swtpu/kernels/pallas_fill.py:597"),  # _kernel's debug_h
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -134,7 +142,8 @@ WALK_OPS = 6              # per move: the P load's address, decode, state
 
 
 def origin(name: str) -> tuple:
-    kind = ("pairs" if name.startswith("sw_pairs_")
+    kind = ("sanitize" if name.startswith("sw_sanitize_")
+            else "pairs" if name.startswith("sw_pairs_")
             else "packed" if name.startswith("sw_packed_")
             else "window" if name.startswith("sw_window_")
             else "band" if name.endswith(sf.BAND_SUFFIX)
@@ -306,16 +315,17 @@ def on_card(*arrays, dev) -> tuple:
 def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
-    kPacked, kWindow>, and the walk."""
+    kPacked, kWindow, kDebugH>, and the walk."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
-        got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 8, ln)
+        got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
         if "Compiling entry function" in ln and got:
-            p, aff, sub, band, blk, pairs, packed, window = (
+            p, aff, sub, band, blk, pairs, packed, window, debug = (
                 int(v) for v in got.groups())
             kind = ("fill_p" if p else "block" if blk else "pairs" if pairs
                     else "window" if window else "packed" if packed
                     else "score")
+            kind = f"debug_{kind}" if debug else kind
             name = (f"{kind}_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}{'_band' if band else ''}")
         elif "Compiling entry function" in ln and "walk_p_kernel" in ln:
@@ -1391,6 +1401,174 @@ def drive_search(dev) -> tuple:
     return lines, walls
 
 
+# ---- the sanitize path ----
+
+SANITIZE_N = 4096                  # sanitize() at 4096^2: 16.8 M cells
+SANITIZE_B = 16                    # sanitize_pairs_packed on 16 x 1056^2
+# K9's small shapes, each at T = 32 and 128 (the plain capture walks
+# anti-diagonals in tensor ops): (label, m, n) single pairs with ragged
+# stripes, m = 1 and m > n; (label, B, m, n) packed batches whose pairs
+# straddle stripes
+DEBUG_PAIRS = [("300x1290", 300, 1290), ("ragged 200x583", 200, 583),
+               ("m=1 1x700", 1, 700), ("m>n 700x200", 700, 200)]
+DEBUG_BATCHES = [("5x300x45", 5, 300, 45), ("9x18x20", 9, 18, 20),
+                 ("3x1x70", 3, 1, 70), ("4x40x130", 4, 40, 130)]
+DEBUG_T = (32, 128)
+
+
+def capture_bytes(m: int, n: int, T: int) -> int:
+    """Bytes a K9 launch of n rows by m columns writes beyond its twin's:
+    H of every scheduled slot, and the progress seen at each boundary
+    column."""
+    stripes = -(-n // T)
+    slots = T * sum(m + min(T, n - s * T) - 1 for s in range(stripes))
+    return 4 * slots + 4 * stripes * (m + 1)
+
+
+def debug_vs_plain(dev) -> dict:
+    """K9 against its plain capture on the card at the small shapes, each
+    at T = 32 and 128, in each scoring (the table in both gap models): h
+    bit-equal and the captures passing the checks; then, at T = 128, the
+    same with the hand-off test hook (skew=1): h bit-equal again, and the
+    checks reject both captures (shapes with m > 1, where a shifted
+    column shows). Returns the max error per counter."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    err = dict.fromkeys(df.launches, 0)
+    for mode, (_, _, scorings, S) in MODES.items():
+        sub = None if S is None else table
+        for sc in scorings:
+            for packed, shapes in ((False, DEBUG_PAIRS),
+                                   (True, DEBUG_BATCHES)):
+                name = df.debug_kernel_name(sc, S, packed)
+                kfn = df.packed_capture if packed else df.stripe_capture
+                pfn = (df.packed_capture_plain if packed
+                       else df.stripe_capture_plain)
+                for label, *shape in shapes:
+                    a, b = (_pairs_batch(mode, *shape, sum(shape)) if packed
+                            else _small_pair(mode, *shape, sum(shape)))
+                    H, maxes = san.reference(a, b, sc, S)
+                    at, bt = on_card(a, b, dev=dev)
+                    for T in DEBUG_T:
+                        hook = T == DEBUG_T[-1] and a.shape[-1] > 1
+                        for skew in (0, 1) if hook else (0,):
+                            k = kfn(at, bt, sc, T, sub, skew)
+                            p = pfn(at, bt, sc, T, sub, skew)
+                            torch.cuda.synchronize()
+                            e = df.same_capture(k, p, skew > 0)
+                            err[name] = max(err[name], e)
+                            require(e == 0, f"{name} {label} {sc.mode} T={T} "
+                                    f"skew={skew}: kernel != plain")
+                            for cap in (k, p):
+                                try:
+                                    san.check_capture(cap, H, maxes)
+                                    caught = False
+                                except san.SanitizeError:
+                                    caught = True
+                                require(caught == (skew > 0),
+                                        f"{name} {label} {sc.mode} T={T} "
+                                        f"skew={skew}: checks "
+                                        f"{'missed' if skew else 'failed'}")
+                phase("kernels", f"{name} [{mode} {sc.mode}] "
+                      f"{len(shapes)} shapes x T=32/128: h equal, checks "
+                      "pass; skew=1 at T=128: h equal, checks reject both")
+    return err
+
+
+def sanitize_batch(mode: str) -> tuple:
+    """The first 16 pairs of the 64 x 1056^2 batch."""
+    aa, bb = full_batch(mode)
+    return aa[:SANITIZE_B], bb[:SANITIZE_B]
+
+
+def debug_records(dev) -> dict:
+    """Each K9 entry at the sanitize path's shapes (4096^2 at the default
+    T; 16 x 1056^2 at K7's T): kernel min of 3 after a warm-up, plain once,
+    h bit-equal; returns the records."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    recs = {}
+    for mode in MODES:
+        sc, S, _, make = MODELS[mode]
+        sub = None if S is None else table
+        for packed in (False, True):
+            if packed:
+                a, b = sanitize_batch(mode)
+                kfn, pfn = df.packed_capture, df.packed_capture_plain
+            else:
+                a, b = make(SANITIZE_N, SANITIZE_N)
+                kfn, pfn = df.stripe_capture, df.stripe_capture_plain
+            at, bt = on_card(a, b, dev=dev)
+            name = df.debug_kernel_name(sc, S, packed)
+            k_ms, k = timed_ms(lambda: kfn(at, bt, sc, None, sub), 3)
+            p_ms, p = timed_ms(lambda: pfn(at, bt, sc, None, sub), 1)
+            e = df.same_capture(k, p)
+            require(e == 0, f"{name} [{mode}] {tuple(b.shape)}: kernel != "
+                    "plain")
+            m, n = a.shape[-1], b.size
+            # in: codes (and table); out: the twin's bests (packed: one
+            # per row) and right column, and the capture
+            io = (a.size + b.size + (0 if S is None else 4 * S.size)
+                  + 4 * (n + 1) + (8 * n if packed else 16)
+                  + capture_bytes(m, n, k.T))
+            recs[name] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e,
+                              **bound(m * n, OPS_PER_CELL[mode], io))
+            phase("kernels", f"{name} [{mode}] {'x'.join(map(str, b.shape))}"
+                  f" x {m} T={k.T}: capture {k.h.numel() * 4 / 1e6:.1f} MB, "
+                  f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, h equal; "
+                  f"bound {recs[name]['bound_ms']:.4f} ms "
+                  f"({recs[name]['bound_by']})")
+            del at, bt, k, p
+            torch.cuda.empty_cache()
+    return recs
+
+
+def drive_sanitize(dev) -> list:
+    """The sanitize path through the public calls on ``dev``; returns
+    phase lines."""
+    lines = []
+    N = SANITIZE_N
+    for mode in MODES:
+        sc, S, _, make = MODELS[mode]
+        a, b = make(N, N)
+        t0 = time.perf_counter()
+        rep = swtpu_torch.sanitize(a, b, scoring=sc, substitution=S,
+                                   device=dev)
+        wall = time.perf_counter() - t0
+        require(rep.valid_cells == N * N and rep.config == (256, 16),
+                f"{mode} sanitize {N}^2: {rep}")
+        lines.append(f"[{mode}] sanitize {N}^2: {rep.valid_cells} cells "
+                     f"bit-checked, {rep.prestart_cells} pre-start, "
+                     f"{rep.garbage_cells} garbage, config {rep.config}; "
+                     f"wall {wall:.2f} s (capture, copy, oracle, checks)")
+    n = BATCH[1]
+    for mode in MODES:
+        sc, S = MODELS[mode][:2]
+        aa, bb = sanitize_batch(mode)
+        t0 = time.perf_counter()
+        rep = san.sanitize_pairs_packed(aa, bb, sc, substitution=S,
+                                        device=dev)
+        wall = time.perf_counter() - t0
+        require(rep.valid_cells == SANITIZE_B * n * n
+                and rep.config == (352, 48),
+                f"{mode} sanitize_pairs_packed {SANITIZE_B}x{n}^2: {rep}")
+        lines.append(f"[{mode}] sanitize_pairs_packed {SANITIZE_B}x{n}^2: "
+                     f"{rep.valid_cells} cells bit-checked, config "
+                     f"{rep.config}; wall {wall:.2f} s")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "swtpu_torch", str(N), str(N),
+         "--skip-backtrack", "--sanitize"],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    cli_s = time.perf_counter() - t0
+    ok = [ln for ln in out.stdout.splitlines() if ln.startswith("Sanitizer")]
+    require(out.returncode == 0 and ok and ok[0].startswith(
+        f"Sanitizer: OK — {N * N} cells bit-checked"),
+        f"the sanitize CLI failed: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+    lines.append(f"[linear] python -m swtpu_torch {N} {N} --skip-backtrack "
+                 f"--sanitize: process wall {cli_s:.1f} s; {ok[0]}")
+    return lines
+
+
 def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1435,6 +1613,13 @@ def main() -> int:
     phase("batch", line)
     phase("batch", bucket_kernels(dev))
     recs.update(window_vs_plain(dev))
+    t0 = time.perf_counter()
+    debug_err = debug_vs_plain(dev)
+    for entry, rec in debug_records(dev).items():
+        rec["max_abs_err"] = max(rec["max_abs_err"], debug_err[entry])
+        recs[entry] = rec
+    phase("kernels", f"K9 against its plain capture in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # independent references for the main paths, on the host
     t0 = time.perf_counter()
@@ -1555,14 +1740,34 @@ def main() -> int:
     phase("path", f"search path in {search_s:.1f} s: kernel launches "
           f"{ {k: v for k, v in search.items() if v} }, plain calls {plain}")
 
-    # launches: the four paths' runs; the K7/K8 counters run on the batch
-    # path alone, the K6 counters on the search path alone
+    # ---- the sanitize path: public calls only, from zero ----
+    pf.reset_counts()
+    t0 = time.perf_counter()
+    lines = drive_sanitize(dev)
+    sanitize_s = time.perf_counter() - t0
+    sanitize = {**sf.launches, **pf.launches, **wf.launches, **df.launches}
+    plain = {**sf.plain_calls, **pf.plain_calls, **wf.plain_calls,
+             **df.plain_calls}
+    # ---- end of the sanitize path ----
+    for ln in lines:
+        phase("sanitize", ln)
+    require(all(sanitize[k] > 0 for k in df.launches),
+            f"launches {sanitize}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    phase("path", f"sanitize path in {sanitize_s:.1f} s: kernel launches "
+          f"{ {k: v for k, v in sanitize.items() if v} }, plain calls "
+          f"{plain}")
+
+    # launches: the five paths' runs; the K7/K8 counters run on the batch
+    # path (K7 also on the sanitize path), the K6 counters on the search
+    # path alone, the K9 counters on the sanitize path alone
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)
-                              + batch.get(k, 0) + search[k]),
+                              + batch.get(k, 0) + search.get(k, 0)
+                              + sanitize[k]),
                     **recs[k])
-               for k in search]
+               for k in sanitize]
     phase("done", f"all phases in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ checkouts of swtpu_torch, on a machine with the CUDA toolkit.
 
 Compiles each source of ``swtpu_torch/csrc`` that instantiates the stripe
 template (``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
-``window_fill.cu``) and that the old checkout has, in both checkouts, to
+``window_fill.cu``, ``sanitize_fill.cu``) and that the old checkout has, in both checkouts, to
 cubins for sm_90a with the port's flags, disassembles them with
 ``cuobjdump -sass`` and, for every instantiation of ``stripe_kernel`` the
 old checkout has, prints its instruction count and the number of SASS
@@ -27,7 +27,7 @@ from pathlib import Path
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 SOURCES = ("stripe_fill.cu", "stripe_block.cu", "pairs_fill.cu",
-           "window_fill.cu")
+           "window_fill.cu", "sanitize_fill.cu")
 NAME = re.compile(r"Function : (\S*stripe_kernelI((?:Lb\dE)+)E\S*)")
 
 

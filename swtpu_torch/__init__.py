@@ -11,9 +11,11 @@ pairs: ``batch_score`` (one shape), ``score_many`` (any shapes, bucketed),
 against a reference: ``search`` (best or best two hits per read, one or
 both strands), ``align_hits`` (alignment records for the hits),
 ``pair_hits`` (mate placement), ``to_sam`` and ``map_reads`` (the whole
-mapping pipeline, also ``python -m swtpu_torch map``). On a CUDA device
-the fills and the walk of P run hand-written CUDA kernels (``csrc/``); on
-the CPU their plain PyTorch versions run.
+mapping pipeline, also ``python -m swtpu_torch map``). ``sanitize`` runs
+the stripe kernel with every cell captured and checks it against the numpy
+oracle (also ``python -m swtpu_torch --sanitize``). On a CUDA device the
+fills and the walk of P run hand-written CUDA kernels (``csrc/``); on the
+CPU their plain PyTorch versions run.
 
 This package imports torch and numpy and never JAX or ``swtpu``.
 """
@@ -38,13 +40,15 @@ from .dist.database import align_hits, pair_hits, search, to_sam
 from .dist.mapping import map_reads
 from .engine.align import Alignment, align, score
 from .engine.traceback import AnchoredReverseMismatch
+from .instrument.sanitize import sanitize_stripe as sanitize
 
 __version__ = "0.1.0"
+
 
 __all__ = [
     "align", "score",
     "batch_score", "score_many", "batch_align", "align_many",
-    "search", "align_hits", "pair_hits", "to_sam", "map_reads",
+    "search", "align_hits", "pair_hits", "to_sam", "map_reads", "sanitize",
     "Alignment", "Scoring", "EngineConfig", "AnchoredReverseMismatch",
     "encode", "decode", "random_pair", "random_batch", "revcomp",
     "NONE", "UP", "LEFT", "DIAGONAL", "PATH",

@@ -8,7 +8,8 @@
 ``--device`` picks the torch device (default ``cuda``; ``cpu`` runs the
 scan plan), ``--plan`` forces an execution plan, ``--skip-backtrack`` is
 the score-only benchmark mode, ``--band`` keeps the cells with
-|i-j| <= band and ``--debug`` prints H and the arrow predecessor matrix.
+|i-j| <= band, ``--debug`` prints H and the arrow predecessor matrix and
+``--sanitize`` runs the stripe kernel's structural sanitizer on the pair.
 ``--affine`` takes Gotoh gaps (``--gap-open``, ``--gap-extend``);
 ``--blosum62`` aligns random 20-letter protein pairs from ``--seed`` under
 BLOSUM62 and needs explicit sizes, e.g.
@@ -177,6 +178,11 @@ def main(argv=None) -> int:
     ap.add_argument("--plan", default=None,
                     choices=["auto", "stripe", "scan"],
                     help="execution plan (default: dispatch by device)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run the stripe kernel's structural sanitizer on "
+                         "this input (every cell captured and checked "
+                         "against the oracle; the DEBUG memory-check "
+                         "analog)")
     ap.add_argument("--affine", action="store_true",
                     help="affine gaps (Gotoh) instead of linear")
     ap.add_argument("--blosum62", action="store_true",
@@ -259,6 +265,14 @@ def main(argv=None) -> int:
         dt = timer.phases["align"]
         print(f"Elapsed time for scoring matrix computation: {dt:.6f}  "
               f"({gcups(m*n, dt):.3f} GCUPS)")
+
+    if args.sanitize:
+        from .instrument.sanitize import sanitize_stripe
+        rep = sanitize_stripe(a, b, scoring=scoring, substitution=sub,
+                              device=device)
+        print(f"Sanitizer: OK — {rep.valid_cells} cells bit-checked, "
+              f"{rep.prestart_cells} pre-start, {rep.garbage_cells} "
+              f"garbage slots verified (config {rep.config})")
 
     print(f"Max score {res.max_score} at (i={res.max_i}, j={res.max_j}) "
           f"[padded row-major index {res.max_pos}]")

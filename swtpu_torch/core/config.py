@@ -9,7 +9,8 @@ Left out, because they describe the TPU and its host link rather than the
 problem: ``EngineConfig.tpu_full_p_fetch_max_cells`` and the host-SIMD
 crossover derivation from a measured device floor. ``host_max_cells``,
 ``host_simd_max_cells`` and ``scan_max_cells`` are carried so the state
-round-trips, but no port tier reads them yet (ROADMAP Queue 1).
+round-trips, but no port tier reads them yet (ROADMAP Queue 1, "host
+tiers via ctypes").
 """
 
 from __future__ import annotations

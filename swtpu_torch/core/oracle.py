@@ -16,10 +16,14 @@ Faithful re-implementation (not a copy) of the reference's serial semantics:
 
 Two fill implementations are provided: a cell-by-cell port of the exact
 semantics (``fill_loop``, authoritative, slow) and a vectorized anti-diagonal
-sweep (``fill``, fast, used as the practical oracle). They are tested equal.
+sweep (``fill``, fast, used as the practical oracle), linear and affine.
+They are tested equal.
 
-This module is framework-free numpy, the same code as ``swtpu.core.oracle``;
-the port keeps its own copy so that it never imports the JAX package.
+This module is framework-free numpy with the semantics of
+``swtpu.core.oracle``; the port keeps its own copy so that it never imports
+the JAX package. Where the JAX oracle's ``fill`` loops cell by cell in
+affine mode, this one sweeps anti-diagonals there too, so the sanitizer can
+hold a card's capture to it at 4096^2.
 """
 
 from __future__ import annotations
@@ -144,7 +148,7 @@ def fill(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
     which equals the reference's strict-``>`` running update.
     """
     if scoring.is_affine:
-        return fill_loop(a, b, scoring, sub)  # affine oracle stays loop-based
+        return _fill_affine(a, b, scoring, sub)
     m, n = len(a), len(b)
     sub = _sub_matrix(a, b, scoring, sub)
     H = np.zeros((n + 1, m + 1), dtype=np.int32)
@@ -175,6 +179,42 @@ def fill(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
         P[ii, jj] = pred
     max_pos = int(np.argmax(H))
     return OracleResult(H, P, max_pos, int(H.flat[max_pos]))
+
+
+def _fill_affine(a: np.ndarray, b: np.ndarray, scoring: Scoring,
+                 sub=None) -> OracleResult:
+    """Vectorized anti-diagonal Gotoh fill, semantically identical to
+    ``_fill_loop_affine``: E(i, j) and F(i, j) read the previous
+    anti-diagonal and DIAG the one before it, so the cells of one
+    anti-diagonal are independent."""
+    m, n = len(a), len(b)
+    s = _sub_matrix(a, b, scoring, sub)
+    NEG = np.int32(-(1 << 30))
+    g_open, g_ext = np.int32(scoring.gap_open), np.int32(scoring.gap_extend)
+    H = np.zeros((n + 1, m + 1), dtype=np.int32)
+    P = np.zeros((n + 1, m + 1), dtype=np.int8)
+    E = np.full((n + 1, m + 1), NEG, dtype=np.int32)
+    F = np.full((n + 1, m + 1), NEG, dtype=np.int32)
+    E[0, :] = 0
+    F[:, 0] = 0
+    for d in range(2, n + m + 1):          # anti-diagonal: i + j == d
+        ii = np.arange(max(1, d - m), min(n, d - 1) + 1)
+        jj = d - ii
+        e_prev, f_prev = E[ii, jj - 1], F[ii - 1, jj]
+        e = np.maximum(H[ii, jj - 1] + g_open, e_prev + g_ext)
+        f = np.maximum(H[ii - 1, jj] + g_open, f_prev + g_ext)
+        diag = H[ii - 1, jj - 1] + s[ii - 1, jj - 1]
+        best = np.zeros_like(diag)
+        pred = np.zeros(diag.shape, dtype=np.int8)
+        for cand, code in ((diag, DIAGONAL), (f, UP), (e, LEFT)):
+            take = cand > best
+            best = np.where(take, cand, best)
+            pred = np.where(take, code, pred).astype(np.int8)
+        pred |= np.where(e == e_prev + g_ext, E_EXT, 0).astype(np.int8)
+        pred |= np.where(f == f_prev + g_ext, F_EXT, 0).astype(np.int8)
+        H[ii, jj], P[ii, jj], E[ii, jj], F[ii, jj] = best, pred, e, f
+    max_pos = int(np.argmax(H))
+    return OracleResult(H, P, max_pos, int(H.flat[max_pos]), E=E, F=F)
 
 
 def backtrack(P: np.ndarray, max_pos: int) -> list[int]:

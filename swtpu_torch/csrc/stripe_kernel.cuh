@@ -1,7 +1,8 @@
 // Smith-Waterman stripe fill on Hopper (sm_90a): the kernel template shared
 // by the C entries of stripe_fill.cu (K1-K4 and their band mode K4b),
-// stripe_block.cu (K5), pairs_fill.cu (the batch modes K8 and K7) and
-// window_fill.cu (the window mode K6).
+// stripe_block.cu (K5), pairs_fill.cu (the batch modes K8 and K7),
+// window_fill.cu (the window mode K6) and sanitize_fill.cu (the debug
+// capture K9).
 //
 // Replaces the Pallas stripe kernel of the JAX package
 // (swtpu/kernels/pallas_fill.py, body `_kernel`, launched by `_stripe_call`)
@@ -26,7 +27,9 @@
 //     target rows of B pairs back to back in one stripe chain (below);
 //   * kWindow - with kPacked, the window mode of `batch_score_fn` (K6): B
 //     reads packed in rows against one window that every read shares, so
-//     the query stride is 0 (below).
+//     the query stride is 0 (below);
+//   * kDebugH - the `debug_h` capture of the sanitizer (K9), on the
+//     score-only single-pair and packed-pairs modes (below).
 // A flag left off adds nothing to the step loop, so K1's instantiation runs
 // the loop it always ran; the flags added after it go last, with defaults.
 //
@@ -89,6 +92,18 @@
 // kWindow: kPacked with a = the window (m columns) shared by every row:
 // no row moves its query pointer. A read's first row is a reset row as a
 // pair's is, and the caller reduces the row bests per read.
+//
+// kDebugH: after every step each thread stores its H (h_new: the cell's H
+// in the matrix, the carried 0 outside it) to slot (s, t, k) of a
+// (stripes, m + T - 1, T) int32 buffer; slot (s, t, k) is cell
+// (s*T + k + 1, t - k + 1), and the last stripe's steps past its own
+// m + rows - 1 are never scheduled, so they keep the caller's sentinel.
+// At every read of the boundary row thread 0 of stripe s stores the
+// progress it saw to seen[s, j], so a checker can prove that each read
+// followed the producer's release of column j. dbg.skew > 0 is the
+// checker's test hook: the consumer then waits for and reads column
+// j - skew (0, and F = NEG, for j <= skew), published but wrong.
+// Production instantiations carry none of this code.
 //
 // Edges are masked explicitly (rows > n, columns outside 1..m); nothing
 // relies on the penalties decaying garbage cells. The argmax keeps the
@@ -159,6 +174,15 @@ struct Batch {
   int* row_best;
 };
 
+// The kDebugH capture: h, (stripes, m + T - 1, T) int32 H of every slot;
+// seen, (stripes, m + 1) int32 progress seen at each boundary read; skew,
+// the hand-off test hook (0 in a sanitizer run).
+struct Debug {
+  int* h;
+  int* seen;
+  int skew;
+};
+
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
@@ -186,14 +210,16 @@ __device__ __forceinline__ void store_release(int* p, int v) {
 //        pair order: 1 + B*S counters after the ticket, B*(S-1) boundary
 //        rows, B*S bests, B*(n+1) right columns.
 // kPacked: the per-stripe bests are not written; bt.row_best is.
+// dbg:   the kDebugH capture, after bt for the same reason.
 template <bool kCaptureP, bool kAffine, bool kSub, bool kBand, bool kBlock,
-          bool kPairs = false, bool kPacked = false, bool kWindow = false>
+          bool kPairs = false, bool kPacked = false, bool kWindow = false,
+          bool kDebugH = false>
 __global__ void __launch_bounds__(kMaxThreads)
 stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
               int m, int n, Model sc, int* __restrict__ sync,
               int* __restrict__ bnd, int* __restrict__ bnd_f,
               int* __restrict__ best_out, int* __restrict__ right,
-              int8_t* __restrict__ P, Block blk, Batch bt) {
+              int8_t* __restrict__ P, Block blk, Batch bt, Debug dbg) {
   static_assert(!(kCaptureP && kBlock), "block mode captures no P");
   static_assert(!(kBand && kBlock), "block mode takes no band");
   static_assert(!((kPairs || kPacked) && (kCaptureP || kBlock)),
@@ -201,6 +227,10 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   static_assert(!(kPairs && kPacked), "one batch mode at a time");
   static_assert(!(kPacked && kBand), "packed pairs take no band");
   static_assert(!kWindow || kPacked, "the window mode is a packed mode");
+  static_assert(!kDebugH || !(kCaptureP || kBand || kBlock || kPairs ||
+                              kWindow),
+                "the debug capture serves the score-only single-pair and "
+                "packed-pairs modes only");
   __shared__ int s_stripe, s_best, s_k;
   __shared__ int s_edge[2][kMaxThreads / 32];  // last lane of each warp: H
   __shared__ int s_fedge[2][kAffine ? kMaxThreads / 32 : 1];   // and F
@@ -302,9 +332,14 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
           }
         }
         if (s > 0 && j <= m && !(kPacked && reset)) {
-          while (seen < j) seen = load_acquire(wait_on);
-          up_in = __ldcg(&bnd[up_off + j]);
-          if constexpr (kAffine) f_up = __ldcg(&bnd_f[up_off + j]);
+          int jr = j;                       // jr == j but in the test hook
+          if constexpr (kDebugH) jr -= dbg.skew;
+          while (seen < jr) seen = load_acquire(wait_on);
+          if constexpr (kDebugH) dbg.seen[(size_t)s * m1 + j] = seen;
+          up_in = (!kDebugH || jr >= 1) ? __ldcg(&bnd[up_off + jr]) : 0;
+          if constexpr (kAffine) {
+            f_up = (!kDebugH || jr >= 1) ? __ldcg(&bnd_f[up_off + jr]) : kNeg;
+          }
         }
       } else {
         up_in = s_edge[(t + 1) & 1][warp - 1];   // written at step t-1
@@ -382,6 +417,9 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       }
     }
     h = h_new;
+    if constexpr (kDebugH) {
+      dbg.h[((size_t)s * (m + T - 1) + t) * T + k] = h_new;
+    }
     up_prev = up_in;
     if constexpr (kAffine) f = f_new;
     if (lane == 31) {
@@ -415,12 +453,15 @@ stripe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 // stripes; kPacked: n is all B * bt.rows rows.
 template <bool kCaptureP, bool kAffine, bool kSub, bool kBand = false,
           bool kBlock = false, bool kPairs = false, bool kPacked = false,
-          bool kWindow = false>
+          bool kWindow = false, bool kDebugH = false>
 int launch(const int8_t* a, const int8_t* b, int m, int n, const Model& sc,
            const Block& blk, int T, int* sync, int* bnd, int* bnd_f,
            int* best, int* right, int8_t* P, cudaStream_t stream,
-           const Batch& bt = Batch{}) {
+           const Batch& bt = Batch{}, const Debug& dbg = Debug{}) {
   if (m < 1 || n < 1 || T < 32 || T > kMaxThreads || T % 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kDebugH && (dbg.h == nullptr || dbg.seen == nullptr || dbg.skew < 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const int stripes = (n + T - 1) / T;
@@ -443,7 +484,7 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, const Model& sc,
   }
   const size_t smem = kSub ? (size_t)sc.A * T * sizeof(int) : 0;
   auto* kernel = stripe_kernel<kCaptureP, kAffine, kSub, kBand, kBlock,
-                               kPairs, kPacked, kWindow>;
+                               kPairs, kPacked, kWindow, kDebugH>;
   if (smem > (size_t)kStaticSmemMax) {
     // above 48 KB a block's dynamic shared memory needs an opt-in
     const cudaError_t err = cudaFuncSetAttribute(
@@ -452,7 +493,7 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, const Model& sc,
   }
   const int blocks = kPairs ? bt.pairs * stripes : stripes;
   kernel<<<blocks, T, smem, stream>>>(a, b, m, n, sc, sync, bnd, bnd_f,
-                                      best, right, P, blk, bt);
+                                      best, right, P, blk, bt, dbg);
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,10 @@ not;
 anything else runs the ``scan`` plan, as the JAX package does for a
 scoring its kernel rejects. On the CPU the ``scan`` plan runs.
 
-Not ported yet (ROADMAP Queue 1 item 7): the JAX package's host tiers
-(native serial fill, striped SIMD score), its tuned table and autotune,
-live ``observe`` feedback and the multi-device pipeline tier.
+Not ported yet (ROADMAP Queue 1, "host tiers via ctypes" and
+"dispatch/plan.py tiers + dispatch/autotune.py"): the JAX package's host
+tiers (native serial fill, striped SIMD score), its tuned table and
+autotune, live ``observe`` feedback and the multi-device pipeline tier.
 """
 
 from __future__ import annotations

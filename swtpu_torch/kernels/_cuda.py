@@ -25,7 +25,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
     "stripe_fill.cu", "stripe_block.cu", "walk_p.cu", "pairs_fill.cu",
-    "window_fill.cu"))
+    "window_fill.cu", "sanitize_fill.cu"))
 HEADERS = (_PKG / "csrc" / "stripe_kernel.cuh",)
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -84,6 +84,13 @@ ARGTYPES["sw_packed_score_sub"] = ([_ptr, _ptr] + [_int] * 3 + [_ptr]
 # K6: window, reads, B, W, rlen, then as K7 from the model on
 for _mode in ("linear", "affine", "sub"):
     ARGTYPES[f"sw_window_score_{_mode}"] = ARGTYPES[f"sw_packed_score_{_mode}"]
+# K9: the arguments of the K1-K3 score entry without the band (of the K7
+# entry), then h, seen, skew, stream
+for _mode, _args in (("linear", _LINEAR), ("affine", _AFFINE),
+                     ("sub", _SUB)):
+    ARGTYPES[f"sw_sanitize_stripe_{_mode}"] = _args + [_ptr, _ptr, _int, _ptr]
+    ARGTYPES[f"sw_sanitize_packed_{_mode}"] = (
+        ARGTYPES[f"sw_packed_score_{_mode}"][:-1] + [_ptr, _ptr, _int, _ptr])
 
 
 @dataclasses.dataclass

@@ -20,7 +20,7 @@ Each wrapper runs its kernel for tensors on a CUDA device and the plain
 version for tensors on the CPU, and nowhere else; a failed build or launch
 on a card raises. ``launches`` and ``plain_calls`` count them;
 ``reset_counts()`` zeroes these and the counters of
-``kernels.stripe_fill`` and ``kernels.window_fill``.
+``kernels.stripe_fill``, ``kernels.window_fill`` and ``kernels.debug_fill``.
 """
 
 from __future__ import annotations
@@ -55,10 +55,12 @@ class BatchHits(NamedTuple):
 
 def reset_counts() -> None:
     """Zero every launch and plain-call counter of the port's kernels."""
-    from . import window_fill       # imports this module, so not at the top
+    # both import this module, so not at the top
+    from . import debug_fill, window_fill
     sf.reset_counts()
     for counts in (launches, plain_calls, window_fill.launches,
-                   window_fill.plain_calls):
+                   window_fill.plain_calls, debug_fill.launches,
+                   debug_fill.plain_calls):
         for name in counts:
             counts[name] = 0
 

@@ -24,6 +24,8 @@ def test_port_imports_no_jax_and_no_swtpu():
         "import swtpu_torch.kernels.window_fill, swtpu_torch.core.seqfile\n"
         "import swtpu_torch.instrument.metrics\n"
         "import swtpu_torch.instrument.printers\n"
+        "import swtpu_torch.instrument.sanitize\n"
+        "import swtpu_torch.kernels.debug_fill\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'swtpu'))\n"
         "assert not bad, bad\n"
@@ -40,7 +42,8 @@ def no_card():
         pytest.skip("this machine has a CUDA card")
 
 
-@pytest.mark.parametrize("call", [swtpu_torch.align, swtpu_torch.score])
+@pytest.mark.parametrize("call", [swtpu_torch.align, swtpu_torch.score,
+                                  swtpu_torch.sanitize])
 def test_cuda_request_without_a_card_raises(no_card, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call("ACGTACGT", "ACGTTT", device="cuda")
