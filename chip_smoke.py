@@ -23,11 +23,18 @@ records, and ``python -m swtpu_torch map`` on 256 of those reads), and the
 sanitize path (``swtpu_torch.sanitize`` at 4096^2 and
 ``sanitize_pairs_packed`` on 16 pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Each
-phase prints one line; any failure raises, so the exit code is not 0. The line before the last is a JSON object
-describing each kernel of the paths (launches in the paths' runs,
-exactness, kernel and plain times, and the least time the card could take
-for the same work); the last line is a JSON object naming the device.
+4096 4096 --skip-backtrack --sanitize``). Two kernels have a second,
+earlier design beside them: linear score-only runs the register-blocked
+K1 (``csrc/stripe_rb.cu``) and the search's window scorer the
+warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1 and K6, the
+stripe template's, are held to their plain versions and timed in turns
+with the new ones in the same run (they launch on no path, bar K6 for
+reads longer than 512 rows), and K1 is swept over its (T, R, C). Each
+phase prints one line; any failure raises, so the exit code is not 0. The
+line before the last is a JSON object describing each kernel of the paths
+(launches in the paths' runs, exactness, kernel and plain times, and the
+least time the card could take for the same work); the last line is a
+JSON object naming the device.
 
 Without a CUDA device it fails before printing any result.
 """
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import functools
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -100,6 +108,10 @@ ORIGIN = {
                "swtpu/kernels/pallas_fill.py:1608"),   # batch_score_fn
     "sanitize": (CSRC + "sanitize_fill.cu",
                  "swtpu/kernels/pallas_fill.py:597"),  # _kernel's debug_h
+    "warp": (CSRC + "window_warp.cu",
+             "swtpu/kernels/pallas_fill.py:1608"),     # batch_score_fn
+    "rb": (CSRC + "stripe_rb.cu",
+           "swtpu/kernels/pallas_fill.py:1249"),       # stripe_score_fn
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -143,6 +155,8 @@ WALK_OPS = 6              # per move: the P load's address, decode, state
 
 def origin(name: str) -> tuple:
     kind = ("sanitize" if name.startswith("sw_sanitize_")
+            else "warp" if name.startswith("sw_window_warp_")
+            else "rb" if name == sf.RB_KERNEL
             else "pairs" if name.startswith("sw_pairs_")
             else "packed" if name.startswith("sw_packed_")
             else "window" if name.startswith("sw_window_")
@@ -315,11 +329,20 @@ def on_card(*arrays, dev) -> tuple:
 def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
-    kPacked, kWindow, kDebugH>, and the walk."""
+    kPacked, kWindow, kDebugH>, the walk, the warp-per-read K6 <R, kAffine,
+    kSub> and the register-blocked K1 <R, C>."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
-        if "Compiling entry function" in ln and got:
+        warp = re.search(r"window_warp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
+        rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)E", ln)
+        if "Compiling entry function" in ln and warp:
+            R, aff, sub = (int(v) for v in warp.groups())
+            name = (f"warp_{'sub_' if sub else ''}"
+                    f"{'affine' if aff else 'linear'}_R{R}")
+        elif "Compiling entry function" in ln and rb:
+            name = f"rb_R{rb.group(1)}_C{rb.group(2)}"
+        elif "Compiling entry function" in ln and got:
             p, aff, sub, band, blk, pairs, packed, window, debug = (
                 int(v) for v in got.groups())
             kind = ("fill_p" if p else "block" if blk else "pairs" if pairs
@@ -383,8 +406,21 @@ MODES = {
 }
 
 
+def ab_ms(new, old, reps: int = 3) -> tuple:
+    """(new ms, old ms, new result, old result): two designs timed in turns
+    in one run (new, old, new, old), each by ``timed_ms`` (min of reps
+    after a warm-up), the min of its two turns kept."""
+    n1, kn = timed_ms(new, reps)
+    o1, ko = timed_ms(old, reps)
+    n2, _ = timed_ms(new, reps)
+    o2, _ = timed_ms(old, reps)
+    return min(n1, n2), min(o1, o2), kn, ko
+
+
 def kernels_vs_plain(dev) -> dict:
-    """Each kernel against its plain version; returns per-kernel records."""
+    """Each kernel against its plain version; returns per-kernel records.
+    Linear score-only runs its route, the register-blocked K1, and the
+    template's K1 through the private launcher, the earlier design."""
     err = {k: 0 for k in sf.launches}
     table = on_card(BLOSUM62, dev=dev)[0]
     for label, a, b, T, reps, protein in _small_cases():
@@ -399,6 +435,7 @@ def kernels_vs_plain(dev) -> dict:
                 ps = sf.stripe_score_plain(at, bt, sc, sub)
                 pf = sf.stripe_fill_plain(at, bt, sc, sub)
                 runs = []
+                route = sf.score_kernel_name(sc, S)
                 for _ in range(reps):
                     ks = sf.stripe_score(at, bt, sc, T=T, substitution=sub)
                     kf = sf.stripe_fill(at, bt, sc, T=T, substitution=sub)
@@ -408,37 +445,61 @@ def kernels_vs_plain(dev) -> dict:
                     e4 = max(diff(kf.best, pf.best),
                              diff(kf.right_col, pf.right_col),
                              diff(kf.P, pf.P))
-                    err[ks_name] = max(err[ks_name], e1)
+                    err[route] = max(err[route], e1)
                     err[kf_name] = max(err[kf_name], e4)
                     require(e1 == 0 and e4 == 0,
                             f"{label} {mode} {sc.mode}: kernel != plain")
                     runs.append((ks.best.tolist(), kf.P.sum().item()))
+                    if route != ks_name:      # the earlier K1 as well
+                        ko = sf._launch(at, bt, sc, T, sub, False, None)
+                        torch.cuda.synchronize()
+                        e = max(diff(ko.best, ps.best),
+                                diff(ko.right_col, ps.right_col))
+                        err[ks_name] = max(err[ks_name], e)
+                        require(e == 0, f"{label} {ks_name}: kernel != plain")
                 require(all(r == runs[0] for r in runs),
                         f"{label} {mode}: runs differ")
                 phase("kernels", f"{label} [{mode} {sc.mode}] m={len(a)} "
                       f"n={len(b)} T={T}: {ps.best.tolist()} equal x{reps}")
 
-    # the main path's shapes: kernel min of 3 after a warm-up, plain once
+    # the main path's shapes: kernel min of 3 after a warm-up, plain once;
+    # linear: the register-blocked K1 and the earlier K1 in turns
     recs = {}
     for mode, (ks_name, kf_name, scorings, S) in MODES.items():
         sc, sub = scorings[0], (None if S is None else table)
         make = MODELS[mode][3]
         at, bt = on_card(*make(SCORE_N, SCORE_N), dev=dev)
-        k_ms, ks = timed_ms(
-            lambda: sf.stripe_score(at, bt, sc, substitution=sub), 3)
+        route = sf.score_kernel_name(sc, S)
         p_ms, ps = timed_ms(
             lambda: sf.stripe_score_plain(at, bt, sc, sub), 1)
-        e = max(diff(ks.best, ps.best), diff(ks.right_col, ps.right_col))
-        require(e == 0, f"{ks_name} != plain at the benchmark size")
-        recs[ks_name] = dict(ms=k_ms, plain_ms=p_ms,
-                             max_abs_err=max(e, err[ks_name]),
-                             **bound(SCORE_N ** 2, OPS_PER_CELL[mode],
-                                     fill_bytes(SCORE_N, SCORE_N, S)))
-        phase("kernels", f"{ks_name} {SCORE_N}^2 [{mode}]: "
-              f"{ks.best.tolist()} kernel {k_ms:.3f} ms "
-              f"({gcups(SCORE_N ** 2, k_ms / 1e3):.2f} GCUPS), "
-              f"plain {p_ms:.1f} ms, equal")
-        del at, bt, ks, ps
+        names = {route: None}
+        if route == ks_name:
+            k_ms, ks = timed_ms(
+                lambda: sf.stripe_score(at, bt, sc, substitution=sub), 3)
+            names[route] = (k_ms, ks)
+        else:
+            k_ms, o_ms, ks, ko = ab_ms(
+                lambda: sf.stripe_score(at, bt, sc, substitution=sub),
+                lambda: sf._launch(at, bt, sc, None, sub, False, None))
+            names[route], names[ks_name] = (k_ms, ks), (o_ms, ko)
+        if mode == "linear":
+            rb_sweep(at, bt, ps)
+        ab = []
+        for name, (ms, k) in names.items():
+            e = max(diff(k.best, ps.best), diff(k.right_col, ps.right_col))
+            require(e == 0 and tuple(k.best.tolist())
+                    == KNOWN[mode, SCORE_N, SCORE_N],
+                    f"{name} != plain at the benchmark size")
+            recs[name] = dict(ms=ms, plain_ms=p_ms,
+                              max_abs_err=max(e, err[name]),
+                              **bound(SCORE_N ** 2, OPS_PER_CELL[mode],
+                                      fill_bytes(SCORE_N, SCORE_N, S)))
+            ab.append(f"{name} {ms:.3f} ms "
+                      f"({gcups(SCORE_N ** 2, ms / 1e3):.2f} GCUPS)")
+        phase("kernels", f"{SCORE_N}^2 [{mode}]: {ks.best.tolist()} "
+              f"{', '.join(ab)}; plain {p_ms:.1f} ms, equal, right "
+              "column too")
+        del at, bt, ks, ps, names
         at, bt = on_card(*make(ALIGN_N, ALIGN_N), dev=dev)
         k_ms, kf = timed_ms(
             lambda: sf.stripe_fill(at, bt, sc, substitution=sub), 3)
@@ -458,6 +519,87 @@ def kernels_vs_plain(dev) -> dict:
         del at, bt, kf, pf
         torch.cuda.empty_cache()
     return recs
+
+
+# the register-blocked K1's (T, R, C) at the small shapes (None: its
+# default T), its edges (label, m, n, seed) beside the DNA shapes of
+# _small_cases, and its sweep at 25632^2
+RB_SHAPES = [(32, 8, 1), (32, 8, 4), (64, 16, 4), (128, 8, 8), (512, 4, 4),
+             (256, 8, 2), (None, sf.RB_ROWS, sf.RB_COLS)]
+RB_EDGES = [("n<32", 300, 20, 1), ("n=33", 90, 33, 2), ("m=1 n<32", 1, 7, 3),
+            ("m=33", 33, 3000, 4), ("m=7 n=5000", 7, 5000, 5)]
+RB_SWEEP = [(T, R, C) for T in (64, 128, 256) for R, C in sf.RB_TILES]
+RB_SWEEP_ROUNDS = 5
+
+
+def rb_vs_plain(dev) -> int:
+    """The register-blocked K1 against its plain version at every DNA
+    shape of _small_cases and RB_EDGES, each at RB_SHAPES, and at THIN
+    through ``stripe_score``; returns the max error."""
+    err = 0
+    cases = [(label, a, b) for label, a, b, _, _, protein in _small_cases()
+             if not protein]
+    cases += [(label, *random_pair(m, n, seed=seed))
+              for label, m, n, seed in RB_EDGES]
+    for label, a, b in cases:
+        at, bt = on_card(a, b, dev=dev)
+        p = sf.stripe_score_plain(at, bt)
+        for T, R, C in RB_SHAPES:
+            k = sf._launch_rb(at, bt, SCORING, T, R, C)
+            torch.cuda.synchronize()
+            e = max(diff(k.best, p.best), diff(k.right_col, p.right_col))
+            err = max(err, e)
+            require(e == 0, f"{sf.RB_KERNEL} {label} T={T} R={R} C={C}: "
+                    "kernel != plain")
+    phase("kernels", f"{sf.RB_KERNEL} at {len(cases)} shapes x "
+          f"{len(RB_SHAPES)} (T, R, C): equal")
+    m, n = THIN
+    at, bt = on_card(*random_pair(m, n, seed=0), dev=dev)
+    p_ms, p = timed_ms(lambda: sf.stripe_score_plain(at, bt), 1)
+    k_ms, k = timed_ms(lambda: sf.stripe_score(at, bt), 3)
+    e = max(diff(k.best, p.best), diff(k.right_col, p.right_col))
+    require(e == 0 and tuple(k.best.tolist()) == KNOWN["linear", *THIN],
+            f"{sf.RB_KERNEL} {m}x{n}: kernel != plain")
+    phase("kernels", f"{sf.RB_KERNEL} THIN a={m} b={n}: {k.best.tolist()} "
+          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, equal, right column too")
+    return max(err, e)
+
+
+def rb_sweep(at, bt, ps) -> None:
+    """The register-blocked K1 at 25632^2 over RB_SWEEP, each bit-equal
+    to the plain version ``ps`` (best and right column) and timed in
+    RB_SWEEP_ROUNDS rounds over every point, so that a drift of the
+    card's clock weighs on all alike, the min of its rounds kept; and one
+    stripe of 256 rows at T = 32, R = 8, C = 1 and 4: the cost of a
+    step."""
+    for T, R, C in RB_SWEEP:
+        k = sf._launch_rb(at, bt, SCORING, T, R, C)
+        require(diff(k.best, ps.best) == 0
+                and diff(k.right_col, ps.right_col) == 0,
+                f"{sf.RB_KERNEL} T={T} R={R} C={C}: kernel != plain")
+    best = dict.fromkeys(RB_SWEEP, float("inf"))
+    for _ in range(RB_SWEEP_ROUNDS):
+        for T, R, C in RB_SWEEP:
+            ms, _ = timed_ms(lambda: sf._launch_rb(at, bt, SCORING, T, R, C),
+                             1)
+            best[T, R, C] = min(best[T, R, C], ms)
+    fastest = min(best, key=best.get)
+    default = (sf.RB_THREADS, sf.RB_ROWS, sf.RB_COLS)
+    phase("kernels", f"{sf.RB_KERNEL} sweep at {SCORE_N}^2, ms by "
+          f"(T, R, C), min of {RB_SWEEP_ROUNDS} rounds, all equal: "
+          + ", ".join(f"{T}/{R}/{C} {ms:.3f}" for (T, R, C), ms in
+                      best.items())
+          + f"; fastest {fastest} {best[fastest]:.3f} ms, default "
+          f"{default} {best[default]:.3f} ms "
+          f"({best[default] / best[fastest]:.3f} x the fastest)")
+    per = []
+    for C in (1, 4):
+        ms, _ = timed_ms(lambda: sf._launch_rb(at, bt[:256], SCORING, 32, 8,
+                                               C), 3)
+        steps = -(-SCORE_N // C) + 31
+        per.append(f"C={C} {ms:.3f} ms = {ms / steps * 1e3:.4f} us a step")
+    phase("kernels", f"{sf.RB_KERNEL} one stripe (T=32, R=8, 256 rows) x "
+          f"{SCORE_N} columns: " + "; ".join(per))
 
 
 def _small_pair(mode: str, m: int, n: int, seed: int) -> tuple:
@@ -1080,6 +1222,16 @@ WINDOW_SHAPES = [("5x45 W=300", 5, 45, 300, 32, 1),
                  ("ties 4x40 W=300", 4, 40, 300, 32, 6)]
 
 
+# the warp-per-read K6's edges (label, B, rlen, W, seed): reads of 1, 31,
+# 32, 33 and 32 * WARP_MAX_ROWS rows, a window narrower than a warp, and
+# reads all of sentinels (-3 after a read's end, -1 unknown)
+WARP_EDGES = [("rlen=1", 6, 1, 300, 21), ("rlen=31", 5, 31, 200, 22),
+              ("rlen=32", 5, 32, 200, 23), ("rlen=33", 5, 33, 200, 24),
+              (f"rlen={32 * wf.WARP_MAX_ROWS}", 3, 32 * wf.WARP_MAX_ROWS,
+               700, 25),
+              ("W=7", 4, 40, 7, 26), ("sentinel reads", 4, 60, 300, 27)]
+
+
 def db_inputs(mode: str) -> tuple:
     """(reference, reads, {read: planted position}) of the search: the JAX
     bench's draws from default_rng(0), reference first, then reads, every
@@ -1176,15 +1328,16 @@ def pair_inputs() -> tuple:
 
 
 def window_vs_plain(dev) -> dict:
-    """K6 against its plain version on the card in each scoring: the small
-    shapes at their T and the default; the search's launch (2048 x 152
-    against one 32768-column window, kernel min of 3 after a warm-up,
-    plain once) and one search's 31 windows through one WindowScorer
-    (CUDA events); linear, the map's launch (2048 reads and their reverse
-    complements, 150 -> 152 rows, against 2048 columns). Then
-    search(plan='stripe') against search(plan='scan') at CUT, n_best 1 and
-    2, forward and both strands (protein forward). Returns the K6
-    records."""
+    """K6 against its plain version on the card in each scoring: the
+    warp-per-read route (``window_score``) and the stripe template's (the
+    private ``_warp=False`` scorer, at the shape's T and its own) at the
+    small shapes, the route at WARP_EDGES; the search's launch (2048 x 152
+    against one 32768-column window) and one search's 31 windows, both
+    designs timed in turns, plain once; linear, the map's launch (2048
+    reads and their reverse complements, 150 rows, against 2048 columns)
+    likewise. Then search(plan='stripe') against search(plan='scan') at
+    CUT, n_best 1 and 2, forward and both strands (protein forward).
+    Returns the records of both designs' entries."""
     table = on_card(BLOSUM62, dev=dev)[0]
     B, qlen, L = DB
     W = SEARCH_WINDOW
@@ -1192,53 +1345,80 @@ def window_vs_plain(dev) -> dict:
     for mode in MODES:
         sc, S = MODELS[mode][:2]
         sub = None if S is None else table
-        name = wf.window_kernel_name(sc, S)
-        err = 0
+        name, warp = wf.window_kernel_name(sc, S), wf.warp_kernel_name(sc, S)
+        err = dict.fromkeys((name, warp), 0)
+
+        def check(k_name, got, want, what):
+            e = hits_diff(got, want)
+            err[k_name] = max(err[k_name], e)
+            require(e == 0, f"{k_name} {what}: kernel != plain")
+
         for label, b, rlen, w, T, seed in WINDOW_SHAPES:
             rt, wt = on_card(*small_window(mode, b, rlen, w, seed,
                                            label.startswith("ties")),
                              dev=dev)
             p = wf.window_score_plain(rt, wt, sc, sub)
+            check(warp, wf.window_score(rt, wt, sc, substitution=sub), p,
+                  label)
             for t in (T, None):
-                e = hits_diff(wf.window_score(rt, wt, sc, t, sub), p)
-                err = max(err, e)
-                require(e == 0, f"{name} {label} T={t}: kernel != plain")
+                check(name, wf.WindowScorer(rt, w, sc, t, sub,
+                                            _warp=False)(wt), p,
+                      f"{label} T={t}")
+        for label, b, rlen, w, seed in WARP_EDGES:
+            reads, win = small_window(mode, b, rlen, w, seed, False)
+            if label == "sentinel reads":
+                reads[1], reads[2] = -3, -1
+            rt, wt = on_card(reads, win, dev=dev)
+            check(warp, wf.window_score(rt, wt, sc, substitution=sub),
+                  wf.window_score_plain(rt, wt, sc, sub), label)
         ref, reads, _ = db_inputs(mode)
         shard = on_card(db.shard_reference(ref, 1, qlen)[0][0], dev=dev)[0]
         rt = on_card(reads, dev=dev)[0]
         scorer = wf.WindowScorer(rt, W, sc, substitution=sub)
-        k_ms, k = timed_ms(lambda: scorer(shard[:W]), 3)
+        stripe = wf.WindowScorer(rt, W, sc, substitution=sub, _warp=False)
+        require(scorer.R == 5 and stripe.R is None, "K6 routes")
+        k_ms, o_ms, k, ko = ab_ms(lambda: scorer(shard[:W]),
+                                  lambda: stripe(shard[:W]))
         p_ms, p = timed_ms(lambda: wf.window_score_plain(rt, shard[:W], sc,
                                                          sub), 1)
-        e = hits_diff(k, p)
-        err = max(err, e)
-        require(e == 0, f"{name} {B}x{qlen} W={W}: kernel != plain")
-        sweep_ms, _ = timed_ms(lambda: window_sweep(scorer, shard, W, qlen),
-                               3)
+        check(warp, k, p, f"{B}x{qlen} W={W}")
+        check(name, ko, p, f"{B}x{qlen} W={W}")
+        sweep_ms, sweep_old_ms, _, _ = ab_ms(
+            lambda: window_sweep(scorer, shard, W, qlen),
+            lambda: window_sweep(stripe, shard, W, qlen), 1)
         extra = ""
         if mode == "linear":
             _, mreads, _ = map_inputs()
             q = db.pad_queries(mreads, MAP_LEN)
             mt, mw = on_card(np.concatenate([q, db.revcomp_padded(q)]),
                              ref[:MAP_WINDOW], dev=dev)
-            m_ms, mk = timed_ms(lambda: wf.window_score(mt, mw, sc), 3)
+            mnew = wf.WindowScorer(mt, MAP_WINDOW, sc)
+            mold = wf.WindowScorer(mt, MAP_WINDOW, sc, _warp=False)
+            m_ms, mo_ms, mk, mko = ab_ms(lambda: mnew(mw), lambda: mold(mw))
             mp = wf.window_score_plain(mt, mw, sc)
-            e = hits_diff(mk, mp)
-            err = max(err, e)
-            require(e == 0, f"{name} map launch: kernel != plain")
-            extra = (f"; map launch {len(mt)}x{MAP_LEN} W={MAP_WINDOW} "
-                     f"{m_ms:.3f} ms, equal")
-        rpad = scorer.padded.shape[1]
-        # in: the window, the reads (and table); out: the row bests
-        io = W + B * qlen + 8 * B * rpad + (0 if S is None else 4 * S.size)
-        recs[name] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
-                          **bound(B * qlen * W, OPS_PER_CELL[mode], io))
-        phase("kernels", f"{name} [{mode}] {len(WINDOW_SHAPES)} small shapes "
-              f"equal; {B}x{qlen} W={W} (T={scorer.T}): {k_ms:.3f} ms "
-              f"({gcups(B * qlen * W, k_ms / 1e3):.2f} GCUPS), plain "
-              f"{p_ms:.1f} ms, equal; one search's windows {sweep_ms:.1f} ms"
-              + extra)
-        del rt, shard, scorer
+            check(warp, mk, mp, "map launch")
+            check(name, mko, mp, "map launch")
+            extra = (f"; map launch {len(mt)}x{MAP_LEN} W={MAP_WINDOW}: "
+                     f"{warp} {m_ms:.3f} ms, {name} (152 rows) "
+                     f"{mo_ms:.3f} ms, equal")
+        rpad = stripe.padded.shape[1]
+        # in: the window, the reads (and table); out: each read's answer
+        # (warp) or the row bests (stripe)
+        io = W + B * qlen + (0 if S is None else 4 * S.size)
+        for k_name, ms, out_bytes in ((warp, k_ms, 12 * B),
+                                      (name, o_ms, 8 * B * rpad)):
+            recs[k_name] = dict(ms=ms, plain_ms=p_ms,
+                                max_abs_err=err[k_name],
+                                **bound(B * qlen * W, OPS_PER_CELL[mode],
+                                        io + out_bytes))
+        phase("kernels", f"K6 [{mode}] {len(WINDOW_SHAPES)} small shapes "
+              f"and {len(WARP_EDGES)} edges equal; {B}x{qlen} W={W}: "
+              f"{warp} (R={scorer.R}) {k_ms:.3f} ms "
+              f"({gcups(B * qlen * W, k_ms / 1e3):.2f} GCUPS), {name} "
+              f"(T={stripe.T}) {o_ms:.3f} ms, plain {p_ms:.1f} ms, equal; "
+              f"one search's windows {sweep_ms:.1f} ms against "
+              f"{sweep_old_ms:.1f} ms" + extra)
+        del rt, shard, scorer, stripe
     n, Lc, Wc = CUT
     ref, reads, _ = db_inputs("linear")
     cut = reads[:n].copy()
@@ -1482,8 +1662,9 @@ def sanitize_batch(mode: str) -> tuple:
 
 def debug_records(dev) -> dict:
     """Each K9 entry at the sanitize path's shapes (4096^2 at the default
-    T; 16 x 1056^2 at K7's T): kernel min of 3 after a warm-up, plain once,
-    h bit-equal; returns the records."""
+    T; 16 x 1056^2 at K7's T): kernel min of 3 after a warm-up, every cell
+    of its capture checked against the numpy oracle (``check_capture``);
+    its plain capture timed once, h bit-equal. Returns the records."""
     table = on_card(BLOSUM62, dev=dev)[0]
     recs = {}
     for mode in MODES:
@@ -1499,6 +1680,7 @@ def debug_records(dev) -> dict:
             at, bt = on_card(a, b, dev=dev)
             name = df.debug_kernel_name(sc, S, packed)
             k_ms, k = timed_ms(lambda: kfn(at, bt, sc, None, sub), 3)
+            san.check_capture(k, *san.reference(a, b, sc, S))
             p_ms, p = timed_ms(lambda: pfn(at, bt, sc, None, sub), 1)
             e = df.same_capture(k, p)
             require(e == 0, f"{name} [{mode}] {tuple(b.shape)}: kernel != "
@@ -1513,7 +1695,8 @@ def debug_records(dev) -> dict:
                               **bound(m * n, OPS_PER_CELL[mode], io))
             phase("kernels", f"{name} [{mode}] {'x'.join(map(str, b.shape))}"
                   f" x {m} T={k.T}: capture {k.h.numel() * 4 / 1e6:.1f} MB, "
-                  f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, h equal; "
+                  f"kernel {k_ms:.3f} ms, every cell equal to the oracle's; "
+                  f"plain {p_ms:.1f} ms, h equal; "
                   f"bound {recs[name]['bound_ms']:.4f} ms "
                   f"({recs[name]['bound_by']})")
             del at, bt, k, p
@@ -1569,6 +1752,33 @@ def drive_sanitize(dev) -> list:
     return lines
 
 
+def reference_scans() -> tuple:
+    """(refs, seconds): independent references for the main paths, numpy
+    row scans on the host, each equal to its known value; the banded scan
+    first against the plain fill on the CPU at a small pair."""
+    t0 = time.perf_counter()
+    refs = {}
+    for (mode, m, n), known in KNOWN.items():
+        sc, S, _, make = MODELS[mode]
+        refs[mode, m, n] = row_scan(*make(m, n), sc, S)
+        require(refs[mode, m, n] == known, f"row scan {mode} {m}x{n} "
+                f"{refs[mode, m, n]} != known {known}")
+    n = HIRSCH_AFFINE_N
+    refs["dna_affine", n, n] = row_scan(*random_pair(n, n, seed=0),
+                                        DNA_AFFINE)
+    for mode, (sc, S, _, make) in MODELS.items():
+        a, b = _small_pair(mode, 300, 280, 5)
+        for band in (0, 3, BAND):
+            want = sf.stripe_fill_plain(
+                *on_card(a, b, dev=torch.device("cpu")), sc,
+                None if S is None else torch.from_numpy(S), band)
+            require(list(row_scan(a, b, sc, S, band)) == want.best.tolist(),
+                    f"banded row scan {mode} band {band} != plain fill")
+        refs[mode, "band", ALIGN_N] = row_scan(*make(ALIGN_N, ALIGN_N), sc,
+                                               S, BAND)
+    return refs, time.perf_counter() - t0
+
+
 def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1581,14 +1791,36 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     start = time.perf_counter()
+    # the host's row scans run in a process of their own while the kernel
+    # phases run here; a fresh interpreter (spawn) touches no CUDA state
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return run(dev, name, start, pool, pool.apply_async(reference_scans))
+    finally:
+        pool.terminate()
 
+
+def run(dev, name: str, start: float, pool, scans) -> int:
+    """The phases and the counted paths; ``scans`` yields the row scans'
+    references."""
     t0 = time.perf_counter()
     _cuda.library()
+    built = build_line()
     phase("build", f"{_cuda.BUILD.path.name} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {_cuda.BUILD.seconds:.2f} s;"
-          f" {build_line()})")
+          f" {built})")
+    for prefix in ("warp_", "rb_"):
+        new = [x for x in built.split("; ") if x.startswith(prefix)]
+        regs = [int(x.split()[1]) for x in new]
+        spilled = [x.split()[0] for x in new
+                   if "0 bytes spill stores, 0 bytes spill loads" not in x]
+        require(new and not spilled, f"{prefix}* spills: {spilled}")
+        phase("build", f"{len(new)} {prefix}* instantiations: {min(regs)}-"
+              f"{max(regs)} registers, no spills")
 
     recs = kernels_vs_plain(dev)
+    recs[sf.RB_KERNEL]["max_abs_err"] = max(recs[sf.RB_KERNEL]["max_abs_err"],
+                                            rb_vs_plain(dev))
     recs.update(band_vs_plain(dev))
     block_err = block_vs_plain(dev)
     for entry, e in rows_vs_plain(dev).items():
@@ -1621,31 +1853,12 @@ def main() -> int:
     phase("kernels", f"K9 against its plain capture in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # independent references for the main paths, on the host
-    t0 = time.perf_counter()
-    refs = {}
-    for (mode, m, n), known in KNOWN.items():
-        sc, S, _, make = MODELS[mode]
-        refs[mode, m, n] = row_scan(*make(m, n), sc, S)
-        require(refs[mode, m, n] == known, f"row scan {mode} {m}x{n} "
-                f"{refs[mode, m, n]} != known {known}")
-    n = HIRSCH_AFFINE_N
-    refs["dna_affine", n, n] = row_scan(*random_pair(n, n, seed=0),
-                                        DNA_AFFINE)
-    for mode, (sc, S, _, make) in MODELS.items():
-        # the banded scan against the plain fill on a small pair first
-        a, b = _small_pair(mode, 300, 280, 5)
-        for band in (0, 3, BAND):
-            want = sf.stripe_fill_plain(
-                *on_card(a, b, dev=torch.device("cpu")), sc,
-                None if S is None else torch.from_numpy(S), band)
-            require(list(row_scan(a, b, sc, S, band)) == want.best.tolist(),
-                    f"banded row scan {mode} band {band} != plain fill")
-        refs[mode, "band", ALIGN_N] = row_scan(*make(ALIGN_N, ALIGN_N), sc,
-                                               S, BAND)
+    refs, ref_s = scans.get()
+    pool.close()
+    pool.join()
     phase("reference", f"numpy row scans of {len(refs)} pairs in "
-          f"{time.perf_counter() - t0:.1f} s, equal to the known values "
-          f"{refs}")
+          f"{ref_s:.1f} s (in a process of their own, beside the kernel "
+          f"phases), equal to the known values {refs}")
 
     # ---- the full-P path: public calls only, counted from zero ----
     sf.reset_counts()
@@ -1669,9 +1882,13 @@ def main() -> int:
     launches = dict(sf.launches)
     plain = dict(sf.plain_calls)
     # ---- end of the full-P path ----
-    full_p = [sf.kernel_name(*MODELS[mode][:2], p)
-              for mode in MODES for p in (False, True)]
+    # score() runs the register-blocked K1 (linear) or K2, K3; the earlier
+    # unbanded linear K1 is on no route of the package
+    full_p = [sf.score_kernel_name(*MODELS[mode][:2]) for mode in MODES] + [
+        sf.kernel_name(*MODELS[mode][:2], True) for mode in MODES]
     require(all(launches[k] > 0 for k in full_p), f"launches {launches}")
+    require(launches[sf.SCORE_KERNEL] == 0,
+            f"the earlier K1 ran on the full-P path: {launches}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"full-P path: kernel launches {launches}, plain calls "
           f"{plain}")
@@ -1686,10 +1903,10 @@ def main() -> int:
     # ---- end of the lean and banded path ----
     for ln in lines:
         phase("lean", ln)
-    lean_path = [n for n in sf.launches if n not in full_p] + [
-        sf.kernel_name(*MODELS[mode][:2], p)
-        for mode in MODES for p in (False, True)]
+    lean_path = [n for n in sf.launches if n != sf.SCORE_KERNEL]
     require(all(lean[k] > 0 for k in lean_path), f"launches {lean}")
+    require(lean[sf.SCORE_KERNEL] == 0,
+            f"the earlier K1 ran on the lean path: {lean}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"lean and banded path in {lean_s:.1f} s: kernel "
           f"launches {lean}, plain calls {plain}")
@@ -1735,7 +1952,10 @@ def main() -> int:
     # ---- end of the search path ----
     for ln in lines:
         phase("search", ln)
-    require(all(search[k] > 0 for k in wf.launches), f"launches {search}")
+    # reads of 150 and 152 rows take the warp-per-read K6 alone
+    require(all(search[k] > 0 for k in wf.WARP_KERNELS.values())
+            and not any(search[k] for k in wf.WINDOW_KERNELS.values()),
+            f"launches {search}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"search path in {search_s:.1f} s: kernel launches "
           f"{ {k: v for k, v in search.items() if v} }, plain calls {plain}")
@@ -1759,8 +1979,9 @@ def main() -> int:
           f"{plain}")
 
     # launches: the five paths' runs; the K7/K8 counters run on the batch
-    # path (K7 also on the sanitize path), the K6 counters on the search
-    # path alone, the K9 counters on the sanitize path alone
+    # path (K7 also on the sanitize path), the warp-per-read K6 counters on
+    # the search path alone, the K9 counters on the sanitize path alone;
+    # the earlier K1 and K6 entries count 0 (their times are the A/B's)
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)

@@ -4,15 +4,18 @@ checkouts of swtpu_torch, on a machine with the CUDA toolkit.
 
     python3 scripts/torch_sass_diff.py OLD_CHECKOUT [NEW_CHECKOUT]
 
-Compiles each source of ``swtpu_torch/csrc`` that instantiates the stripe
-template (``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
-``window_fill.cu``, ``sanitize_fill.cu``) and that the old checkout has, in both checkouts, to
-cubins for sm_90a with the port's flags, disassembles them with
-``cuobjdump -sass`` and, for every instantiation of ``stripe_kernel`` the
-old checkout has, prints its instruction count and the number of SASS
-lines that differ from the new checkout's instantiation of the same flags
-(the new template's added flags off). Exits 1 when any differ.
-NEW_CHECKOUT defaults to this script's checkout.
+Compiles each kernel source of ``swtpu_torch/csrc`` (the stripe
+template's ``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
+``window_fill.cu``, ``sanitize_fill.cu``, and ``window_warp.cu``,
+``stripe_rb.cu``) in both checkouts, where each has it, to cubins for
+sm_90a with the port's flags and disassembles them with ``cuobjdump
+-sass``. For every kernel the old checkout has, it prints its instruction
+count and the number of SASS lines that differ from the new checkout's
+kernel of the same name (for an instantiation of ``stripe_kernel``, of
+the same flags, the new template's added flags off); then every kernel
+of the new checkout that the old lacks, as new. Exits 1 when any earlier
+kernel differs or is missing. NEW_CHECKOUT defaults to this script's
+checkout.
 """
 
 from __future__ import annotations
@@ -27,12 +30,16 @@ from pathlib import Path
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 SOURCES = ("stripe_fill.cu", "stripe_block.cu", "pairs_fill.cu",
-           "window_fill.cu", "sanitize_fill.cu")
-NAME = re.compile(r"Function : (\S*stripe_kernelI((?:Lb\dE)+)E\S*)")
+           "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
+           "stripe_rb.cu")
+FUNC = re.compile(r"Function : (\S+)")
+NAME = re.compile(r"stripe_kernelI((?:Lb\dE)+)E")
 
 
 def sass(checkout: Path, src: str, tmp: str, nvcc: str) -> dict:
-    """{template flags: SASS lines} of one source of one checkout."""
+    """{key: SASS lines} of one source of one checkout: an instantiation
+    of the stripe template keyed by its flags, any other kernel by its
+    mangled name."""
     cubin = os.path.join(tmp, f"{abs(hash(str(checkout)))}_{src}.cubin")
     subprocess.run([nvcc, *FLAGS, "-cubin", "-o", cubin,
                     str(checkout / "swtpu_torch" / "csrc" / src)], check=True)
@@ -41,15 +48,20 @@ def sass(checkout: Path, src: str, tmp: str, nvcc: str) -> dict:
                           text=True).stdout
     out, key = {}, None
     for ln in text.splitlines():
-        got = NAME.search(ln)
+        got = FUNC.search(ln)
         if got:
-            key = tuple(int(f) for f in re.findall(r"Lb(\d)E", got.group(2)))
+            flags = NAME.search(got.group(1))
+            key = (tuple(int(f) for f in re.findall(r"Lb(\d)E",
+                                                     flags.group(1)))
+                   if flags else got.group(1))
             out[key] = []
-        elif "Function :" in ln:
-            key = None
         elif key is not None and ln.strip():
             out[key].append(ln.strip())
     return out
+
+
+def instructions(lines: list) -> int:
+    return sum(1 for x in lines if x.startswith("/*") and ";" in x)
 
 
 def main() -> int:
@@ -61,24 +73,34 @@ def main() -> int:
     differ = 0
     with tempfile.TemporaryDirectory() as tmp:
         for src in SOURCES:
-            if not (old / "swtpu_torch" / "csrc" / src).exists():
-                continue
-            was, now = sass(old, src, tmp, nvcc), sass(new, src, tmp, nvcc)
-            for flags, lines in sorted(was.items()):
-                twin = flags + (0,) * (max(map(len, now)) - len(flags))
+            now = sass(new, src, tmp, nvcc)
+            was = (sass(old, src, tmp, nvcc)
+                   if (old / "swtpu_torch" / "csrc" / src).exists() else {})
+            width = max((len(k) for k in now if isinstance(k, tuple)),
+                        default=0)
+            matched = set()
+            for key, lines in sorted(was.items(), key=str):
+                twin = (key + (0,) * (width - len(key))
+                        if isinstance(key, tuple) else key)
+                label = (f"stripe_kernel{list(key)}"
+                         if isinstance(key, tuple) else key)
                 got = now.get(twin)
                 if got is None:
-                    print(f"{src} {flags}: missing in the new checkout")
+                    print(f"{src} {label}: missing in the new checkout")
                     differ += 1
                     continue
+                matched.add(twin)
                 n = sum(1 for d in difflib.unified_diff(lines, got,
                                                         lineterm="", n=0)
                         if d[:1] in "+-" and d[:3] not in ("+++", "---"))
-                instr = sum(1 for x in lines if x.startswith("/*") and ";"
-                            in x)
-                print(f"{src} stripe_kernel{list(flags)}: {instr} "
+                print(f"{src} {label}: {instructions(lines)} "
                       f"instructions, {n} SASS lines differ")
                 differ += n > 0
+            for key in sorted(set(now) - matched, key=str):
+                label = (f"stripe_kernel{list(key)}"
+                         if isinstance(key, tuple) else key)
+                print(f"{src} {label}: new, {instructions(now[key])} "
+                      "instructions")
     return 1 if differ else 0
 
 

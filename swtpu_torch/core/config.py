@@ -76,10 +76,16 @@ class EngineConfig:
     host_max_cells: int = 1 << 13
     host_simd_max_cells: Optional[int] = None
     scan_max_cells: int = 1 << 14
-    # stripe height T of the CUDA kernels (rows per thread block, a
-    # multiple of 32 up to 1024). None = the kernel wrapper's default.
+    # threads T per thread block of the CUDA kernels, a multiple of 32:
+    # up to 1024 on the stripe template's (one row a thread, T rows a
+    # stripe); up to 512 on the register-blocked K1 that linear unbanded
+    # score-only calls run (stripe_fill.RB_ROWS rows a thread, T times
+    # that a stripe; a larger T raises there). None = the kernel
+    # wrapper's default.
     stripe_rows: Optional[int] = None
-    # register blocking R of the TPU kernel; the CUDA kernels run R=1
+    # register blocking R of the TPU kernel; not read by the port: the
+    # template's CUDA kernels run R=1, the register-blocked K1 its fixed
+    # stripe_fill.RB_ROWS
     stripe_rows_per_lane: Optional[int] = None
     # banded mode: half-width of the band (|i-j| <= band). None = full.
     band: Optional[int] = None

@@ -9,9 +9,10 @@ fold across windows on the device, with no host sync between windows:
 the highest score, ties to the lowest reference position; or, with
 ``n_best=2``, the best two hits at distinct loci (``_upd2``).
 
-The window scorer is K6 (``kernels.window_fill``): on a CUDA device the
-hand-written kernel, one launch per window, the reads padded and the
-launch's scratch allocated once per search; on the CPU its plain version,
+The window scorer is K6 (``kernels.window_fill``): on a CUDA device a
+hand-written kernel, one launch per window (one warp a read for reads of
+up to 512 rows, else the stripe template with the reads padded and the
+launch's scratch allocated once per search); on the CPU its plain version,
 the batched sweep. Plans of ``search``/``make_searcher``: 'auto' (K6 on a
 card, where a scoring the kernel refuses raises ValueError, and the plain
 sweep on the CPU), 'stripe' (K6) and 'scan' (the plain sweep, which the

@@ -25,8 +25,10 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
     "stripe_fill.cu", "stripe_block.cu", "walk_p.cu", "pairs_fill.cu",
-    "window_fill.cu", "sanitize_fill.cu"))
-HEADERS = (_PKG / "csrc" / "stripe_kernel.cuh",)
+    "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
+    "stripe_rb.cu"))
+HEADERS = tuple(_PKG / "csrc" / f for f in ("stripe_kernel.cuh",
+                                            "sw_cell.cuh"))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -91,6 +93,14 @@ for _mode, _args in (("linear", _LINEAR), ("affine", _AFFINE),
     ARGTYPES[f"sw_sanitize_stripe_{_mode}"] = _args + [_ptr, _ptr, _int, _ptr]
     ARGTYPES[f"sw_sanitize_packed_{_mode}"] = (
         ARGTYPES[f"sw_packed_score_{_mode}"][:-1] + [_ptr, _ptr, _int, _ptr])
+# K6 warp per read: window, reads, B, W, rlen, the model, out, stream
+ARGTYPES["sw_window_warp_linear"] = [_ptr, _ptr] + [_int] * 6 + [_ptr] * 2
+ARGTYPES["sw_window_warp_affine"] = [_ptr, _ptr] + [_int] * 7 + [_ptr] * 2
+ARGTYPES["sw_window_warp_sub"] = ([_ptr, _ptr] + [_int] * 3 + [_ptr]
+                                  + [_int] * 5 + [_ptr] * 2)
+# K1 register-blocked: a, b, m, n, match, mismatch, gap, T, R, C, sync,
+# bnd, best, right, stream
+ARGTYPES["sw_stripe_rb_linear"] = [_ptr, _ptr] + [_int] * 8 + [_ptr] * 5
 
 
 @dataclasses.dataclass

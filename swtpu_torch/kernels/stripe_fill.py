@@ -18,14 +18,19 @@ of the device walk of ``swtpu.engine.traceback``:
 * ``walk_p`` (the device walk of ``_stripe_window_walk``): the Gotoh walk
   of a row-major P from a corner, the moves end-first.
 
-The scoring picks the kernel: linear match/mismatch (K1
-``sw_stripe_score_linear``, K4 ``sw_stripe_fill_p_linear``), affine
+The scoring picks the kernel: linear match/mismatch (K1, K4
+``sw_stripe_fill_p_linear``), affine
 match/mismatch (K2 ``sw_stripe_score_affine``, ``sw_stripe_fill_p_affine``)
 and a substitution table with linear or affine gaps (K3
 ``sw_stripe_score_sub``, ``sw_stripe_fill_p_sub``); each of the six takes
 a band, which launches its banded instantiation (K4b); and a block entry
 (K5 ``sw_stripe_block_linear``, ``sw_stripe_block_affine``,
 ``sw_stripe_block_sub``) serves each scoring. The walk is ``sw_walk_p``.
+K1 is two entries, routed by the scoring: ``stripe_score`` with a linear
+scoring, no table and no band runs the register-blocked stripe
+``sw_stripe_rb_linear`` (``csrc/stripe_rb.cu``, ``rb_takes``); a band
+runs the template's ``sw_stripe_score_linear`` in its band mode, which
+``_launch`` also reaches unbanded (the earlier K1, no longer on a route).
 
 Each runs its hand-written kernel of ``csrc/`` for a tensor on a CUDA
 device and its plain version (``stripe_score_plain``,
@@ -61,6 +66,19 @@ DEFAULT_STRIPE_ROWS = 256
 SUB_PROFILE_BYTES = 227 * 1024 - 1024
 
 SCORE_KERNEL = "sw_stripe_score_linear"
+RB_KERNEL = "sw_stripe_rb_linear"
+# the register-blocked K1's threads per block, rows per thread and columns
+# per step when the caller names no T: the fastest of chip_smoke.py's
+# sweep at 25632^2, min of 5 interleaved rounds, 8.451 ms against 8.533
+# for (128, 8, 8) and 8.867 for (64, 8, 4) on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md section 6)
+RB_THREADS = 128
+RB_ROWS = 8
+RB_COLS = 4
+# the (R, C) tiles csrc/stripe_rb.cu instantiates: the default and its
+# neighbours in R and in C, the points of the sweep
+RB_TILES = ((8, 4), (4, 4), (16, 4), (8, 1), (8, 2), (8, 8))
+RB_MAX_THREADS = 512            # its __launch_bounds__
 FILL_P_KERNEL = "sw_stripe_fill_p_linear"
 SCORE_AFFINE_KERNEL = "sw_stripe_score_affine"
 FILL_P_AFFINE_KERNEL = "sw_stripe_fill_p_affine"
@@ -80,7 +98,7 @@ _KERNELS = {
 }
 launches = dict.fromkeys(
     [*_KERNELS.values(), *(k + BAND_SUFFIX for k in _KERNELS.values()),
-     *BLOCK_KERNELS.values(), WALK_KERNEL], 0)
+     *BLOCK_KERNELS.values(), WALK_KERNEL, RB_KERNEL], 0)
 plain_calls = {"stripe_score_plain": 0, "stripe_fill_plain": 0,
                "stripe_block_plain": 0, "walk_p_plain": 0}
 
@@ -102,6 +120,41 @@ def kernel_name(scoring: Scoring, substitution, capture_p: bool,
     CUDA device: the entry's name, plus ``BAND_SUFFIX`` when banded."""
     name = _KERNELS[capture_p, _mode(scoring, substitution)]
     return name + BAND_SUFFIX if banded else name
+
+
+def score_kernel_name(scoring: Scoring, substitution,
+                      banded: bool = False) -> str:
+    """The launch counter of what ``stripe_score`` runs on a CUDA device:
+    the register-blocked K1 where ``rb_takes``, else ``kernel_name``'s."""
+    if rb_takes(scoring, substitution, 0 if banded else None):
+        return RB_KERNEL
+    return kernel_name(scoring, substitution, False, banded)
+
+
+def rb_takes(scoring: Scoring, substitution,
+             band: Optional[int]) -> bool:
+    """The route of ``stripe_score`` on a card: the register-blocked K1
+    for a linear scoring with no table and no band; the template's K1-K3
+    (and K4b) for every other."""
+    return substitution is None and not scoring.is_affine and band is None
+
+
+def rb_shape(n: int, T: Optional[int] = None, R: int = RB_ROWS,
+             C: int = RB_COLS) -> tuple:
+    """(threads, rows per thread, columns per step) of a register-blocked
+    K1 launch over n rows: T threads (default RB_THREADS; a multiple of
+    32 up to RB_MAX_THREADS, each holding R rows), no more than
+    ceil(n / R) needs, rounded up to a warp."""
+    if T is None:
+        T = RB_THREADS
+    if T < 32 or T > RB_MAX_THREADS or T % 32:
+        raise ValueError(f"threads T={T} of the register-blocked K1 must be "
+                         f"a multiple of 32 in [32, {RB_MAX_THREADS}] "
+                         f"(each holds {R} rows)")
+    if (R, C) not in RB_TILES:
+        raise ValueError(f"rows per thread R={R} and columns per step C={C}"
+                         f" must be one of the tiles {RB_TILES}")
+    return min(T, -(-(-(-n // R)) // 32) * 32), R, C
 
 
 def block_kernel_name(scoring: Scoring, substitution) -> str:
@@ -163,12 +216,16 @@ def stripe_score(a: torch.Tensor, b: torch.Tensor,
                  substitution: Optional[torch.Tensor] = None,
                  band: Optional[int] = None) -> StripeOut:
     """Score-only local fill of a (m,) against b (n,), int8 codes on one
-    device. ``T``: rows per stripe (CUDA only). ``substitution``: an (A, A)
-    int32 table S[a_code, b_code] on the same device, or None for the
-    match/mismatch compare. ``band``: keep only the cells with
+    device. ``T``: threads per block (CUDA only; a thread holds one row,
+    up to 1024 threads, or on the register-blocked route RB_ROWS rows, up
+    to RB_MAX_THREADS threads, ``rb_shape``). ``substitution``: an
+    (A, A) int32 table S[a_code, b_code] on the same device, or None for
+    the match/mismatch compare. ``band``: keep only the cells with
     |i - j| <= band (None: every cell)."""
     if _route(a, b, scoring, substitution) == "cpu":
         return stripe_score_plain(a, b, scoring, substitution, band)
+    if rb_takes(scoring, substitution, band):
+        return _launch_rb(a, b, scoring, T)
     return _launch(a, b, scoring, T, substitution, False, band)
 
 
@@ -454,6 +511,30 @@ def _launch(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
     _call(name, dev, args, kernel_name(scoring, sub, capture_p,
                                        band is not None))
     return StripeOut(_reduce(best, right, n), right, P)
+
+
+def _launch_rb(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
+               T: Optional[int], R: int = RB_ROWS,
+               C: int = RB_COLS) -> StripeOut:
+    """The register-blocked K1 (``sw_stripe_rb_linear``) at T threads of
+    R rows and C columns a step (``rb_shape``)."""
+    m, n = a.numel(), b.numel()
+    T, R, C = rb_shape(n, T, R, C)
+    if n > (1 << 31) - 1 - T * R:
+        raise ValueError(f"n={n} rows overflow int32")
+    dev = a.device
+    i32 = torch.int32
+    a, b = a.contiguous(), b.contiguous()
+    stripes = -(-n // (T * R))
+    sync = torch.zeros(stripes + 1, dtype=i32, device=dev)
+    bnd = torch.empty(max(stripes - 1, 1) * (m + 1), dtype=i32, device=dev)
+    best = torch.empty((stripes, 4), dtype=i32, device=dev)
+    right = torch.zeros(n + 1, dtype=i32, device=dev)
+    _call(RB_KERNEL, dev, [a.data_ptr(), b.data_ptr(), m, n, scoring.match,
+                           scoring.mismatch, scoring.gap, T, R, C,
+                           sync.data_ptr(), bnd.data_ptr(), best.data_ptr(),
+                           right.data_ptr()])
+    return StripeOut(_reduce(best, right, n), right, None)
 
 
 def _launch_block(a, b, scoring, T, sub, top_row, left_col, top_f, left_e,

@@ -616,13 +616,19 @@ def test_window_kernel_matches_plain_on_card(card, name, case):
     sc, sub = _port(*SCORINGS[name])
     subt = None if sub is None else torch.from_numpy(sub).to(card)
     rt, wt = torch.from_numpy(reads).to(card), torch.from_numpy(win).to(card)
+    want = _fields(wf.window_score_plain(rt, wt, sc, subt))
     before = dict(wf.launches)
     for T in (None, 32, 256):
-        got = wf.window_score(rt, wt, sc, T, subt)
-        assert _fields(got) == _fields(wf.window_score_plain(rt, wt, sc,
-                                                             subt)), T
-    name_k = wf.window_kernel_name(sc, sub)
+        assert _fields(wf.window_score(rt, wt, sc, T, subt)) == want, T
+        # the stripe template's K6 at this T, whatever the read length
+        stripe = wf.WindowScorer(rt, wt.numel(), sc, T, subt, _warp=False)
+        assert _fields(stripe(wt)) == want, T
+    # these reads take the warp-per-read route; each entry launched 3 times
+    name_k = wf.window_route_name(rlen, sc, sub)
+    name_s = wf.window_kernel_name(sc, sub)
+    assert name_k == wf.warp_kernel_name(sc, sub)
     assert wf.launches[name_k] == before[name_k] + 3
+    assert wf.launches[name_s] == before[name_s] + 3
 
 
 @pytest.mark.gpu

@@ -222,12 +222,12 @@ def test_kernel_names_follow_the_scoring():
     six = ["sw_stripe_score_linear", "sw_stripe_fill_p_linear",
            "sw_stripe_score_affine", "sw_stripe_fill_p_affine",
            "sw_stripe_score_sub", "sw_stripe_fill_p_sub"]
-    # each counts its banded launches apart; then the block entries and
-    # the walk
+    # each counts its banded launches apart; then the block entries, the
+    # walk and the register-blocked K1
     assert sorted(sf.launches) == sorted(
         six + [k + "[band]" for k in six]
         + ["sw_stripe_block_linear", "sw_stripe_block_affine",
-           "sw_stripe_block_sub", "sw_walk_p"])
+           "sw_stripe_block_sub", "sw_walk_p", "sw_stripe_rb_linear"])
 
 
 def test_substitution_gates_take_only_negative_gaps():

@@ -428,7 +428,7 @@ def test_width_one_launches_the_kernels_on_card(cuda, kind, monkeypatch):
                        device=cuda) == want
     assert _row_split(a, b, sc, S, tb, device=cuda) == want_rows
     assert not any(sf.plain_calls.values()), sf.plain_calls
-    for name in (sf.kernel_name(sc, S, False), sf.kernel_name(sc, S, True),
+    for name in (sf.score_kernel_name(sc, S), sf.kernel_name(sc, S, True),
                  sf.block_kernel_name(sc, S), sf.WALK_KERNEL):
         assert sf.launches[name] > 0, name
     # and each wrapper at m = 1 against its plain version
