@@ -23,13 +23,13 @@ records, and ``python -m swtpu_torch map`` on 256 of those reads), and the
 sanitize path (``swtpu_torch.sanitize`` at 4096^2 and
 ``sanitize_pairs_packed`` on 16 pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Two kernels have a second,
-earlier design beside them: linear score-only runs the register-blocked
-K1 (``csrc/stripe_rb.cu``) and the search's window scorer the
-warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1 and K6, the
+4096 4096 --skip-backtrack --sanitize``). Four kernels have a second,
+earlier design beside them: unbanded score-only runs the register-blocked
+K1, K2 and K3 (``csrc/stripe_rb.cu``) and the search's window scorer the
+warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1-K3 and K6, the
 stripe template's, are held to their plain versions and timed in turns
 with the new ones in the same run (they launch on no path, bar K6 for
-reads longer than 512 rows), and K1 is swept over its (T, R, C). Each
+reads longer than 512 rows), and K1-K3 are swept over their (T, R, C). Each
 phase prints one line; any failure raises, so the exit code is not 0. The
 line before the last is a JSON object describing each kernel of the paths
 (launches in the paths' runs, exactness, kernel and plain times, and the
@@ -112,6 +112,8 @@ ORIGIN = {
              "swtpu/kernels/pallas_fill.py:1608"),     # batch_score_fn
     "rb": (CSRC + "stripe_rb.cu",
            "swtpu/kernels/pallas_fill.py:1249"),       # stripe_score_fn
+    "rb_gotoh": (CSRC + "stripe_rb.cu",
+                 "swtpu/kernels/pallas_fill.py:1008"),  # _stripe_call
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -157,6 +159,7 @@ def origin(name: str) -> tuple:
     kind = ("sanitize" if name.startswith("sw_sanitize_")
             else "warp" if name.startswith("sw_window_warp_")
             else "rb" if name == sf.RB_KERNEL
+            else "rb_gotoh" if name in sf.RB_KERNELS.values()
             else "pairs" if name.startswith("sw_pairs_")
             else "packed" if name.startswith("sw_packed_")
             else "window" if name.startswith("sw_window_")
@@ -330,18 +333,21 @@ def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
     kPacked, kWindow, kDebugH>, the walk, the warp-per-read K6 <R, kAffine,
-    kSub> and the register-blocked K1 <R, C>."""
+    kSub> and the register-blocked K1-K3 <R, C, kAffine, kSub>."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
         warp = re.search(r"window_warp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
-        rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)E", ln)
+        rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
+                       ln)
         if "Compiling entry function" in ln and warp:
             R, aff, sub = (int(v) for v in warp.groups())
             name = (f"warp_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}")
         elif "Compiling entry function" in ln and rb:
-            name = f"rb_R{rb.group(1)}_C{rb.group(2)}"
+            R, C, aff, sub = (int(v) for v in rb.groups())
+            name = (f"rb_{'sub_' if sub else ''}"
+                    f"{'affine' if aff else 'linear'}_R{R}_C{C}")
         elif "Compiling entry function" in ln and got:
             p, aff, sub, band, blk, pairs, packed, window, debug = (
                 int(v) for v in got.groups())
@@ -395,7 +401,9 @@ def _small_cases() -> list:
     ]
 
 
-# kernel mode -> (score kernel, fill_p kernel, scorings, table)
+# the template's unbanded score entries, the earlier K1-K3: on no path
+EARLIER_SCORE = (sf.SCORE_KERNEL, sf.SCORE_AFFINE_KERNEL, sf.SCORE_SUB_KERNEL)
+# kernel mode -> (template score kernel, fill_p kernel, scorings, table)
 MODES = {
     "linear": (sf.SCORE_KERNEL, sf.FILL_P_KERNEL, [SCORING], None),
     "dna_affine": (sf.SCORE_AFFINE_KERNEL, sf.FILL_P_AFFINE_KERNEL,
@@ -419,8 +427,10 @@ def ab_ms(new, old, reps: int = 3) -> tuple:
 
 def kernels_vs_plain(dev) -> dict:
     """Each kernel against its plain version; returns per-kernel records.
-    Linear score-only runs its route, the register-blocked K1, and the
-    template's K1 through the private launcher, the earlier design."""
+    Score-only runs its route, the register-blocked K1-K3 (at most
+    RB_MAX_THREADS threads), also at each (T, R, C) of its form's
+    RB_SHAPES, and the template's K1-K3 through the private launcher, the
+    earlier design."""
     err = {k: 0 for k in sf.launches}
     table = on_card(BLOSUM62, dev=dev)[0]
     for label, a, b, T, reps, protein in _small_cases():
@@ -436,8 +446,10 @@ def kernels_vs_plain(dev) -> dict:
                 pf = sf.stripe_fill_plain(at, bt, sc, sub)
                 runs = []
                 route = sf.score_kernel_name(sc, S)
+                T_rb = None if T is None else min(T, sf.RB_MAX_THREADS)
                 for _ in range(reps):
-                    ks = sf.stripe_score(at, bt, sc, T=T, substitution=sub)
+                    ks = sf.stripe_score(at, bt, sc, T=T_rb,
+                                         substitution=sub)
                     kf = sf.stripe_fill(at, bt, sc, T=T, substitution=sub)
                     torch.cuda.synchronize()
                     e1 = max(diff(ks.best, ps.best),
@@ -450,20 +462,30 @@ def kernels_vs_plain(dev) -> dict:
                     require(e1 == 0 and e4 == 0,
                             f"{label} {mode} {sc.mode}: kernel != plain")
                     runs.append((ks.best.tolist(), kf.P.sum().item()))
-                    if route != ks_name:      # the earlier K1 as well
+                    if route != ks_name:      # the earlier K1-K3 too
                         ko = sf._launch(at, bt, sc, T, sub, False, None)
                         torch.cuda.synchronize()
                         e = max(diff(ko.best, ps.best),
                                 diff(ko.right_col, ps.right_col))
                         err[ks_name] = max(err[ks_name], e)
                         require(e == 0, f"{label} {ks_name}: kernel != plain")
+                for shape in RB_SHAPES[_rb_form(route)]:
+                    k = sf._launch_rb(at, bt, sc, *shape, sub=sub)
+                    torch.cuda.synchronize()
+                    e = max(diff(k.best, ps.best),
+                            diff(k.right_col, ps.right_col))
+                    err[route] = max(err[route], e)
+                    require(e == 0, f"{label} {route} (T, R, C) = {shape}: "
+                            "kernel != plain")
                 require(all(r == runs[0] for r in runs),
                         f"{label} {mode}: runs differ")
                 phase("kernels", f"{label} [{mode} {sc.mode}] m={len(a)} "
-                      f"n={len(b)} T={T}: {ps.best.tolist()} equal x{reps}")
+                      f"n={len(b)} T={T}: {ps.best.tolist()} equal x{reps}, "
+                      f"{route} at {len(RB_SHAPES[_rb_form(route)])} "
+                      "(T, R, C) too")
 
     # the main path's shapes: kernel min of 3 after a warm-up, plain once;
-    # linear: the register-blocked K1 and the earlier K1 in turns
+    # the register-blocked K1-K3 and the earlier K1-K3 in turns
     recs = {}
     for mode, (ks_name, kf_name, scorings, S) in MODES.items():
         sc, sub = scorings[0], (None if S is None else table)
@@ -482,8 +504,7 @@ def kernels_vs_plain(dev) -> dict:
                 lambda: sf.stripe_score(at, bt, sc, substitution=sub),
                 lambda: sf._launch(at, bt, sc, None, sub, False, None))
             names[route], names[ks_name] = (k_ms, ks), (o_ms, ko)
-        if mode == "linear":
-            rb_sweep(at, bt, ps)
+        rb_sweep(at, bt, ps, sc, sub)
         ab = []
         for name, (ms, k) in names.items():
             e = max(diff(k.best, ps.best), diff(k.right_col, ps.right_col))
@@ -521,38 +542,76 @@ def kernels_vs_plain(dev) -> dict:
     return recs
 
 
-# the register-blocked K1's (T, R, C) at the small shapes (None: its
-# default T), its edges (label, m, n, seed) beside the DNA shapes of
-# _small_cases, and its sweep at 25632^2
-RB_SHAPES = [(32, 8, 1), (32, 8, 4), (64, 16, 4), (128, 8, 8), (512, 4, 4),
-             (256, 8, 2), (None, sf.RB_ROWS, sf.RB_COLS)]
+# the register-blocked K1-K3's (T, R, C) at the small shapes by form
+# (None: the form's default T), their edges (label, m, n, seed) beside the
+# shapes of _small_cases, and their sweeps at 25632^2
+RB_SHAPES = {
+    "linear": [(32, 8, 1), (32, 8, 4), (64, 16, 4), (128, 8, 8), (512, 4, 4),
+               (256, 8, 2), (None, sf.RB_ROWS, sf.RB_COLS)],
+    "gotoh": [(32, 8, 4), (32, 4, 4), (64, 8, 2), (128, 8, 4), (256, 4, 4),
+              (512, 8, 2), (None, None, None)],
+}
 RB_EDGES = [("n<32", 300, 20, 1), ("n=33", 90, 33, 2), ("m=1 n<32", 1, 7, 3),
             ("m=33", 33, 3000, 4), ("m=7 n=5000", 7, 5000, 5)]
-RB_SWEEP = [(T, R, C) for T in (64, 128, 256) for R, C in sf.RB_TILES]
+# (m, n) of the sentinel edges of K2 and K3 (_sentinel_pair)
+RB_SENTINELS = [(300, 700), (50, 24), (4, 90)]
+RB_SWEEP = {mode: [(T, R, C) for T in (64, 128, 256)
+                   for R, C in sf.RB_FORM_TILES[mode]]
+            for mode in sf.RB_FORM_TILES}
 RB_SWEEP_ROUNDS = 5
 
 
-def rb_vs_plain(dev) -> int:
-    """The register-blocked K1 against its plain version at every DNA
-    shape of _small_cases and RB_EDGES, each at RB_SHAPES, and at THIN
-    through ``stripe_score``; returns the max error."""
-    err = 0
-    cases = [(label, a, b) for label, a, b, _, _, protein in _small_cases()
-             if not protein]
-    cases += [(label, *random_pair(m, n, seed=seed))
-              for label, m, n, seed in RB_EDGES]
-    for label, a, b in cases:
-        at, bt = on_card(a, b, dev=dev)
-        p = sf.stripe_score_plain(at, bt)
-        for T, R, C in RB_SHAPES:
-            k = sf._launch_rb(at, bt, SCORING, T, R, C)
-            torch.cuda.synchronize()
-            e = max(diff(k.best, p.best), diff(k.right_col, p.right_col))
-            err = max(err, e)
-            require(e == 0, f"{sf.RB_KERNEL} {label} T={T} R={R} C={C}: "
-                    "kernel != plain")
-    phase("kernels", f"{sf.RB_KERNEL} at {len(cases)} shapes x "
-          f"{len(RB_SHAPES)} (T, R, C): equal")
+def _sentinel_pair(mode: str, m: int, n: int, seed: int) -> tuple:
+    """A small pair of the mode's alphabet with a shared segment, the
+    sentinel codes -1, -2, -3 in a and in b, and a -1 in both at one
+    aligned spot of the segment (N against N)."""
+    a, b = (x.copy() for x in _small_pair(mode, m, n, seed))
+    rng = np.random.default_rng(seed)
+    L = min(m, n) // 2
+    i0, j0 = n // 3, m // 4
+    b[i0:i0 + L] = a[j0:j0 + L]
+    a[j0 + L // 2] = b[i0 + L // 2] = -1
+    a[rng.choice(m, 3, replace=False)] = [-1, -2, -3]
+    b[rng.choice(n, 3, replace=False)] = [-3, -2, -1]
+    return a, b
+
+
+def _rb_form(name: str) -> str:
+    """The RB_SHAPES key of a register-blocked entry."""
+    return "linear" if name == sf.RB_KERNEL else "gotoh"
+
+
+def rb_vs_plain(dev) -> dict:
+    """The register-blocked K1-K3 against their plain versions at RB_EDGES
+    in their alphabet (DNA for K1 and K2, protein for K3 in both gap
+    models) and, K2 and K3, at RB_SENTINELS, each at its form's RB_SHAPES
+    (kernels_vs_plain holds them at the shapes of _small_cases), and K1
+    at THIN through ``stripe_score``; returns the max error per entry."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    err = dict.fromkeys(sf.RB_KERNELS.values(), 0)
+    for mode, (_, _, scorings, S) in MODES.items():
+        cases = [(label, *_small_pair(mode, m, n, seed))
+                 for label, m, n, seed in RB_EDGES]
+        if mode != "linear":
+            cases += [(f"sentinels {m}x{n}", *_sentinel_pair(mode, m, n, 9))
+                      for m, n in RB_SENTINELS]
+        sub = None if S is None else table
+        for sc in scorings:
+            name = sf.score_kernel_name(sc, S)
+            shapes = RB_SHAPES[_rb_form(name)]
+            for label, a, b in cases:
+                at, bt = on_card(a, b, dev=dev)
+                p = sf.stripe_score_plain(at, bt, sc, sub)
+                for T, R, C in shapes:
+                    k = sf._launch_rb(at, bt, sc, T, R, C, sub=sub)
+                    torch.cuda.synchronize()
+                    e = max(diff(k.best, p.best),
+                            diff(k.right_col, p.right_col))
+                    err[name] = max(err[name], e)
+                    require(e == 0, f"{name} [{mode} {sc.mode}] {label} T={T}"
+                            f" R={R} C={C}: kernel != plain")
+            phase("kernels", f"{name} [{mode} {sc.mode}] at {len(cases)} "
+                  f"shapes x {len(shapes)} (T, R, C): equal")
     m, n = THIN
     at, bt = on_card(*random_pair(m, n, seed=0), dev=dev)
     p_ms, p = timed_ms(lambda: sf.stripe_score_plain(at, bt), 1)
@@ -562,36 +621,42 @@ def rb_vs_plain(dev) -> int:
             f"{sf.RB_KERNEL} {m}x{n}: kernel != plain")
     phase("kernels", f"{sf.RB_KERNEL} THIN a={m} b={n}: {k.best.tolist()} "
           f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, equal, right column too")
-    return max(err, e)
+    err[sf.RB_KERNEL] = max(err[sf.RB_KERNEL], e)
+    return err
 
 
-def rb_sweep(at, bt, ps) -> None:
-    """The register-blocked K1 at 25632^2 over RB_SWEEP, each bit-equal
-    to the plain version ``ps`` (best and right column) and timed in
-    RB_SWEEP_ROUNDS rounds over every point, so that a drift of the
-    card's clock weighs on all alike, the min of its rounds kept; and one
-    stripe of 256 rows at T = 32, R = 8, C = 1 and 4: the cost of a
-    step."""
-    for T, R, C in RB_SWEEP:
-        k = sf._launch_rb(at, bt, SCORING, T, R, C)
+def rb_sweep(at, bt, ps, sc: Scoring, sub) -> None:
+    """The register-blocked entry of the scoring at 25632^2 over its
+    form's RB_SWEEP, each point bit-equal to the plain version ``ps``
+    (best and right column) and timed in RB_SWEEP_ROUNDS rounds over
+    every point, so that a drift of the card's clock weighs on all alike,
+    the min of its rounds kept; and, linear, one stripe of 256 rows at
+    T = 32, R = 8, C = 1 and 4: the cost of a step."""
+    mode = sf._mode(sc, sub)
+    name = sf.RB_KERNELS[mode]
+    for T, R, C in RB_SWEEP[mode]:
+        k = sf._launch_rb(at, bt, sc, T, R, C, sub=sub)
         require(diff(k.best, ps.best) == 0
                 and diff(k.right_col, ps.right_col) == 0,
-                f"{sf.RB_KERNEL} T={T} R={R} C={C}: kernel != plain")
-    best = dict.fromkeys(RB_SWEEP, float("inf"))
+                f"{name} T={T} R={R} C={C}: kernel != plain")
+    best = dict.fromkeys(RB_SWEEP[mode], float("inf"))
     for _ in range(RB_SWEEP_ROUNDS):
-        for T, R, C in RB_SWEEP:
-            ms, _ = timed_ms(lambda: sf._launch_rb(at, bt, SCORING, T, R, C),
-                             1)
+        for T, R, C in RB_SWEEP[mode]:
+            ms, _ = timed_ms(lambda: sf._launch_rb(at, bt, sc, T, R, C,
+                                                   sub=sub), 1)
             best[T, R, C] = min(best[T, R, C], ms)
     fastest = min(best, key=best.get)
-    default = (sf.RB_THREADS, sf.RB_ROWS, sf.RB_COLS)
-    phase("kernels", f"{sf.RB_KERNEL} sweep at {SCORE_N}^2, ms by "
+    default = sf.rb_shape(bt.numel(), mode=mode,
+                          A=0 if sub is None else sub.shape[0])
+    phase("kernels", f"{name} sweep at {SCORE_N}^2, ms by "
           f"(T, R, C), min of {RB_SWEEP_ROUNDS} rounds, all equal: "
           + ", ".join(f"{T}/{R}/{C} {ms:.3f}" for (T, R, C), ms in
                       best.items())
           + f"; fastest {fastest} {best[fastest]:.3f} ms, default "
           f"{default} {best[default]:.3f} ms "
           f"({best[default] / best[fastest]:.3f} x the fastest)")
+    if mode != "linear":
+        return
     per = []
     for C in (1, 4):
         ms, _ = timed_ms(lambda: sf._launch_rb(at, bt[:256], SCORING, 32, 8,
@@ -1818,9 +1883,12 @@ def run(dev, name: str, start: float, pool, scans) -> int:
         phase("build", f"{len(new)} {prefix}* instantiations: {min(regs)}-"
               f"{max(regs)} registers, no spills")
 
+    t0 = time.perf_counter()
     recs = kernels_vs_plain(dev)
-    recs[sf.RB_KERNEL]["max_abs_err"] = max(recs[sf.RB_KERNEL]["max_abs_err"],
-                                            rb_vs_plain(dev))
+    for entry, e in rb_vs_plain(dev).items():
+        recs[entry]["max_abs_err"] = max(recs[entry]["max_abs_err"], e)
+    phase("kernels", f"K1-K4 and the register-blocked K1-K3 against their "
+          f"plain versions in {time.perf_counter() - t0:.1f} s")
     recs.update(band_vs_plain(dev))
     block_err = block_vs_plain(dev)
     for entry, e in rows_vs_plain(dev).items():
@@ -1882,13 +1950,13 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     launches = dict(sf.launches)
     plain = dict(sf.plain_calls)
     # ---- end of the full-P path ----
-    # score() runs the register-blocked K1 (linear) or K2, K3; the earlier
-    # unbanded linear K1 is on no route of the package
+    # score() runs the register-blocked K1, K2 or K3; the earlier unbanded
+    # K1-K3 are on no route of the package
     full_p = [sf.score_kernel_name(*MODELS[mode][:2]) for mode in MODES] + [
         sf.kernel_name(*MODELS[mode][:2], True) for mode in MODES]
     require(all(launches[k] > 0 for k in full_p), f"launches {launches}")
-    require(launches[sf.SCORE_KERNEL] == 0,
-            f"the earlier K1 ran on the full-P path: {launches}")
+    require(not any(launches[k] for k in EARLIER_SCORE),
+            f"the earlier K1-K3 ran on the full-P path: {launches}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"full-P path: kernel launches {launches}, plain calls "
           f"{plain}")
@@ -1903,10 +1971,10 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # ---- end of the lean and banded path ----
     for ln in lines:
         phase("lean", ln)
-    lean_path = [n for n in sf.launches if n != sf.SCORE_KERNEL]
+    lean_path = [n for n in sf.launches if n not in EARLIER_SCORE]
     require(all(lean[k] > 0 for k in lean_path), f"launches {lean}")
-    require(lean[sf.SCORE_KERNEL] == 0,
-            f"the earlier K1 ran on the lean path: {lean}")
+    require(not any(lean[k] for k in EARLIER_SCORE),
+            f"the earlier K1-K3 ran on the lean path: {lean}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"lean and banded path in {lean_s:.1f} s: kernel "
           f"launches {lean}, plain calls {plain}")
@@ -1981,7 +2049,8 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # launches: the five paths' runs; the K7/K8 counters run on the batch
     # path (K7 also on the sanitize path), the warp-per-read K6 counters on
     # the search path alone, the K9 counters on the sanitize path alone;
-    # the earlier K1 and K6 entries count 0 (their times are the A/B's)
+    # the earlier unbanded K1-K3 and K6 entries count 0 (their times are
+    # the A/B's)
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)

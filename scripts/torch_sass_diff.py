@@ -11,11 +11,12 @@ template's ``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
 sm_90a with the port's flags and disassembles them with ``cuobjdump
 -sass``. For every kernel the old checkout has, it prints its instruction
 count and the number of SASS lines that differ from the new checkout's
-kernel of the same name (for an instantiation of ``stripe_kernel``, of
-the same flags, the new template's added flags off); then every kernel
-of the new checkout that the old lacks, as new. Exits 1 when any earlier
-kernel differs or is missing. NEW_CHECKOUT defaults to this script's
-checkout.
+kernel of the same name (for an instantiation of ``stripe_kernel``,
+``stripe_rb_kernel`` or ``window_warp_kernel``, of the same template
+arguments, the new template's added arguments 0 or false); then every
+kernel of the new checkout that the old lacks, as new. Exits 1 when any
+earlier kernel differs or is missing. NEW_CHECKOUT defaults to this
+script's checkout.
 """
 
 from __future__ import annotations
@@ -33,13 +34,17 @@ SOURCES = ("stripe_fill.cu", "stripe_block.cu", "pairs_fill.cu",
            "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
            "stripe_rb.cu")
 FUNC = re.compile(r"Function : (\S+)")
-NAME = re.compile(r"stripe_kernelI((?:Lb\dE)+)E")
+# a template's name and its integer and bool arguments (the mangled name
+# around them holds a hash of the source's path)
+NAME = re.compile(r"(stripe_kernel|stripe_rb_kernel|window_warp_kernel)"
+                  r"I((?:L[bi]\d+E)+)E")
+ARG = re.compile(r"L[bi](\d+)E")
 
 
 def sass(checkout: Path, src: str, tmp: str, nvcc: str) -> dict:
     """{key: SASS lines} of one source of one checkout: an instantiation
-    of the stripe template keyed by its flags, any other kernel by its
-    mangled name."""
+    of a template keyed by (its name, its arguments), any other kernel by
+    its mangled name."""
     cubin = os.path.join(tmp, f"{abs(hash(str(checkout)))}_{src}.cubin")
     subprocess.run([nvcc, *FLAGS, "-cubin", "-o", cubin,
                     str(checkout / "swtpu_torch" / "csrc" / src)], check=True)
@@ -50,10 +55,10 @@ def sass(checkout: Path, src: str, tmp: str, nvcc: str) -> dict:
     for ln in text.splitlines():
         got = FUNC.search(ln)
         if got:
-            flags = NAME.search(got.group(1))
-            key = (tuple(int(f) for f in re.findall(r"Lb(\d)E",
-                                                     flags.group(1)))
-                   if flags else got.group(1))
+            tmpl = NAME.search(got.group(1))
+            key = ((tmpl.group(1), tuple(int(v) for v in
+                                         ARG.findall(tmpl.group(2))))
+                   if tmpl else got.group(1))
             out[key] = []
         elif key is not None and ln.strip():
             out[key].append(ln.strip())
@@ -76,13 +81,18 @@ def main() -> int:
             now = sass(new, src, tmp, nvcc)
             was = (sass(old, src, tmp, nvcc)
                    if (old / "swtpu_torch" / "csrc" / src).exists() else {})
-            width = max((len(k) for k in now if isinstance(k, tuple)),
-                        default=0)
+            width = {}
+            for key in now:
+                if isinstance(key, tuple):
+                    width[key[0]] = max(width.get(key[0], 0), len(key[1]))
             matched = set()
             for key, lines in sorted(was.items(), key=str):
-                twin = (key + (0,) * (width - len(key))
-                        if isinstance(key, tuple) else key)
-                label = (f"stripe_kernel{list(key)}"
+                twin = key
+                if isinstance(key, tuple):
+                    name, args = key
+                    twin = (name, args + (0,) * (width.get(name, 0)
+                                                 - len(args)))
+                label = (f"{key[0]}{list(key[1])}"
                          if isinstance(key, tuple) else key)
                 got = now.get(twin)
                 if got is None:
@@ -97,7 +107,7 @@ def main() -> int:
                       f"instructions, {n} SASS lines differ")
                 differ += n > 0
             for key in sorted(set(now) - matched, key=str):
-                label = (f"stripe_kernel{list(key)}"
+                label = (f"{key[0]}{list(key[1])}"
                          if isinstance(key, tuple) else key)
                 print(f"{src} {label}: new, {instructions(now[key])} "
                       "instructions")

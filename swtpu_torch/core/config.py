@@ -78,14 +78,15 @@ class EngineConfig:
     scan_max_cells: int = 1 << 14
     # threads T per thread block of the CUDA kernels, a multiple of 32:
     # up to 1024 on the stripe template's (one row a thread, T rows a
-    # stripe); up to 512 on the register-blocked K1 that linear unbanded
-    # score-only calls run (stripe_fill.RB_ROWS rows a thread, T times
-    # that a stripe; a larger T raises there). None = the kernel
+    # stripe); up to 512 on the register-blocked K1-K3 that unbanded
+    # score-only calls run (the form's R rows a thread,
+    # stripe_fill.RB_DEFAULTS, T times that a stripe; a larger T raises
+    # there, and a table's profile may cap it). None = the kernel
     # wrapper's default.
     stripe_rows: Optional[int] = None
     # register blocking R of the TPU kernel; not read by the port: the
-    # template's CUDA kernels run R=1, the register-blocked K1 its fixed
-    # stripe_fill.RB_ROWS
+    # template's CUDA kernels run R=1, the register-blocked K1-K3 their
+    # form's fixed R (stripe_fill.RB_DEFAULTS)
     stripe_rows_per_lane: Optional[int] = None
     # banded mode: half-width of the band (|i-j| <= band). None = full.
     band: Optional[int] = None

@@ -101,6 +101,13 @@ ARGTYPES["sw_window_warp_sub"] = ([_ptr, _ptr] + [_int] * 3 + [_ptr]
 # K1 register-blocked: a, b, m, n, match, mismatch, gap, T, R, C, sync,
 # bnd, best, right, stream
 ARGTYPES["sw_stripe_rb_linear"] = [_ptr, _ptr] + [_int] * 8 + [_ptr] * 5
+# K2: a, b, m, n, match, mismatch, gap_open, gap_extend, T, R, C, sync,
+# bnd, bnd_f, best, right, stream
+ARGTYPES["sw_stripe_rb_affine"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 6
+# K3: a, b, m, n, sub, A, affine, gap, gap_open, gap_extend, T, R, C, sync,
+# bnd, bnd_f, best, right, stream
+ARGTYPES["sw_stripe_rb_sub"] = ([_ptr, _ptr, _int, _int, _ptr] + [_int] * 8
+                                + [_ptr] * 6)
 
 
 @dataclasses.dataclass

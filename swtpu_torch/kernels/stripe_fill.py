@@ -20,17 +20,18 @@ of the device walk of ``swtpu.engine.traceback``:
 
 The scoring picks the kernel: linear match/mismatch (K1, K4
 ``sw_stripe_fill_p_linear``), affine
-match/mismatch (K2 ``sw_stripe_score_affine``, ``sw_stripe_fill_p_affine``)
-and a substitution table with linear or affine gaps (K3
-``sw_stripe_score_sub``, ``sw_stripe_fill_p_sub``); each of the six takes
-a band, which launches its banded instantiation (K4b); and a block entry
-(K5 ``sw_stripe_block_linear``, ``sw_stripe_block_affine``,
+match/mismatch (K2, ``sw_stripe_fill_p_affine``) and a substitution table
+with linear or affine gaps (K3, ``sw_stripe_fill_p_sub``); and a block
+entry (K5 ``sw_stripe_block_linear``, ``sw_stripe_block_affine``,
 ``sw_stripe_block_sub``) serves each scoring. The walk is ``sw_walk_p``.
-K1 is two entries, routed by the scoring: ``stripe_score`` with a linear
-scoring, no table and no band runs the register-blocked stripe
-``sw_stripe_rb_linear`` (``csrc/stripe_rb.cu``, ``rb_takes``); a band
-runs the template's ``sw_stripe_score_linear`` in its band mode, which
-``_launch`` also reaches unbanded (the earlier K1, no longer on a route).
+Score-only (K1-K3) is routed by the band (``rb_takes``): with no band,
+``stripe_score`` runs the register-blocked stripe of ``csrc/stripe_rb.cu``,
+``sw_stripe_rb_linear`` (K1), ``sw_stripe_rb_affine`` (K2) or
+``sw_stripe_rb_sub`` (K3, either gap model); a band runs the stripe
+template's ``sw_stripe_score_{linear,affine,sub}`` (``csrc/stripe_fill.cu``)
+in their band mode (K4b), as it does the three fill_p entries. ``_launch``
+also reaches the template's score entries unbanded: the earlier K1-K3, on
+no route of the package.
 
 Each runs its hand-written kernel of ``csrc/`` for a tensor on a CUDA
 device and its plain version (``stripe_score_plain``,
@@ -67,6 +68,11 @@ SUB_PROFILE_BYTES = 227 * 1024 - 1024
 
 SCORE_KERNEL = "sw_stripe_score_linear"
 RB_KERNEL = "sw_stripe_rb_linear"
+RB_AFFINE_KERNEL = "sw_stripe_rb_affine"
+RB_SUB_KERNEL = "sw_stripe_rb_sub"
+# mode -> the register-blocked entry of csrc/stripe_rb.cu
+RB_KERNELS = {"linear": RB_KERNEL, "affine": RB_AFFINE_KERNEL,
+              "sub": RB_SUB_KERNEL}
 # the register-blocked K1's threads per block, rows per thread and columns
 # per step when the caller names no T: the fastest of chip_smoke.py's
 # sweep at 25632^2, min of 5 interleaved rounds, 8.451 ms against 8.533
@@ -78,7 +84,21 @@ RB_COLS = 4
 # the (R, C) tiles csrc/stripe_rb.cu instantiates: the default and its
 # neighbours in R and in C, the points of the sweep
 RB_TILES = ((8, 4), (4, 4), (16, 4), (8, 1), (8, 2), (8, 8))
+# each form's tiles and its default (T, R, C): K2's and K3's the fastest
+# of chip_smoke.py's sweeps at 25632^2, min of 5 interleaved rounds, K2
+# 10.175 ms against 10.227 for (128, 4, 4), K3 10.137 against 10.315 for
+# (64, 8, 4), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+RB_FORM_TILES = {"linear": RB_TILES, "affine": ((8, 4), (8, 2), (4, 4)),
+                 "sub": ((8, 4), (8, 2), (4, 4))}
+RB_DEFAULTS = {"linear": (RB_THREADS, RB_ROWS, RB_COLS),
+               "affine": (128, 8, 4), "sub": (128, 8, 4)}
 RB_MAX_THREADS = 512            # its __launch_bounds__
+# shared memory a register-blocked block may opt into (227 KB) less its
+# static arrays (the query ring, edges, chunks) and the affine F arrays:
+# bounds K3's profile, (min(A, RB_MAX_SYMBOLS) + 1) * R * T int32 (no
+# int8 code reaches a row past RB_MAX_SYMBOLS)
+RB_PROFILE_BYTES = 227 * 1024 - 16 * 1024
+RB_MAX_SYMBOLS = 128
 FILL_P_KERNEL = "sw_stripe_fill_p_linear"
 SCORE_AFFINE_KERNEL = "sw_stripe_score_affine"
 FILL_P_AFFINE_KERNEL = "sw_stripe_fill_p_affine"
@@ -98,7 +118,7 @@ _KERNELS = {
 }
 launches = dict.fromkeys(
     [*_KERNELS.values(), *(k + BAND_SUFFIX for k in _KERNELS.values()),
-     *BLOCK_KERNELS.values(), WALK_KERNEL, RB_KERNEL], 0)
+     *BLOCK_KERNELS.values(), WALK_KERNEL, *RB_KERNELS.values()], 0)
 plain_calls = {"stripe_score_plain": 0, "stripe_fill_plain": 0,
                "stripe_block_plain": 0, "walk_p_plain": 0}
 
@@ -125,36 +145,46 @@ def kernel_name(scoring: Scoring, substitution, capture_p: bool,
 def score_kernel_name(scoring: Scoring, substitution,
                       banded: bool = False) -> str:
     """The launch counter of what ``stripe_score`` runs on a CUDA device:
-    the register-blocked K1 where ``rb_takes``, else ``kernel_name``'s."""
+    the register-blocked entry of the scoring where ``rb_takes``, else
+    ``kernel_name``'s."""
     if rb_takes(scoring, substitution, 0 if banded else None):
-        return RB_KERNEL
+        return RB_KERNELS[_mode(scoring, substitution)]
     return kernel_name(scoring, substitution, False, banded)
 
 
 def rb_takes(scoring: Scoring, substitution,
              band: Optional[int]) -> bool:
-    """The route of ``stripe_score`` on a card: the register-blocked K1
-    for a linear scoring with no table and no band; the template's K1-K3
-    (and K4b) for every other."""
-    return substitution is None and not scoring.is_affine and band is None
+    """The route of ``stripe_score`` on a card: the register-blocked K1,
+    K2 or K3 for every scoring ``kernels_take`` admits with no band; the
+    template's banded K1-K3 (K4b) with one."""
+    return band is None
 
 
-def rb_shape(n: int, T: Optional[int] = None, R: int = RB_ROWS,
-             C: int = RB_COLS) -> tuple:
+def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
+             C: Optional[int] = None, mode: str = "linear",
+             A: int = 0) -> tuple:
     """(threads, rows per thread, columns per step) of a register-blocked
-    K1 launch over n rows: T threads (default RB_THREADS; a multiple of
-    32 up to RB_MAX_THREADS, each holding R rows), no more than
-    ceil(n / R) needs, rounded up to a warp."""
-    if T is None:
-        T = RB_THREADS
+    launch of ``mode`` ('linear', 'affine' or 'sub', an alphabet of A
+    symbols) over n rows: T threads (default the form's, RB_DEFAULTS; a
+    multiple of 32 up to RB_MAX_THREADS, each holding R rows), no more
+    than ceil(n / R) needs, rounded up to a warp, and, for a table, no
+    more than the profile's shared memory holds (RB_PROFILE_BYTES)."""
+    dT, dR, dC = RB_DEFAULTS[mode]
+    T, R, C = (dT if T is None else T, dR if R is None else R,
+               dC if C is None else C)
     if T < 32 or T > RB_MAX_THREADS or T % 32:
-        raise ValueError(f"threads T={T} of the register-blocked K1 must be "
-                         f"a multiple of 32 in [32, {RB_MAX_THREADS}] "
+        raise ValueError(f"threads T={T} of the register-blocked K1-K3 must "
+                         f"be a multiple of 32 in [32, {RB_MAX_THREADS}] "
                          f"(each holds {R} rows)")
-    if (R, C) not in RB_TILES:
+    tiles = RB_FORM_TILES[mode]
+    if (R, C) not in tiles:
         raise ValueError(f"rows per thread R={R} and columns per step C={C}"
-                         f" must be one of the tiles {RB_TILES}")
-    return min(T, -(-(-(-n // R)) // 32) * 32), R, C
+                         f" must be one of the {mode} tiles {tiles}")
+    T = min(T, -(-(-(-n // R)) // 32) * 32)
+    if mode == "sub":
+        rows = min(A, RB_MAX_SYMBOLS) + 1
+        T = min(T, RB_PROFILE_BYTES // (4 * rows * R) // 32 * 32)
+    return T, R, C
 
 
 def block_kernel_name(scoring: Scoring, substitution) -> str:
@@ -216,16 +246,17 @@ def stripe_score(a: torch.Tensor, b: torch.Tensor,
                  substitution: Optional[torch.Tensor] = None,
                  band: Optional[int] = None) -> StripeOut:
     """Score-only local fill of a (m,) against b (n,), int8 codes on one
-    device. ``T``: threads per block (CUDA only; a thread holds one row,
-    up to 1024 threads, or on the register-blocked route RB_ROWS rows, up
-    to RB_MAX_THREADS threads, ``rb_shape``). ``substitution``: an
+    device. ``T``: threads per block (CUDA only; on the register-blocked
+    route, with no band, a thread holds its form's R rows, up to
+    RB_MAX_THREADS threads, ``rb_shape``; banded, one row, up to 1024
+    threads). ``substitution``: an
     (A, A) int32 table S[a_code, b_code] on the same device, or None for
     the match/mismatch compare. ``band``: keep only the cells with
     |i - j| <= band (None: every cell)."""
     if _route(a, b, scoring, substitution) == "cpu":
         return stripe_score_plain(a, b, scoring, substitution, band)
     if rb_takes(scoring, substitution, band):
-        return _launch_rb(a, b, scoring, T)
+        return _launch_rb(a, b, scoring, T, sub=substitution)
     return _launch(a, b, scoring, T, substitution, False, band)
 
 
@@ -514,26 +545,31 @@ def _launch(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
 
 
 def _launch_rb(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
-               T: Optional[int], R: int = RB_ROWS,
-               C: int = RB_COLS) -> StripeOut:
-    """The register-blocked K1 (``sw_stripe_rb_linear``) at T threads of
-    R rows and C columns a step (``rb_shape``)."""
+               T: Optional[int], R: Optional[int] = None,
+               C: Optional[int] = None,
+               sub: Optional[torch.Tensor] = None) -> StripeOut:
+    """The register-blocked K1-K3 (``RB_KERNELS``, by the scoring) at T
+    threads of R rows and C columns a step (``rb_shape``)."""
+    mode = _mode(scoring, sub)
     m, n = a.numel(), b.numel()
-    T, R, C = rb_shape(n, T, R, C)
+    T, R, C = rb_shape(n, T, R, C, mode, 0 if sub is None else sub.shape[0])
     if n > (1 << 31) - 1 - T * R:
         raise ValueError(f"n={n} rows overflow int32")
     dev = a.device
     i32 = torch.int32
     a, b = a.contiguous(), b.contiguous()
+    sub = None if sub is None else sub.contiguous()
     stripes = -(-n // (T * R))
     sync = torch.zeros(stripes + 1, dtype=i32, device=dev)
     bnd = torch.empty(max(stripes - 1, 1) * (m + 1), dtype=i32, device=dev)
+    # the F rows handed between stripes; the linear table entry takes null
+    bnd_f = torch.empty_like(bnd) if scoring.is_affine else None
+    bnds = [bnd.data_ptr()] + ([_ptr(bnd_f)] if mode != "linear" else [])
     best = torch.empty((stripes, 4), dtype=i32, device=dev)
     right = torch.zeros(n + 1, dtype=i32, device=dev)
-    _call(RB_KERNEL, dev, [a.data_ptr(), b.data_ptr(), m, n, scoring.match,
-                           scoring.mismatch, scoring.gap, T, R, C,
-                           sync.data_ptr(), bnd.data_ptr(), best.data_ptr(),
-                           right.data_ptr()])
+    _call(RB_KERNELS[mode], dev,
+          [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T, R, C,
+           sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr()])
     return StripeOut(_reduce(best, right, n), right, None)
 
 

@@ -197,7 +197,7 @@ def test_banded_kernel_names():
         assert sf.kernel_name(sc, S, True, True) == \
             f"sw_stripe_fill_p_{mode}[band]"
         assert sf.block_kernel_name(sc, S) == f"sw_stripe_block_{mode}"
-    assert len(sf.launches) == 17 and sf.WALK_KERNEL in sf.launches
+    assert len(sf.launches) == 19 and sf.WALK_KERNEL in sf.launches
 
 
 def test_cli_band_on_cpu():

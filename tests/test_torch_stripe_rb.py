@@ -1,48 +1,62 @@
-"""The register-blocked single-pair stripe (K1 on the card) against the JAX
-package, on the CPU.
+"""The register-blocked single-pair stripe (K1-K3 on the card) against the
+JAX package, on the CPU.
 
 The CUDA kernel ``stripe_rb_kernel`` (``swtpu_torch/csrc/stripe_rb.cu``)
 runs only on a card. Here a pure-Python model of its schedule walks the
 stripes in ticket order and, within a stripe, the threads, their R rows,
 the C columns of a step and the steps exactly as the kernel indexes them:
 thread k owns rows s*T*R + k*R + 1 .. + R and visits the tile of columns
-(t - k)*C + 1 .. + C at step t; UP comes from thread k - 1 of the step
-before (a shuffle in a warp, the last lane's shared slot across warps,
-the boundary chunk for thread 0); warp 0 stages the query ring and the
-boundary row by chunks of 32 columns, waiting only for columns the
-stripe above publishes; the last warp stores its row by chunks; the
-block takes the smallest row holding its max and ``stripe_fill._reduce``
-the first stripe holding the global max. The model's answer and right
-column must equal the port's plain version ``stripe_score_plain``, the
-JAX package's ``stripe_score_fn`` (its Pallas kernel in interpret mode)
-and its numpy oracle. Tolerance: exact equality (integer DP). The ``gpu``
-tests hold the kernel against its plain version on a card and skip
-elsewhere."""
+(t - k)*C + 1 .. + C at step t; UP (and, affine, F) comes from thread
+k - 1 of the step before (a shuffle in a warp, the last lane's shared
+slot across warps, the boundary chunk for thread 0); E runs along each
+row in its register; warp 0 stages the query ring and the boundary row
+(and F's) by chunks of 32 columns, waiting only for columns the stripe
+above publishes; the last warp stores its row (and F's) by chunks; with
+a table each thread reads its own column of the int4 profile, a
+sentinel row at q = min(A, 128) and kNegSub in the rows of sentinel or
+pad codes; the block takes the smallest row holding its max and
+``stripe_fill._reduce`` the first stripe holding the global max. The
+model's answer and right column must equal the port's plain version
+``stripe_score_plain``, the JAX package's ``stripe_score_fn`` (its Pallas
+kernel in interpret mode) and its numpy oracle (given sentinel codes as
+rows and columns of kNegSub in the table it indexes). Tolerance: exact
+equality (integer DP). The ``gpu`` tests hold each kernel against its
+plain version on a card and skip elsewhere."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from swtpu import Scoring as JaxScoring
 from swtpu.core import oracle
 from swtpu.core.encode import random_pair
 from swtpu.kernels.pallas_fill import stripe_score_fn
 import swtpu_torch
 from swtpu_torch import Scoring
+from swtpu_torch.core.substitution import BLOSUM62
 from swtpu_torch.kernels import stripe_fill as sf
 
 KPUBLISH, KAHEAD, KRING = 32, 64, 8192     # the kernel's constants
+KMAXSYM = 128
+NEG, NEG_SUB = -(1 << 30), -(1 << 20)
 LINEAR = Scoring()
+DNA_AFFINE = Scoring(mode="affine")                       # 3/-3, -4/-1
+PROTEIN = Scoring(mode="affine", gap_open=-11, gap_extend=-1)
+PROTEIN_LINEAR = Scoring(gap=-6)
 
 
 def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
-             C: int) -> tuple:
+             C: int, table: np.ndarray = None) -> tuple:
     """The kernel's schedule in Python: ((4,) best, (n+1,) right) as the
-    wrapper returns them."""
+    wrapper returns them. ``table``: the (A, A) S[a_code, b_code] of the
+    substitution form."""
     m, n = len(a), len(b)
+    affine = sc.is_affine
     k_steps = KPUBLISH // C
     S = -(-n // (T * R))
     bnd = {}                      # (stripe, column): H of its last row
+    bnd_f = {}                    # and F, affine
     released = [set() for _ in range(S)]
     right = [0] * (n + 1)
     stripe_best = []
@@ -52,32 +66,53 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
         first = [s * T * R + k * R for k in range(T)]
         code = [[int(b[first[k] + r]) & 0xff if first[k] + r < n else 0x100
                  for r in range(R)] for k in range(T)]
+        prof, rows = None, 0
+        if table is not None:             # each thread's profile column
+            A = table.shape[0]
+            rows = min(A, KMAXSYM)
+            prof = [None] * ((rows + 1) * (R // 4) * T)
+            for k in range(T):
+                cb = [int(b[first[k] + r]) if first[k] + r < n else -1
+                      for r in range(R)]
+                for q in range(rows + 1):
+                    for r4 in range(R // 4):
+                        prof[(q * (R // 4) + r4) * T + k] = tuple(
+                            int(table[q, cb[4 * r4 + x]])
+                            if q < rows and cb[4 * r4 + x] >= 0 else NEG_SUB
+                            for x in range(4))
         publish = (s + 1) * T * R < n
         ring = {c: c for c in range(min(KAHEAD, m))}   # slot -> column held
         a_next = [KAHEAD + x for x in range(32)]       # warp 0's register
 
         def fetch(lo):
-            """A chunk from column lo, after waiting for the progress of
-            the stripe above to reach its end: a column it releases."""
+            """A chunk from column lo (H's and F's), after waiting for the
+            progress of the stripe above to reach its end: a column it
+            releases."""
             want = min(lo + KPUBLISH - 1, m)
             assert want % KPUBLISH == 0 or want == m
             assert want in released[s - 1]
-            return [bnd[s - 1, lo + x] if lo + x <= m else 0
-                    for x in range(32)]
+            return ([bnd[s - 1, lo + x] if lo + x <= m else 0
+                     for x in range(32)],
+                    [bnd_f[s - 1, lo + x] if affine and lo + x <= m else NEG
+                     for x in range(32)])
 
-        cur = nxt = [0] * 32
+        cur = nxt = ([0] * 32, [NEG] * 32)
         if s > 0:
             cur = fetch(1)
             if m > KPUBLISH:
                 nxt = fetch(KPUBLISH + 1)
         H = [[0] * R for _ in range(T)]
+        E = [[NEG] * R for _ in range(T)]
         best = [[0] * R for _ in range(T)]
         best_j = [[0] * R for _ in range(T)]
         Bv = [[0] * C for _ in range(T)]
+        BFv = [[NEG] * C for _ in range(T)]
         u_last = [0] * T
         s_edge = [[[0] * C for _ in range(T // 32)] for _ in range(2)]
-        s_bnd = [[0] * 32, [0] * 32]
+        s_fedge = [[[NEG] * C for _ in range(T // 32)] for _ in range(2)]
+        s_bnd = [([0] * 32, [NEG] * 32), ([0] * 32, [NEG] * 32)]
         s_pub = [0] * 32
+        s_pubf = [NEG] * 32
         flushed = 0
         for t in range(steps):
             if t % k_steps == 0:              # warp 0: thread 0 starts a chunk
@@ -93,19 +128,23 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                         cur = nxt
                         if c0 + KPUBLISH + 1 <= m:
                             nxt = fetch(c0 + KPUBLISH + 1)
-                    s_bnd[(t // k_steps) & 1] = list(cur)
-            U = []
+                    s_bnd[(t // k_steps) & 1] = (list(cur[0]), list(cur[1]))
+            U, UF = [], []
             for k in range(T):
                 lane, warp = k % 32, k // 32
                 if lane:
-                    U.append(list(Bv[k - 1]))      # the shuffle
+                    U.append(list(Bv[k - 1]))      # the shuffles
+                    UF.append(list(BFv[k - 1]))
                 elif k:
                     U.append(list(s_edge[(t + 1) & 1][warp - 1]))
+                    UF.append(list(s_fedge[(t + 1) & 1][warp - 1]))
                 elif s:
-                    U.append([s_bnd[(t // k_steps) & 1][(t * C + c) % 32]
-                              for c in range(C)])
+                    slot = s_bnd[(t // k_steps) & 1]
+                    U.append([slot[0][(t * C + c) % 32] for c in range(C)])
+                    UF.append([slot[1][(t * C + c) % 32] for c in range(C)])
                 else:
                     U.append([0] * C)              # the zero row
+                    UF.append([NEG] * C)
             for k in range(T):
                 q = t - k
                 j0 = q * C + 1
@@ -115,17 +154,31 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                 for c in range(nc):
                     col = q * C + c
                     assert ring[col % KRING] == col    # staged, not evicted
-                    aj = int(a[col]) & 0xff
+                    aj = int(a[col]) & 0xff            # the ring's byte
                     diag = u_last[k] if c == 0 else U[k][c - 1]
-                    up = U[k][c]
+                    up, f = U[k][c], UF[k][c]
+                    if prof is not None:               # the profile column
+                        p = min(aj, rows) * (R // 4) * T + k
+                        score = [prof[p + (r // 4) * T][r % 4]
+                                 for r in range(R)]
+                    else:
+                        score = [sc.match if aj == code[k][r]
+                                 else sc.mismatch for r in range(R)]
                     for r in range(R):
                         left = H[k][r]
-                        sub = sc.match if aj == code[k][r] else sc.mismatch
-                        h = max(diag + sub, left + sc.gap, up + sc.gap, 0)
+                        if affine:
+                            E[k][r] = max(E[k][r] + sc.gap_extend,
+                                          left + sc.gap_open)
+                            f = max(f + sc.gap_extend, up + sc.gap_open)
+                            h = max(diag + score[r], E[k][r], f, 0)
+                        else:
+                            h = max(diag + score[r], left + sc.gap,
+                                    up + sc.gap, 0)
                         if h > best[k][r]:
                             best[k][r], best_j[k][r] = h, j0 + c
                         diag, up, H[k][r] = left, h, h
                     Bv[k][c] = H[k][R - 1]
+                    BFv[k][c] = f
                 if j0 + C - 1 >= m:               # the tile holding column m
                     for r in range(R):
                         if first[k] + r < n:
@@ -133,6 +186,7 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                 if publish and k == T - 1:
                     for c in range(nc):
                         s_pub[(j0 - 1 + c) % 32] = Bv[k][c]
+                        s_pubf[(j0 - 1 + c) % 32] = BFv[k][c]
             if publish:
                 if flushed:
                     released[s].add(flushed)
@@ -146,11 +200,13 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                         if col <= jl:
                             assert (s, col) not in bnd
                             bnd[s, col] = s_pub[x]
+                            bnd_f[s, col] = s_pubf[x]
                     flushed = jl
             for k in range(T):
                 u_last[k] = U[k][C - 1]
             for w in range(T // 32):
                 s_edge[t & 1][w] = list(Bv[32 * w + 31])
+                s_fedge[t & 1][w] = list(BFv[32 * w + 31])
         if flushed:
             released[s].add(flushed)
         if publish:
@@ -211,16 +267,136 @@ def test_rb_model_matches_plain_and_jax(case):
     np.testing.assert_array_equal(right, ref.H[:, m])
 
 
+def _protein(m, n, seed, letters=21):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, letters, m).astype(np.int8),
+            rng.integers(0, letters, n).astype(np.int8))
+
+
+def _sentinels(pair, seed):
+    """The pair with a shared segment planted, sentinel codes -1, -2, -3
+    in a and in b, and a -1 in both at one aligned spot of the segment
+    (N against N)."""
+    a, b = (x.copy() for x in pair)
+    rng = np.random.default_rng(seed)
+    L = min(len(a), len(b)) // 2
+    i0, j0 = len(b) // 3, len(a) // 4
+    b[i0:i0 + L] = a[j0:j0 + L]
+    a[j0 + L // 2] = b[i0 + L // 2] = -1
+    a[rng.choice(len(a), 3, replace=False)] = [-1, -2, -3]
+    b[rng.choice(len(b), 3, replace=False)] = [-3, -2, -1]
+    return a, b
+
+
+def _gapped(letters, seed):
+    """a, and b holding a's segments with 15-row insertions across rows
+    128 | 129 and 256 | 257: at T = 64, R = 4 the best path's vertical
+    gaps (F chains) cross a warp and a stripe."""
+    rng = np.random.default_rng(seed)
+
+    def junk(k):
+        return rng.integers(0, letters, k).astype(np.int8)
+
+    a = junk(200)
+    b = np.concatenate([junk(80), a[:40], junk(15), a[40:154], junk(15),
+                        a[154:], junk(100)])
+    assert b[120:135].size == 15 and b[249:264].size == 15
+    return a, b
+
+
+# (pair, scoring, table, T, R, C) of the affine (K2) and table (K3) forms:
+# n < 32, m = 1, m = 33, n past one stripe and not a multiple of T*R,
+# two warps a block, sentinels in both (and N against N), ties, each tile
+GOTOH_CASES = {
+    "dna_affine_n_below_32": (lambda: random_pair(40, 20, seed=21),
+                              DNA_AFFINE, None, 32, 4, 4),
+    "dna_affine_m_is_1": (lambda: random_pair(1, 70, seed=22), DNA_AFFINE,
+                          None, 32, 8, 2),
+    "dna_affine_three_stripes_ragged": (lambda: random_pair(100, 300,
+                                                            seed=23),
+                                        DNA_AFFINE, None, 32, 4, 4),
+    "dna_affine_m_33_two_warps": (lambda: random_pair(33, 600, seed=24),
+                                  DNA_AFFINE, None, 64, 8, 2),
+    "dna_affine_sentinels_n_vs_n": (
+        lambda: _sentinels(random_pair(90, 260, seed=25), 25), DNA_AFFINE,
+        None, 32, 8, 4),
+    "dna_affine_ties": (lambda: _two_letter(90, 260, seed=26), DNA_AFFINE,
+                        None, 32, 4, 4),
+    "dna_affine_gaps_across_warps_and_stripes": (lambda: _gapped(4, 35),
+                                                 DNA_AFFINE, None, 64, 4, 4),
+    "blosum62_affine_gaps_across_warps_and_stripes": (
+        lambda: _gapped(20, 36), PROTEIN, BLOSUM62, 64, 4, 4),
+    "blosum62_affine": (lambda: _protein(75, 300, 27), PROTEIN, BLOSUM62,
+                        32, 8, 4),
+    "blosum62_affine_sentinels": (
+        lambda: _sentinels(_protein(60, 280, 28), 28), PROTEIN, BLOSUM62, 32,
+        4, 4),
+    "blosum62_affine_m_33_two_warps": (lambda: _protein(33, 700, 29),
+                                       PROTEIN, BLOSUM62, 64, 4, 4),
+    "blosum62_affine_m_is_1": (lambda: _protein(1, 70, 30), PROTEIN,
+                               BLOSUM62, 32, 8, 2),
+    "blosum62_affine_ties": (lambda: _two_letter(70, 200, seed=31), PROTEIN,
+                             BLOSUM62, 32, 8, 2),
+    "blosum62_linear": (lambda: _protein(97, 300, 32), PROTEIN_LINEAR,
+                        BLOSUM62, 32, 8, 2),
+    "blosum62_linear_sentinels_n_below_32": (
+        lambda: _sentinels(_protein(50, 24, 33), 33), PROTEIN_LINEAR,
+        BLOSUM62, 32, 8, 4),
+    "blosum62_linear_three_stripes": (lambda: _protein(40, 270, 34),
+                                      PROTEIN_LINEAR, BLOSUM62, 32, 4, 4),
+}
+
+
+def _jax_scoring(sc: Scoring) -> JaxScoring:
+    return JaxScoring(match=sc.match, mismatch=sc.mismatch, gap=sc.gap,
+                      gap_open=sc.gap_open, gap_extend=sc.gap_extend,
+                      mode=sc.mode)
+
+
+def _oracle_table(S: np.ndarray) -> np.ndarray:
+    """S with three rows and columns of kNegSub after it: the numpy
+    oracle indexes it with the raw codes, so -1, -2 and -3 read them."""
+    A = S.shape[0]
+    out = np.full((A + 3, A + 3), NEG_SUB, np.int32)
+    out[:A, :A] = S
+    return out
+
+
+@pytest.mark.parametrize("case", list(GOTOH_CASES))
+def test_rb_gotoh_model_matches_plain_and_jax(case):
+    pair, sc, S, T, R, C = GOTOH_CASES[case]
+    a, b = pair()
+    m, n = len(a), len(b)
+    got, right = rb_model(a, b, sc, T, R, C, S)
+    plain = sf.stripe_score_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                  sc, None if S is None
+                                  else torch.from_numpy(S))
+    assert got == plain.best.tolist()
+    assert right == plain.right_col.tolist()
+    fn = stripe_score_fn(m, n, _jax_scoring(sc), T=128, C=128,
+                         want_last=True, substitution=S)
+    assert got == [int(v) for v in fn(jnp.asarray(a), jnp.asarray(b))]
+    ref = oracle.fill(a, b, _jax_scoring(sc),
+                      None if S is None else _oracle_table(S))
+    assert got == [ref.max_score, *ref.max_ij, int(ref.H[n, m])]
+    np.testing.assert_array_equal(right, ref.H[:, m])
+    assert got[0] > 0
+
+
 # ---- the route and the shape, as pure Python ----
 
 def test_rb_takes_linear_unbanded_match_mismatch_only():
-    assert sf.rb_takes(Scoring(), None, None)
-    assert sf.rb_takes(Scoring(match=2, mismatch=-1, gap=-3), None, None)
-    assert not sf.rb_takes(Scoring(), None, 8)
-    assert not sf.rb_takes(Scoring(), None, 0)
-    assert not sf.rb_takes(Scoring(mode="affine"), None, None)
+    """Every unbanded scoring takes the register-blocked route: K1 for
+    linear match/mismatch, K2 affine, K3 a table (both gap models); a
+    band takes the template's K4b."""
     table = torch.zeros((4, 4), dtype=torch.int32)
-    assert not sf.rb_takes(Scoring(), table, None)
+    for sc, sub in ((Scoring(), None),
+                    (Scoring(match=2, mismatch=-1, gap=-3), None),
+                    (DNA_AFFINE, None), (Scoring(), table),
+                    (PROTEIN, table)):
+        assert sf.rb_takes(sc, sub, None)
+        for band in (0, 8):
+            assert not sf.rb_takes(sc, sub, band)
 
 
 def test_score_kernel_names_follow_the_route():
@@ -228,10 +404,14 @@ def test_score_kernel_names_follow_the_route():
     assert sf.score_kernel_name(Scoring(), None) == sf.RB_KERNEL
     assert sf.score_kernel_name(Scoring(), None, True) == \
         "sw_stripe_score_linear[band]"
-    assert sf.score_kernel_name(Scoring(mode="affine"), None) == \
-        sf.SCORE_AFFINE_KERNEL
-    assert sf.score_kernel_name(Scoring(), table) == sf.SCORE_SUB_KERNEL
-    assert sf.RB_KERNEL in sf.launches
+    assert sf.score_kernel_name(DNA_AFFINE, None) == sf.RB_AFFINE_KERNEL
+    assert sf.score_kernel_name(DNA_AFFINE, None, True) == \
+        sf.SCORE_AFFINE_KERNEL + sf.BAND_SUFFIX
+    assert sf.score_kernel_name(Scoring(), table) == sf.RB_SUB_KERNEL
+    assert sf.score_kernel_name(PROTEIN, table) == sf.RB_SUB_KERNEL
+    assert sf.score_kernel_name(PROTEIN, table, True) == \
+        sf.SCORE_SUB_KERNEL + sf.BAND_SUFFIX
+    assert set(sf.RB_KERNELS.values()) <= set(sf.launches)
 
 
 def test_rb_shape_clamps_threads_to_the_rows():
@@ -286,11 +466,86 @@ def test_stripe_rows_counts_threads_on_the_rb_route(stripe_rows, monkeypatch):
                      sf.RB_COLS)]
 
 
+def test_rb_shape_of_each_form():
+    for mode in ("linear", "affine", "sub"):
+        T, R, C = sf.RB_DEFAULTS[mode]
+        assert (R, C) in sf.RB_FORM_TILES[mode]
+        assert sf.rb_shape(25632, mode=mode, A=21) == (T, R, C)
+        for R, C in sf.RB_FORM_TILES[mode]:
+            assert sf.rb_shape(40, None, R, C, mode, 21) == (32, R, C)
+    for mode in ("affine", "sub"):
+        for R, C in ((16, 4), (8, 1), (8, 8), (5, 4)):
+            with pytest.raises(ValueError, match="tiles"):
+                sf.rb_shape(1000, None, R, C, mode, 21)
+        with pytest.raises(ValueError, match="multiple of 32"):
+            sf.rb_shape(1000, 544, mode=mode, A=21)
+    # a table's profile, (min(A, 128) + 1) * R * T int32, caps T
+    for A, R, want in ((21, 8, 288), (21, 4, 512), (127, 8, 32)):
+        T, _, _ = sf.rb_shape(10 ** 6, 512, R, 4, "sub", A)
+        assert T == want
+        assert (min(A, sf.RB_MAX_SYMBOLS) + 1) * R * T * 4 <= \
+            sf.RB_PROFILE_BYTES
+    assert sf.rb_shape(10 ** 6, 512, 8, 4, "affine") == (512, 8, 4)
+
+
+# (scoring, table) of each form; the C entry's arguments as _launch_rb
+# lays them out: its scoring, then T, R, C, sync, bnd, [bnd_f,] best, right
+FORMS = {"linear": (LINEAR, None), "affine": (DNA_AFFINE, None),
+         "sub_affine": (PROTEIN, BLOSUM62),
+         "sub_linear": (PROTEIN_LINEAR, BLOSUM62)}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_score_launches_the_form_entry(form, monkeypatch):
+    """stripe_score on a card (the launch recorded instead of run): an
+    unbanded call launches the form's register-blocked entry with the
+    arguments its ctypes signature declares, at rb_shape's (T, R, C); a
+    banded one the template's K4b."""
+    from swtpu_torch.kernels import _cuda
+    sc, S = FORMS[form]
+    a, b = (_protein(70, 900, 40) if S is not None
+            else random_pair(70, 900, seed=40))
+    St = None if S is None else torch.from_numpy(S)
+    seen = []
+    monkeypatch.setattr(sf, "_route", lambda *args, **kw: "cuda")
+    monkeypatch.setattr(sf, "_call",
+                        lambda name, dev, args, *rest: seen.append(
+                            (name, rest[0] if rest else name, args)))
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    sf.stripe_score(at, bt, sc, substitution=St)
+    sf.stripe_score(at, bt, sc, substitution=St, band=8)
+    (name, _, args), (_, band_counter, _) = seen
+    mode = sf._mode(sc, St)
+    assert name == sf.RB_KERNELS[mode] == sf.score_kernel_name(sc, St)
+    assert band_counter == sf.score_kernel_name(sc, St, True)
+    assert len(args) + 1 == len(_cuda.ARGTYPES[name])        # + the stream
+    shape = sf.rb_shape(900, mode=mode, A=21)
+    tail = 4 if mode == "linear" else 5      # sync, bnd, [bnd_f,] best, right
+    assert tuple(args[-tail - 3:-tail]) == shape
+    if mode != "linear":
+        assert (args[-3] is not None) == sc.is_affine           # bnd_f
+
+
 def test_cpu_score_runs_the_plain_version():
     a, b = random_pair(50, 90, seed=12)
     sf.reset_counts()
     out = sf.stripe_score(torch.from_numpy(a), torch.from_numpy(b))
     assert out.best.tolist() == rb_model(a, b, LINEAR, 32, 4, 4)[0]
+    assert sf.plain_calls["stripe_score_plain"] == 1
+    assert not any(sf.launches.values())
+
+
+@pytest.mark.parametrize("case", ["dna_affine_ties",
+                                  "blosum62_affine_sentinels",
+                                  "blosum62_linear"])
+def test_cpu_score_runs_the_plain_version_each_form(case):
+    pair, sc, S, T, R, C = GOTOH_CASES[case]
+    a, b = pair()
+    sf.reset_counts()
+    out = sf.stripe_score(torch.from_numpy(a), torch.from_numpy(b), sc,
+                          substitution=None if S is None
+                          else torch.from_numpy(S))
+    assert out.best.tolist() == rb_model(a, b, sc, T, R, C, S)[0]
     assert sf.plain_calls["stripe_score_plain"] == 1
     assert not any(sf.launches.values())
 
@@ -316,6 +571,42 @@ def test_rb_kernel_matches_plain_on_card(card, case):
         torch.cuda.synchronize()
         assert torch.equal(got.best, plain.best), shape
         assert torch.equal(got.right_col, plain.right_col), shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GOTOH_CASES))
+def test_rb_gotoh_kernel_matches_plain_on_card(card, case):
+    pair, sc, S, T, R, C = GOTOH_CASES[case]
+    a, b = pair()
+    at, bt = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    St = None if S is None else torch.from_numpy(S).to(card)
+    plain = sf.stripe_score_plain(at, bt, sc, St)
+    mode = sf._mode(sc, St)
+    for shape in ((T, R, C), (None, None, None),
+                  *((256, R_, C_) for R_, C_ in sf.RB_FORM_TILES[mode])):
+        got = sf._launch_rb(at, bt, sc, *shape, sub=St)
+        torch.cuda.synchronize()
+        assert torch.equal(got.best, plain.best), shape
+        assert torch.equal(got.right_col, plain.right_col), shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["affine", "sub_affine", "sub_linear"])
+def test_score_routes_each_form_to_its_rb_kernel_on_card(card, form):
+    sc, S = FORMS[form]
+    a, b = (_protein(300, 2000, 41) if S is not None
+            else random_pair(300, 2000, seed=41))
+    at, bt = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    St = None if S is None else torch.from_numpy(S).to(card)
+    sf.reset_counts()
+    got = sf.stripe_score(at, bt, sc, substitution=St)
+    banded = sf.stripe_score(at, bt, sc, substitution=St, band=16)
+    assert torch.equal(got.best, sf.stripe_score_plain(at, bt, sc, St).best)
+    assert torch.equal(banded.best,
+                       sf.stripe_score_plain(at, bt, sc, St, band=16).best)
+    assert sf.launches[sf.score_kernel_name(sc, St)] == 1
+    assert sf.launches[sf.kernel_name(sc, St, False)] == 0
+    assert sf.launches[sf.kernel_name(sc, St, False, True)] == 1
 
 
 @pytest.mark.gpu

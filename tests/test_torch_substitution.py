@@ -223,11 +223,12 @@ def test_kernel_names_follow_the_scoring():
            "sw_stripe_score_affine", "sw_stripe_fill_p_affine",
            "sw_stripe_score_sub", "sw_stripe_fill_p_sub"]
     # each counts its banded launches apart; then the block entries, the
-    # walk and the register-blocked K1
+    # walk and the register-blocked K1-K3
     assert sorted(sf.launches) == sorted(
         six + [k + "[band]" for k in six]
         + ["sw_stripe_block_linear", "sw_stripe_block_affine",
-           "sw_stripe_block_sub", "sw_walk_p", "sw_stripe_rb_linear"])
+           "sw_stripe_block_sub", "sw_walk_p", "sw_stripe_rb_linear",
+           "sw_stripe_rb_affine", "sw_stripe_rb_sub"])
 
 
 def test_substitution_gates_take_only_negative_gaps():
@@ -545,14 +546,20 @@ def test_new_kernels_match_plain_on_card(cuda, kind, m, n, T):
     plain_f = sf.stripe_fill_plain(a, b, sc, S)
     sf.reset_counts()
     for _ in range(3):          # ordering races show as run-to-run changes
-        got_s = sf.stripe_score(a, b, sc, T=T, substitution=S)
+        # score-only runs the register-blocked K2/K3 (at most RB_MAX_THREADS
+        # threads); the template's K2/K3 at T through the private launcher
+        got_s = sf.stripe_score(a, b, sc, T=min(T, sf.RB_MAX_THREADS),
+                                substitution=S)
+        got_t = sf._launch(a, b, sc, T, S, False, None)
         got_f = sf.stripe_fill(a, b, sc, T=T, substitution=S)
         torch.cuda.synchronize()
-        assert torch.equal(got_s.best, plain_s.best)
-        assert torch.equal(got_s.right_col, plain_s.right_col)
+        for got in (got_s, got_t):
+            assert torch.equal(got.best, plain_s.best)
+            assert torch.equal(got.right_col, plain_s.right_col)
         assert torch.equal(got_f.best, plain_s.best)
         assert torch.equal(got_f.right_col, plain_s.right_col)
         assert torch.equal(got_f.P, plain_f.P)
+    assert sf.launches[sf.score_kernel_name(sc, S)] == 3
     assert sf.launches[sf.kernel_name(sc, S, False)] == 3
     assert sf.launches[sf.kernel_name(sc, S, True)] == 3
     assert not any(sf.plain_calls.values())
