@@ -23,13 +23,17 @@ records, and ``python -m swtpu_torch map`` on 256 of those reads), and the
 sanitize path (``swtpu_torch.sanitize`` at 4096^2 and
 ``sanitize_pairs_packed`` on 16 pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Four kernels have a second,
+4096 4096 --skip-backtrack --sanitize``). Six kernels have a second,
 earlier design beside them: unbanded score-only runs the register-blocked
-K1, K2 and K3 (``csrc/stripe_rb.cu``) and the search's window scorer the
-warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1-K3 and K6, the
-stripe template's, are held to their plain versions and timed in turns
-with the new ones in the same run (they launch on no path, bar K6 for
-reads longer than 512 rows), and K1-K3 are swept over their (T, R, C). Each
+K1, K2 and K3 (``csrc/stripe_rb.cu``), unbanded P capture its K4
+(``csrc/stripe_rb_p.cu``, a row's codes of a tile stored as words), every
+block fill its K5 (``csrc/stripe_rb_block.cu``), and the search's window
+scorer the warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1-K6,
+the stripe template's, are held to their plain versions and timed in
+turns with the new ones in the same run (they launch on no path, bar K6
+for reads longer than 512 rows, and K4 with a band), K4 into guarded
+buffers (no byte off P written), and K1-K5 are swept over their (T, R,
+C). Each
 phase prints one line; any failure raises, so the exit code is not 0. The
 line before the last is a JSON object describing each kernel of the paths
 (launches in the paths' runs, exactness, kernel and plain times, and the
@@ -114,6 +118,10 @@ ORIGIN = {
            "swtpu/kernels/pallas_fill.py:1249"),       # stripe_score_fn
     "rb_gotoh": (CSRC + "stripe_rb.cu",
                  "swtpu/kernels/pallas_fill.py:1008"),  # _stripe_call
+    "rb_p": (CSRC + "stripe_rb_p.cu",
+             "swtpu/kernels/pallas_fill.py:1190"),     # stripe_fill, return_p
+    "rb_block": (CSRC + "stripe_rb_block.cu",
+                 "swtpu/kernels/pallas_fill.py:1466"),  # stripe_block_fn
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -160,6 +168,8 @@ def origin(name: str) -> tuple:
             else "warp" if name.startswith("sw_window_warp_")
             else "rb" if name == sf.RB_KERNEL
             else "rb_gotoh" if name in sf.RB_KERNELS.values()
+            else "rb_p" if name in sf.RB_P_KERNELS.values()
+            else "rb_block" if name in sf.RB_BLOCK_KERNELS.values()
             else "pairs" if name.startswith("sw_pairs_")
             else "packed" if name.startswith("sw_packed_")
             else "window" if name.startswith("sw_window_")
@@ -333,20 +343,22 @@ def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
     kPacked, kWindow, kDebugH>, the walk, the warp-per-read K6 <R, kAffine,
-    kSub> and the register-blocked K1-K3 <R, C, kAffine, kSub>."""
+    kSub> and the register-blocked K1-K5 <R, C, kAffine, kSub, kP,
+    kBlock> (rb_ K1-K3, rb_p_ K4, rb_block_ K5)."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
         warp = re.search(r"window_warp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
-        rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
-                       ln)
+        rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E"
+                       r"Lb(\d)ELb(\d)E", ln)
         if "Compiling entry function" in ln and warp:
             R, aff, sub = (int(v) for v in warp.groups())
             name = (f"warp_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}")
         elif "Compiling entry function" in ln and rb:
-            R, C, aff, sub = (int(v) for v in rb.groups())
-            name = (f"rb_{'sub_' if sub else ''}"
+            R, C, aff, sub, p, blk = (int(v) for v in rb.groups())
+            kind = "p_" if p else "block_" if blk else ""
+            name = (f"rb_{kind}{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}_C{C}")
         elif "Compiling entry function" in ln and got:
             p, aff, sub, band, blk, pairs, packed, window, debug = (
@@ -401,8 +413,11 @@ def _small_cases() -> list:
     ]
 
 
-# the template's unbanded score entries, the earlier K1-K3: on no path
+# the template's unbanded score, fill_p and block entries, the earlier
+# K1-K5: on no path
 EARLIER_SCORE = (sf.SCORE_KERNEL, sf.SCORE_AFFINE_KERNEL, sf.SCORE_SUB_KERNEL)
+EARLIER = (*EARLIER_SCORE, sf.FILL_P_KERNEL, sf.FILL_P_AFFINE_KERNEL,
+           sf.FILL_P_SUB_KERNEL, *sf.BLOCK_KERNELS.values())
 # kernel mode -> (template score kernel, fill_p kernel, scorings, table)
 MODES = {
     "linear": (sf.SCORE_KERNEL, sf.FILL_P_KERNEL, [SCORING], None),
@@ -425,12 +440,45 @@ def ab_ms(new, old, reps: int = 3) -> tuple:
     return min(n1, n2), min(o1, o2), kn, ko
 
 
+def guarded_p(n: int, m: int, dev) -> tuple:
+    """(P, buffer, mask of P's cells): K4's (n+1, m+1) P in the layout of
+    ``sf.p_matrix`` inside a buffer of GUARD bytes with 64 before and
+    after it; every byte off P's cells must keep GUARD."""
+    pitch = -(-(m + 1) // sf.P_PITCH_ALIGN) * sf.P_PITCH_ALIGN
+    base = 64 + 3
+    buf = torch.full((base + (n + 1) * pitch + 64,), GUARD,
+                     dtype=torch.int8, device=dev)
+    cells = torch.zeros(buf.shape, dtype=torch.bool, device=dev)
+    cells[base:base + (n + 1) * pitch].view(n + 1, pitch)[:, :m + 1] = True
+    return (buf[base:base + (n + 1) * pitch].view(n + 1, pitch)[:, :m + 1],
+            buf, cells)
+
+
+def rb_p_vs_plain(at, bt, sc: Scoring, sub, pf, shapes) -> int:
+    """The register-blocked K4 at each (T, R, C) of ``shapes``, into a
+    guarded P, against the plain version ``pf``: best, right column and P
+    bit-equal, no byte off P's cells written. Returns the max error."""
+    e = 0
+    for shape in shapes:
+        P, buf, cells = guarded_p(bt.numel(), at.numel(), at.device)
+        k = sf._launch_rb_p(at, bt, sc, *shape, sub=sub, P=P)
+        torch.cuda.synchronize()
+        e = max(e, diff(k.best, pf.best), diff(k.right_col, pf.right_col),
+                diff(k.P, pf.P))
+        require(e == 0 and bool((buf[~cells] == GUARD).all()),
+                f"{sf.fill_kernel_name(sc, sub)} (T, R, C) = {shape}: "
+                "kernel != plain or a guard byte written")
+    return e
+
+
 def kernels_vs_plain(dev) -> dict:
     """Each kernel against its plain version; returns per-kernel records.
     Score-only runs its route, the register-blocked K1-K3 (at most
     RB_MAX_THREADS threads), also at each (T, R, C) of its form's
     RB_SHAPES, and the template's K1-K3 through the private launcher, the
-    earlier design."""
+    earlier design; fill_p likewise the register-blocked K4 (also at
+    RB_EXT_SHAPES into a guarded P, and swept over RB_EXT_SWEEP at the
+    full-P path's size) and the template's K4."""
     err = {k: 0 for k in sf.launches}
     table = on_card(BLOSUM62, dev=dev)[0]
     for label, a, b, T, reps, protein in _small_cases():
@@ -446,11 +494,12 @@ def kernels_vs_plain(dev) -> dict:
                 pf = sf.stripe_fill_plain(at, bt, sc, sub)
                 runs = []
                 route = sf.score_kernel_name(sc, S)
+                fill = sf.fill_kernel_name(sc, S)
                 T_rb = None if T is None else min(T, sf.RB_MAX_THREADS)
                 for _ in range(reps):
                     ks = sf.stripe_score(at, bt, sc, T=T_rb,
                                          substitution=sub)
-                    kf = sf.stripe_fill(at, bt, sc, T=T, substitution=sub)
+                    kf = sf.stripe_fill(at, bt, sc, T=T_rb, substitution=sub)
                     torch.cuda.synchronize()
                     e1 = max(diff(ks.best, ps.best),
                              diff(ks.right_col, ps.right_col))
@@ -458,17 +507,25 @@ def kernels_vs_plain(dev) -> dict:
                              diff(kf.right_col, pf.right_col),
                              diff(kf.P, pf.P))
                     err[route] = max(err[route], e1)
-                    err[kf_name] = max(err[kf_name], e4)
+                    err[fill] = max(err[fill], e4)
                     require(e1 == 0 and e4 == 0,
                             f"{label} {mode} {sc.mode}: kernel != plain")
                     runs.append((ks.best.tolist(), kf.P.sum().item()))
-                    if route != ks_name:      # the earlier K1-K3 too
-                        ko = sf._launch(at, bt, sc, T, sub, False, None)
-                        torch.cuda.synchronize()
-                        e = max(diff(ko.best, ps.best),
-                                diff(ko.right_col, ps.right_col))
-                        err[ks_name] = max(err[ks_name], e)
-                        require(e == 0, f"{label} {ks_name}: kernel != plain")
+                    # the earlier K1-K4, the template's, too
+                    ko = sf._launch(at, bt, sc, T, sub, False, None)
+                    kfo = sf._launch(at, bt, sc, T, sub, True, None)
+                    torch.cuda.synchronize()
+                    e = max(diff(ko.best, ps.best),
+                            diff(ko.right_col, ps.right_col))
+                    err[ks_name] = max(err[ks_name], e)
+                    e4 = max(diff(kfo.best, pf.best),
+                             diff(kfo.right_col, pf.right_col),
+                             diff(kfo.P, pf.P))
+                    err[kf_name] = max(err[kf_name], e4)
+                    require(e == 0 and e4 == 0,
+                            f"{label} {ks_name}/{kf_name}: kernel != plain")
+                err[fill] = max(err[fill], rb_p_vs_plain(
+                    at, bt, sc, sub, pf, RB_EXT_SHAPES))
                 for shape in RB_SHAPES[_rb_form(route)]:
                     k = sf._launch_rb(at, bt, sc, *shape, sub=sub)
                     torch.cuda.synchronize()
@@ -482,7 +539,8 @@ def kernels_vs_plain(dev) -> dict:
                 phase("kernels", f"{label} [{mode} {sc.mode}] m={len(a)} "
                       f"n={len(b)} T={T}: {ps.best.tolist()} equal x{reps}, "
                       f"{route} at {len(RB_SHAPES[_rb_form(route)])} "
-                      "(T, R, C) too")
+                      f"(T, R, C) too, {fill} at {len(RB_EXT_SHAPES)} "
+                      "(T, R, C), guard bytes untouched")
 
     # the main path's shapes: kernel min of 3 after a warm-up, plain once;
     # the register-blocked K1-K3 and the earlier K1-K3 in turns
@@ -522,22 +580,39 @@ def kernels_vs_plain(dev) -> dict:
               "column too")
         del at, bt, ks, ps, names
         at, bt = on_card(*make(ALIGN_N, ALIGN_N), dev=dev)
-        k_ms, kf = timed_ms(
-            lambda: sf.stripe_fill(at, bt, sc, substitution=sub), 3)
         p_ms, pf = timed_ms(
             lambda: sf.stripe_fill_plain(at, bt, sc, sub), 1)
-        e = max(diff(kf.best, pf.best), diff(kf.right_col, pf.right_col),
-                diff(kf.P, pf.P))
-        require(e == 0, f"{kf_name} != plain at the align size")
-        recs[kf_name] = dict(ms=k_ms, plain_ms=p_ms,
-                             max_abs_err=max(e, err[kf_name]),
-                             **bound(ALIGN_N ** 2,
-                                     OPS_PER_CELL[mode] + P_OPS[mode],
-                                     fill_bytes(ALIGN_N, ALIGN_N, S, True)))
-        phase("kernels", f"{kf_name} {ALIGN_N}^2 [{mode}]: "
-              f"{kf.best.tolist()} kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.1f} ms, P bit-equal")
-        del at, bt, kf, pf
+        # the register-blocked K4, into a P allocated outside the timed
+        # call, and the template's K4, in turns; then K4's sweep
+        fill = sf.fill_kernel_name(sc, S)
+        P = sf.p_matrix(ALIGN_N, ALIGN_N, dev)
+        f_ms, fo_ms, kf, kfo = ab_ms(
+            lambda: sf._launch_rb_p(at, bt, sc, None, sub=sub, P=P),
+            lambda: sf._launch(at, bt, sc, None, sub, True, None))
+        for name, ms, k in ((fill, f_ms, kf), (kf_name, fo_ms, kfo)):
+            e = max(diff(k.best, pf.best), diff(k.right_col, pf.right_col),
+                    diff(k.P, pf.P))
+            require(e == 0 and tuple(k.best.tolist())
+                    == KNOWN[mode, ALIGN_N, ALIGN_N],
+                    f"{name} != plain at the align size")
+            recs[name] = dict(ms=ms, plain_ms=p_ms,
+                              max_abs_err=max(e, err[name]),
+                              **bound(ALIGN_N ** 2,
+                                      OPS_PER_CELL[mode] + P_OPS[mode],
+                                      fill_bytes(ALIGN_N, ALIGN_N, S, True)))
+        del kfo
+        Q = sf.p_matrix(ALIGN_N, ALIGN_N, dev)
+        fill_sweep = ext_sweep(
+            fill, lambda T, R, C: sf._launch_rb_p(at, bt, sc, T, R, C,
+                                                  sub=sub, P=Q),
+            lambda x: diff(x.P, pf.P) == 0 and diff(x.best, pf.best) == 0)
+        phase("kernels", f"K4 {ALIGN_N}^2 [{mode}]: {pf.best.tolist()} "
+              f"{fill} {f_ms:.3f} ms, {kf_name} {fo_ms:.3f} ms (in turns, "
+              f"P allocated outside the timed call; {kf_name} allocates "
+              f"and clears its own), plain {p_ms:.1f} ms, P bit-equal; "
+              f"{fill_sweep}")
+        del P, Q, kf, k
+        del at, bt, pf
         torch.cuda.empty_cache()
     return recs
 
@@ -559,6 +634,14 @@ RB_SWEEP = {mode: [(T, R, C) for T in (64, 128, 256)
                    for R, C in sf.RB_FORM_TILES[mode]]
             for mode in sf.RB_FORM_TILES}
 RB_SWEEP_ROUNDS = 5
+# the register-blocked K4's and K5's (T, R, C) at the small shapes (512
+# threads: their R = 4 tile), and their sweeps at the path's sizes (K4 at
+# 16384^2 and the lean route's window, K5 at its 25632^2 reverse pass)
+RB_EXT_SHAPES = [(32, 8, 4), (32, 4, 4), (64, 8, 2), (256, 8, 4),
+                 (512, None, None), (None, None, None)]
+RB_EXT_SWEEP = [(T, R, C) for T in (64, 128, 256)
+                for R, C in sf.RB_EXT_TILES] + [(512, *sf.RB_WIDE_TILE)]
+GUARD = 0x5A              # the byte around a guarded P
 
 
 def _sentinel_pair(mode: str, m: int, n: int, seed: int) -> tuple:
@@ -750,14 +833,18 @@ def _bounds(m: int, n: int, seed: int, anchored: bool, dev) -> tuple:
 
 def block_vs_plain(dev) -> dict:
     """K5 at small shapes: every block entry against its plain version,
-    local and global, injected and anchored boundaries, T=32 (many
-    stripes, ragged n) and the default; returns max errors per entry."""
+    local and global, injected and anchored boundaries, the route (the
+    register-blocked K5) at T=32 (many stripes, ragged n), the default and
+    RB_EXT_SHAPES, the template's K5 at T=32 and its default; returns max
+    errors per entry."""
     table = on_card(BLOSUM62, dev=dev)[0]
-    err = dict.fromkeys(sf.BLOCK_KERNELS.values(), 0)
+    err = dict.fromkeys([*sf.BLOCK_KERNELS.values(),
+                         *sf.RB_BLOCK_KERNELS.values()], 0)
     for mode, (_, _, scorings, S) in MODES.items():
         sub = None if S is None else table
         for sc in scorings:
-            name = sf.block_kernel_name(sc, S)
+            name = sf.block_route_name(sc, S)
+            old = sf.block_kernel_name(sc, S)
             for m, n, seed in ((300, 32 * 30 + 7, 1), (2, 500, 2),
                                (1, 400, 4), (700, 1300, 3)):
                 at, bt = on_card(*_small_pair(mode, m, n, seed), dev=dev)
@@ -770,19 +857,32 @@ def block_vs_plain(dev) -> dict:
                         p = sf.stripe_block_plain(
                             at, bt, sc, top, left, tf, le, local=local,
                             substitution=sub, want_bottom=True)
-                        for T in (32, None):
-                            k = sf.stripe_block(
-                                at, bt, sc, top, left, tf, le, local=local,
-                                substitution=sub, want_bottom=True, T=T)
+                        bounds = sf._check_block(at, bt, sc, top, left, tf,
+                                                 le)
+                        runs = [(name, T, lambda T=T: sf.stripe_block(
+                            at, bt, sc, top, left, tf, le, local=local,
+                            substitution=sub, want_bottom=True, T=T))
+                            for T in (32, None)]
+                        runs += [(name, shape, lambda shape=shape:
+                                  sf._launch_rb_block(
+                                      at, bt, sc, shape[0], sub, *bounds,
+                                      local, True, R=shape[1], C=shape[2]))
+                                 for shape in RB_EXT_SHAPES]
+                        runs += [(old, T, lambda T=T: sf._launch_block(
+                            at, bt, sc, T, sub, *bounds, local, True))
+                            for T in (32, None)]
+                        for entry, shape, run in runs:
+                            k = run()
                             torch.cuda.synchronize()
                             e = max(diff(x, y) for x, y in zip(k, p)
                                     if x is not None or y is not None)
-                            err[name] = max(err[name], e)
-                            require(e == 0, f"{name} {sc.mode} m={m} n={n} "
+                            err[entry] = max(err[entry], e)
+                            require(e == 0, f"{entry} {sc.mode} m={m} n={n} "
                                     f"anchored={anchored} local={local} "
-                                    f"T={T}: kernel != plain")
+                                    f"{shape}: kernel != plain")
             phase("kernels", f"{name} [{mode} {sc.mode}] 4 shapes x "
-                  "injected/anchored x local/global x T=32/256: equal")
+                  "injected/anchored x local/global x T=32/default and "
+                  f"{len(RB_EXT_SHAPES)} (T, R, C); {old} T=32/256: equal")
     return err
 
 
@@ -813,7 +913,7 @@ def rows_vs_plain(dev) -> dict:
             top, left = sc.gap * np.arange(m + 1), sc.gap * np.arange(n + 1)
         at, bt, top, left = on_card(a, b[:n], top.astype(np.int32),
                                     left.astype(np.int32), dev=dev)
-        name = sf.block_kernel_name(sc, S)
+        name = sf.block_route_name(sc, S)
         kw = dict(local=False, substitution=sub, want_bottom=True)
         k_ms, k = timed_ms(lambda: sf.stripe_block(at, bt, sc, top, left,
                                                    **kw), 1)
@@ -843,23 +943,50 @@ def walk_vs_plain(dev) -> int:
         out = sf.stripe_fill(at, bt, sc, substitution=sub, T=32)
         _, i, j, _ = out.best.tolist()
         n, m = bt.numel(), at.numel()
-        for corner in ((i, j), (n, m), (0, 9), (n - 1, 3)):
-            k = sf.walk_p(out.P, *corner)
-            p = sf.walk_p_plain(out.P, *corner)
-            require(torch.equal(k, p), f"walk {mode} {corner}: kernel != "
-                    "plain")
+        # the route's P (rows padded) and a contiguous copy: the walk reads
+        # either in place
+        other = out.P.contiguous()
+        for P in (out.P, other):
+            for corner in ((i, j), (n, m), (0, 9), (n - 1, 3)):
+                k = sf.walk_p(P, *corner)
+                p = sf.walk_p_plain(P, *corner)
+                require(torch.equal(k, p), f"walk {mode} {corner}: kernel "
+                        "!= plain")
         phase("kernels", f"{sf.WALK_KERNEL} [{mode}] 4 corners of a "
-              f"900x800 P: equal ({len(sf.walk_p(out.P, i, j))} moves from "
-              "the max)")
+              f"900x800 P, rows of {out.P.stride(0)} and "
+              f"{other.stride(0)} bytes: equal "
+              f"({len(sf.walk_p(out.P, i, j))} moves from the max)")
     return 0
+
+
+def ext_sweep(name: str, launch, same) -> str:
+    """The register-blocked K4 or K5 entry ``name`` at RB_EXT_SWEEP's
+    (T, R, C), each point ``launch(T, R, C)`` checked bit-equal by
+    ``same`` and timed in RB_SWEEP_ROUNDS rounds over every point, the
+    min of its rounds kept; returns the phase line's part."""
+    for shape in RB_EXT_SWEEP:
+        require(same(launch(*shape)), f"{name} {shape}: sweep point differs")
+    best = dict.fromkeys(RB_EXT_SWEEP, float("inf"))
+    for _ in range(RB_SWEEP_ROUNDS):
+        for shape in RB_EXT_SWEEP:
+            ms, _ = timed_ms(lambda: launch(*shape), 1)
+            best[shape] = min(best[shape], ms)
+    fastest = min(best, key=best.get)
+    return (f"{name} sweep, ms by (T, R, C), min of {RB_SWEEP_ROUNDS} "
+            "rounds, all equal: " + ", ".join(
+                f"{T}/{R}/{C} {ms:.3f}" for (T, R, C), ms in best.items())
+            + f"; fastest {fastest} {best[fastest]:.3f} ms")
 
 
 def lean_parts(mode: str, dev) -> tuple:
     """The lean traceback's parts at the path's size, one by one: the
-    forward score pass, the anchored reverse pass (K5, against its plain
-    version), the window refill with P (K4), the walk (against its plain
-    version) and the host's assembly of the strings. Returns (K5 record,
-    walk record, phase line)."""
+    forward score pass, the anchored reverse pass (the register-blocked
+    K5 and the template's in turns, against their plain version, and K5's
+    sweep), the window refill with P (the register-blocked K4, min of 3
+    into a P allocated outside the timed call, and the template's in
+    turns, and K4's sweep), the walk (against its plain version) and the
+    host's assembly of the strings. Returns (records by entry, phase
+    lines)."""
     sc, S, alphabet, make = MODELS[mode]
     a, b = make(SCORE_N, SCORE_N)
     sub = None if S is None else on_card(S, dev=dev)[0]
@@ -868,31 +995,56 @@ def lean_parts(mode: str, dev) -> tuple:
     fwd_s = time.perf_counter() - t0
     ar, br = on_card(a[:ej][::-1], b[:ei][::-1], dev=dev)
     top, left, _, _ = _bounds(ej, ei, 0, True, dev)
-    name = sf.block_kernel_name(sc, S)
-    k_ms, k = timed_ms(lambda: sf.stripe_block(
-        ar, br, sc, top, left, local=False, substitution=sub), 3)
+    bounds = sf._check_block(ar, br, sc, top, left, None, None)
+    name, old = sf.block_route_name(sc, S), sf.block_kernel_name(sc, S)
+    k_ms, o_ms, k, ko = ab_ms(
+        lambda: sf.stripe_block(ar, br, sc, top, left, local=False,
+                                substitution=sub),
+        lambda: sf._launch_block(ar, br, sc, None, sub, *bounds, False,
+                                 False))
     p_ms, p = timed_ms(lambda: sf.stripe_block_plain(
         ar, br, sc, top, left, local=False, substitution=sub), 1)
     e = max(diff(x, y) for x, y in zip(k, p) if x is not None)
-    require(e == 0, f"{name} != plain at the reverse pass's size")
+    e_old = max(diff(x, y) for x, y in zip(ko, p) if x is not None)
+    require(e == 0 and e_old == 0,
+            f"{name} / {old} != plain at the reverse pass's size")
     rs, ri, rj, _ = k.best.tolist()
     require(rs == score, f"{mode}: reverse pass {rs} != forward {score}")
+    block_sweep = ext_sweep(
+        name, lambda T, R, C: sf._launch_rb_block(
+            ar, br, sc, T, sub, *bounds, False, False, R=R, C=C),
+        lambda x: all(diff(u, v) == 0 for u, v in zip(x, p)
+                      if u is not None))
     # in: codes, table, top and left (affine: and F, E); out: the right
     # column (affine: and E), the best
     sides = (2 if sc.is_affine else 1) * 4 * (ej + 1 + 2 * (ei + 1))
-    block_rec = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e,
-                     **bound(ei * ej, OPS_PER_CELL[mode],
-                             fill_bytes(ej, ei, S) - 4 * (ei + 1) + sides))
-    del ar, br, k, p
+    work = bound(ei * ej, OPS_PER_CELL[mode],
+                 fill_bytes(ej, ei, S) - 4 * (ei + 1) + sides)
+    recs = {name: dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e, **work),
+            old: dict(ms=o_ms, plain_ms=p_ms, max_abs_err=e_old, **work)}
+    del ar, br, k, ko, p
     si, sj = ei - ri + 1, ej - rj + 1
     wn, wm = ei - si + 1, ej - sj + 1
     wa, wb = on_card(a[sj - 1:ej], b[si - 1:ei], dev=dev)
-    f_ms, out = timed_ms(lambda: sf.stripe_fill(wa, wb, sc,
-                                                substitution=sub), 1)
+    P = sf.p_matrix(wn, wm, dev)
+    fill, fill_old = sf.fill_kernel_name(sc, S), sf.kernel_name(sc, S, True)
+    f_ms, fo_ms, out, out_old = ab_ms(
+        lambda: sf._launch_rb_p(wa, wb, sc, None, sub=sub, P=P),
+        lambda: sf._launch(wa, wb, sc, None, sub, True, None))
+    require(diff(out.P, out_old.P) == 0 and diff(out.best, out_old.best) == 0
+            and diff(out.right_col, out_old.right_col) == 0,
+            f"{fill} != {fill_old} at the window")
+    del out_old
+    Q = sf.p_matrix(wn, wm, dev)
+    fill_sweep = ext_sweep(
+        fill, lambda T, R, C: sf._launch_rb_p(wa, wb, sc, T, R, C, sub=sub,
+                                              P=Q),
+        lambda x: diff(x.P, out.P) == 0 and diff(x.best, out.best) == 0)
+    del Q
     w_ms, moves = timed_ms(lambda: sf.walk_p(out.P, wn, wm), 3)
     pw_ms, pmoves = timed_ms(lambda: sf.walk_p_plain(out.P, wn, wm), 1)
     require(torch.equal(moves, pmoves), f"{mode}: walk kernel != plain")
-    del out
+    del out, P
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ca, cb = tb._apply_moves(a[sj - 1:ej], b[si - 1:ei], wn, wm,
@@ -900,14 +1052,20 @@ def lean_parts(mode: str, dev) -> tuple:
     tb._render(ca, cb, alphabet)
     host_s = time.perf_counter() - t0
     # one byte of P read and one move written per move
-    walk_rec = dict(ms=w_ms, plain_ms=pw_ms, max_abs_err=0,
-                    **bound(len(moves), WALK_OPS, 2 * len(moves) + 4))
-    line = (f"{SCORE_N}^2 parts: forward {fwd_s * 1e3:.1f} ms (wall); "
-            f"reverse {name} {k_ms:.3f} ms (plain {p_ms:.1f} ms, equal); "
-            f"window {wn}x{wm} refill {f_ms:.3f} ms; walk {len(moves)} "
-            f"moves {w_ms:.3f} ms (plain {pw_ms:.1f} ms, P copied to the "
-            f"host, equal); host strings {host_s * 1e3:.1f} ms")
-    return block_rec, walk_rec, line
+    recs[sf.WALK_KERNEL] = dict(ms=w_ms, plain_ms=pw_ms, max_abs_err=0,
+                                **bound(len(moves), WALK_OPS,
+                                        2 * len(moves) + 4))
+    lines = [
+        f"{SCORE_N}^2 parts: forward {fwd_s * 1e3:.1f} ms (wall); reverse "
+        f"{ei}x{ej} {name} {k_ms:.3f} ms, {old} {o_ms:.3f} ms in turns "
+        f"(plain {p_ms:.1f} ms, equal); window {wn}x{wm} refill {fill} "
+        f"{f_ms:.3f} ms (min of 3, P allocated outside the call), "
+        f"{fill_old} {fo_ms:.3f} ms in turns (P equal); walk {len(moves)} "
+        f"moves {w_ms:.3f} ms (plain {pw_ms:.1f} ms, P copied to the host, "
+        f"equal); host strings {host_s * 1e3:.1f} ms",
+        f"{ei}x{ej} reverse pass: {block_sweep}",
+        f"{wn}x{wm} window: {fill_sweep}"]
+    return recs, lines
 
 
 def drive_lean(refs: dict) -> list:
@@ -918,17 +1076,22 @@ def drive_lean(refs: dict) -> list:
         sc, S, alphabet, make = MODELS[mode]
         kw = dict(substitution=S, alphabet=alphabet, device="cuda")
         a, b = make(SCORE_N, SCORE_N)
-        t0 = time.perf_counter()
-        r = swtpu_torch.align(a, b, sc, **kw)
-        wall = time.perf_counter() - t0
-        got = (r.max_score, r.max_i, r.max_j, r.last_cell)
-        want = refs[mode, SCORE_N, SCORE_N]
-        require(got == want and r.path is None,
-                f"{mode} lean align {SCORE_N}^2: {got} != {want}")
-        check_alignment(r, a, b, mode)
+        # two calls: the first also pays what the process does once (the
+        # allocator's first block for P)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = swtpu_torch.align(a, b, sc, **kw)
+            walls.append(time.perf_counter() - t0)
+            got = (r.max_score, r.max_i, r.max_j, r.last_cell)
+            want = refs[mode, SCORE_N, SCORE_N]
+            require(got == want and r.path is None,
+                    f"{mode} lean align {SCORE_N}^2: {got} != {want}")
+            check_alignment(r, a, b, mode)
         lines.append(f"[{mode}] align {SCORE_N}^2 windowed -> {got}, "
                      f"{len(r.aligned_a)} columns re-score to "
-                     f"{r.max_score}, wall {wall:.3f} s")
+                     f"{r.max_score}, wall {walls[0]:.3f} s, again "
+                     f"{walls[1]:.3f} s")
 
     cfg = EngineConfig(traceback_method="hirschberg")
     for mode, n in (("linear", ALIGN_N), ("dna_affine", HIRSCH_AFFINE_N)):
@@ -1887,7 +2050,7 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     recs = kernels_vs_plain(dev)
     for entry, e in rb_vs_plain(dev).items():
         recs[entry]["max_abs_err"] = max(recs[entry]["max_abs_err"], e)
-    phase("kernels", f"K1-K4 and the register-blocked K1-K3 against their "
+    phase("kernels", f"K1-K4 and the register-blocked K1-K4 against their "
           f"plain versions in {time.perf_counter() - t0:.1f} s")
     recs.update(band_vs_plain(dev))
     block_err = block_vs_plain(dev)
@@ -1895,15 +2058,17 @@ def run(dev, name: str, start: float, pool, scans) -> int:
         block_err[entry] = max(block_err[entry], e)
     walk_err = walk_vs_plain(dev)
     for mode in MODES:
-        block_rec, walk_rec, line = lean_parts(mode, dev)
-        block = sf.block_kernel_name(*MODELS[mode][:2])
-        block_rec["max_abs_err"] = max(block_rec["max_abs_err"],
-                                       block_err[block])
-        recs[block] = block_rec
-        if mode == "linear":        # the benchmark pair's walk
-            walk_rec["max_abs_err"] = max(walk_rec["max_abs_err"], walk_err)
-            recs[sf.WALK_KERNEL] = walk_rec
-        phase(mode, line)
+        lean_recs, lines = lean_parts(mode, dev)
+        for entry, rec in lean_recs.items():
+            if entry == sf.WALK_KERNEL:
+                if mode != "linear":    # the benchmark pair's walk
+                    continue
+                rec["max_abs_err"] = max(rec["max_abs_err"], walk_err)
+            else:
+                rec["max_abs_err"] = max(rec["max_abs_err"], block_err[entry])
+            recs[entry] = rec
+        for line in lines:
+            phase(mode, line)
     pair_err = pairs_vs_plain(dev)
     batch_recs, batch_want, batch_want_band = pairs_full(dev)
     for entry, rec in batch_recs.items():
@@ -1935,9 +2100,10 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     require((r.max_score, r.max_pos, r.last_cell) == (13, 69, 7)
             and (r.aligned_a, r.aligned_b) == ("GTT-AC", "GTTGAC"),
             f"golden: {r}")
-    require(sf.launches[sf.FILL_P_KERNEL] == 1, "golden did not run K4")
+    golden_fill = sf.fill_kernel_name(SCORING, None)
+    require(sf.launches[golden_fill] == 1, "golden did not run K4")
     phase("golden", f"13 @ 69, last 7, {r.aligned_a}/{r.aligned_b} via "
-          f"{sf.FILL_P_KERNEL}")
+          f"{golden_fill}")
 
     line = drive("linear", refs)
     m, n = THIN
@@ -1950,13 +2116,13 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     launches = dict(sf.launches)
     plain = dict(sf.plain_calls)
     # ---- end of the full-P path ----
-    # score() runs the register-blocked K1, K2 or K3; the earlier unbanded
-    # K1-K3 are on no route of the package
+    # score() runs the register-blocked K1, K2 or K3, align() its K4; the
+    # earlier unbanded K1-K4 and K5 are on no route of the package
     full_p = [sf.score_kernel_name(*MODELS[mode][:2]) for mode in MODES] + [
-        sf.kernel_name(*MODELS[mode][:2], True) for mode in MODES]
+        sf.fill_kernel_name(*MODELS[mode][:2]) for mode in MODES]
     require(all(launches[k] > 0 for k in full_p), f"launches {launches}")
-    require(not any(launches[k] for k in EARLIER_SCORE),
-            f"the earlier K1-K3 ran on the full-P path: {launches}")
+    require(not any(launches[k] for k in EARLIER),
+            f"the earlier K1-K5 ran on the full-P path: {launches}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"full-P path: kernel launches {launches}, plain calls "
           f"{plain}")
@@ -1971,10 +2137,10 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # ---- end of the lean and banded path ----
     for ln in lines:
         phase("lean", ln)
-    lean_path = [n for n in sf.launches if n not in EARLIER_SCORE]
+    lean_path = [n for n in sf.launches if n not in EARLIER]
     require(all(lean[k] > 0 for k in lean_path), f"launches {lean}")
-    require(not any(lean[k] for k in EARLIER_SCORE),
-            f"the earlier K1-K3 ran on the lean path: {lean}")
+    require(not any(lean[k] for k in EARLIER),
+            f"the earlier K1-K5 ran on the lean path: {lean}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"lean and banded path in {lean_s:.1f} s: kernel "
           f"launches {lean}, plain calls {plain}")
@@ -2049,8 +2215,8 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # launches: the five paths' runs; the K7/K8 counters run on the batch
     # path (K7 also on the sanitize path), the warp-per-read K6 counters on
     # the search path alone, the K9 counters on the sanitize path alone;
-    # the earlier unbanded K1-K3 and K6 entries count 0 (their times are
-    # the A/B's)
+    # the earlier unbanded K1-K4, K5 and K6 entries count 0 (their times
+    # are the A/B's)
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)

@@ -7,7 +7,8 @@ checkouts of swtpu_torch, on a machine with the CUDA toolkit.
 Compiles each kernel source of ``swtpu_torch/csrc`` (the stripe
 template's ``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
 ``window_fill.cu``, ``sanitize_fill.cu``, and ``window_warp.cu``,
-``stripe_rb.cu``) in both checkouts, where each has it, to cubins for
+``stripe_rb.cu``, ``stripe_rb_p.cu``, ``stripe_rb_block.cu``) in both
+checkouts, where each has it, to cubins for
 sm_90a with the port's flags and disassembles them with ``cuobjdump
 -sass``. For every kernel the old checkout has, it prints its instruction
 count and the number of SASS lines that differ from the new checkout's
@@ -32,7 +33,7 @@ from pathlib import Path
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 SOURCES = ("stripe_fill.cu", "stripe_block.cu", "pairs_fill.cu",
            "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
-           "stripe_rb.cu")
+           "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu")
 FUNC = re.compile(r"Function : (\S+)")
 # a template's name and its integer and bool arguments (the mangled name
 # around them holds a hash of the source's path)

@@ -78,15 +78,17 @@ class EngineConfig:
     scan_max_cells: int = 1 << 14
     # threads T per thread block of the CUDA kernels, a multiple of 32:
     # up to 1024 on the stripe template's (one row a thread, T rows a
-    # stripe); up to 512 on the register-blocked K1-K3 that unbanded
-    # score-only calls run (the form's R rows a thread,
-    # stripe_fill.RB_DEFAULTS, T times that a stripe; a larger T raises
-    # there, and a table's profile may cap it). None = the kernel
-    # wrapper's default.
+    # stripe), which banded calls run; up to 512 on the register-blocked
+    # K1-K5 that unbanded calls run (the form's R rows a thread,
+    # stripe_fill.RB_DEFAULTS, RB_P_DEFAULTS, RB_BLOCK_DEFAULTS, T times
+    # that a stripe; K4 and K5 above 256 threads run their R = 4 tile,
+    # stripe_fill.RB_WIDE_TILE; a larger T raises there, and a table's
+    # profile may cap it). None = the kernel wrapper's default.
     stripe_rows: Optional[int] = None
     # register blocking R of the TPU kernel; not read by the port: the
-    # template's CUDA kernels run R=1, the register-blocked K1-K3 their
-    # form's fixed R (stripe_fill.RB_DEFAULTS)
+    # template's CUDA kernels run R=1, the register-blocked K1-K5 their
+    # form's fixed R (stripe_fill.RB_DEFAULTS, RB_P_DEFAULTS,
+    # RB_BLOCK_DEFAULTS)
     stripe_rows_per_lane: Optional[int] = None
     # banded mode: half-width of the band (|i-j| <= band). None = full.
     band: Optional[int] = None

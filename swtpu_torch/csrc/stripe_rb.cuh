@@ -1,0 +1,911 @@
+// The register-blocked single-pair stripe, K1-K5 redesigned for Hopper:
+// one kernel template, included by three sources that each instantiate
+// one family (one nvcc each, started together):
+//   * stripe_rb.cu       - the local score-only fill (K1-K3): each stripe's
+//     first row-major max (reduced by the caller), the right column H[:, m]
+//     and, through it, H[n, m];
+//   * stripe_rb_p.cu     - the same fill capturing P (K4, kP): one int8
+//     predecessor code per cell into a row-major (n+1) x (m+1) P;
+//   * stripe_rb_block.cu - the boundary-injected block fill (K5, kBlock):
+//     row 0 and column 0 from the caller, local or global (NW), exporting
+//     E of column m and, on request, H and F of row n.
+// Three scorings, one template: linear match/mismatch (K1), affine
+// match/mismatch (K2, Gotoh E and F) and a substitution table with linear
+// or affine gaps (K3); K4 and K5 take each of them.
+//
+// Replaces, with no band, the Pallas kernel of the JAX package
+// (swtpu/kernels/pallas_fill.py, body `_kernel` :192 launched by
+// `_stripe_call` :856 -> pallas_call :1008; affine :456-463, :529-536,
+// :576-587; the table :364-379, :437-524 and `_profile_on_device` :1437)
+// in its local single-pair score-only mode (`stripe_score_fn` :1249,
+// `stripe_fill_raw` :1072), its P mode (`stripe_fill` :1190 with
+// `return_p`) and its block mode (`stripe_block_fn` :1466 with `boundary`,
+// `local` and `want_bottom`), which the stripe template's K1-K5
+// (stripe_fill.cu, stripe_block.cu) served before. It serves `score()`,
+// `align(traceback=False)`, the lean traceback's forward pass (K1-K3), the
+// full-P `align()`, the lean window refill and each `align_hits` record
+// (K4), the anchored reverse pass of `locate` and the Hirschberg /
+// Myers-Miller row passes (K5).
+//
+// What bounds it on this card. The fill is a chain of dependent steps
+// (every cell needs its left and upper neighbours). A 25632^2 pair cut
+// into stripes keeps about a hundred warps busy, one per SM scheduler,
+// so a step costs the latency of one warp's instructions, not their
+// issue: the template's K1 (one row a thread) runs n + m = 51 k steps of
+// about 790 clocks. With R rows a thread and one column a step, most of
+// a step's cost is fixed (barrier, shuffles, shared hops, branches) and
+// is paid once a column; chip_smoke.py times one stripe at C = 1 and
+// C = 4 to show it (PERF.md section 6). The affine cell is about twice
+// the linear cell's dependent work (E, F and a three-way max), and the
+// table's score is a shared-memory load a cell. P capture adds a code a
+// cell and its store (bytes of P: (n+1)(m+1)); the block form a load per
+// row and per column of row 0, and stores of column m and row n.
+//
+// What the design does about it.
+//   * A tile of R rows x C columns a thread a step (template parameters:
+//     linear the default (8, 4), set by chip_smoke.py's sweep, and its
+//     neighbours (4, 4), (16, 4), (8, 1), (8, 2) and (8, 8); affine and
+//     table, and every K4 and K5 form, (8, 4), (8, 2) and (4, 4)); T * R
+//     rows a stripe, T up to 512 threads (K4 and K5: 256 at R = 8). Thread k of stripe s owns rows s*T*R + k*R + 1 .. + R
+//     and visits the tile of columns (t - k) * C + 1 .. + C at step t, in
+//     registers. The barrier, the shuffles and the shared hops are paid
+//     once per R x C cells, and the launch runs about m / C + n / R +
+//     stripes x (hand-off lag) steps instead of n + m. Inside a tile cell
+//     (r, c) needs (r - 1, c) and (r, c - 1) only, so the R + C - 1
+//     anti-diagonals give the warp independent instructions to issue.
+//   * Affine: E runs left to right along a thread's own row, one register
+//     a row across tiles and steps; F runs down a column, row to row in
+//     the tile, and from thread to thread beside H: a second shuffle, a
+//     second edge slot across warps, a second boundary row across stripes
+//     (bnd_f), loaded by warp 0 beside the H chunk under the same wait and
+//     stored by the publishing warp beside it before the same release.
+//     Row 0 is H = 0, F = NEG; column 0 is H = 0, E = NEG.
+//   * Table: each thread's R row codes are fixed, so each thread builds its
+//     own column of a profile in shared memory, (A + 1) x R / 4 x T int4,
+//     prof[(q * R / 4 + r / 4) * T + k] holding S[q, b] of its rows
+//     4 (r / 4) .. + 3; row q = A, and the rows whose code is a sentinel
+//     (< 0) or past n, hold kNegSub. A tile's column reads R / 4 int4 at
+//     the column code's row: eight threads cover 128 consecutive bytes, so
+//     the reads hit no bank twice, and only thread k reads its column, so
+//     the build needs no barrier. The query's codes come from the ring as
+//     unsigned bytes: a sentinel (-1, -2, -3) reads as 255, 254, 253, so
+//     min(code, A) sends it to row A (A is capped at 128, past every code
+//     an int8 holds). 88 KB for BLOSUM62 (A = 21) at T = 128, R = 8.
+//   * The boundary row is consumed by chunks of kPublish = 32 columns, the
+//     producer's publication period (the producer's protocol is the
+//     template's: H (and F) of the stripe's last row to a global row, a
+//     release store of the progress every 32 columns and at m; here the
+//     last warp stages its row in shared memory and stores each chunk
+//     coalesced). At the step where thread 0 starts chunk c, warp 0 moves
+//     chunk c, loaded a chunk earlier, from registers to shared memory,
+//     waits for the progress to reach the end of chunk c + 1 (capped at m,
+//     so it waits only for a column the producer publishes) and loads
+//     chunk c + 1, one column a lane. No global load is on the per-step
+//     chain.
+//   * The query a is staged by warp 0 in a ring of kRing bytes of shared
+//     memory, 32 columns a chunk, 64 columns ahead of thread 0, from a
+//     register loaded a chunk before; a thread reads its tile's C codes
+//     as one or two 32-bit words.
+//   * The cell is the DPX form of sw_cell.cuh.
+//   * The atomic stripe ticket stays: a block waits only on the stripe
+//     before it, which took its ticket earlier and is resident.
+//   * The argmax: each thread keeps (best, first j) per row under a strict
+//     '>'; the block takes the smallest row holding its max; the caller
+//     takes the first stripe holding the global max. right[i] is written
+//     for each row from the tile holding column m, which stops at m.
+//   * P capture (kP): the code follows the template's tie order
+//     (stripe_kernel.cuh): from h = 0 and NONE a strictly greater DIAG,
+//     then UP, then LEFT takes over; affine adds kEExt when E extends and
+//     kFExt when F does (a tie counts as extension). The value H keeps
+//     the score-only cell's one DPX instruction a row on the chain down
+//     the tile; the code is read off it with compares and selects that
+//     nothing waits on. A row's C codes are packed into one or two 32-bit
+//     words (C = 2: a 16-bit half) and stored once a tile, which needs P + 1
+//     and the row pitch 4-byte aligned (the wrapper pads the rows); the
+//     tile holding column m stores bytes, so no store passes column m.
+//     Rows past n store nothing. Row 0 and column 0 are written NONE here,
+//     so the caller need not clear P.
+//   * The block form (kBlock): each thread loads its R rows' H(i, 0) (and
+//     E(i, 0)) once into the registers the row's LEFT chain starts from,
+//     and the H of its last row into the last-row slots that the thread
+//     below reads as its first DIAG; stripe 0's warp 0 loads row 0 from
+//     `top` (and `top_f`) into the chunks the boundary row uses, with no
+//     wait. `local == 0` drops the zero floor: the floor (0 or INT_MIN)
+//     is folded into DIAG off the chain, so the cell keeps its DPX
+//     instructions; NEG boundaries then propagate through the adds as in
+//     the plain scan. The thread holding row n stores it (and F) column
+//     by column when the caller asks for it; only its warp runs the copy
+//     of the tile that keeps row n's values, so the other warps, and
+//     every warp of a pass that asks for no row n, pay nothing for it.
+//   * The affine and table forms keep their extra arrays in dynamic shared
+//     memory and their extra parameters last, and the K4 and K5 forms
+//     their template parameters and their argument (Ext) last, so the
+//     earlier forms' code is what it was before they were added
+//     (scripts/torch_sass_diff.py).
+//
+// Each entry launches on the given stream, allocates nothing, and returns
+// cudaGetLastError() after its launch.
+
+#pragma once
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "sw_cell.cuh"
+
+namespace {
+
+using swcell::kNeg;
+using swcell::kNegSub;
+
+constexpr int kPublish = 32;       // columns between publications: a chunk
+constexpr int kMaxThreads = 512;   // registers: R = 16 needs about 110
+// the K4 and K5 forms' launch bound: a code (or a row-n capture) a cell on
+// top of the affine cell's registers needs more than the 128 a 512-thread
+// block allows at R = 8 (up to 203), so those tiles take kExtThreads; at
+// R = 4 every form fits in 128 (at most 117), so that tile takes kMaxThreads
+constexpr int kExtThreads = 256;
+__host__ __device__ constexpr int ext_threads(int R) {
+  return R <= 4 ? kMaxThreads : kExtThreads;
+}
+constexpr int kMaxCols = 8;
+constexpr int kAhead = 64;         // columns of a staged ahead of thread 0
+// the ring spans the columns of a step (T * C), the staged ones and a chunk
+constexpr int kRing = 8192;
+static_assert(kRing > kMaxThreads * kMaxCols + kAhead + kPublish, "ring");
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSym = 128;       // profile rows: no int8 code reaches more
+constexpr int kNone = 0, kUp = 1, kLeft = 2, kDiagonal = 3;
+constexpr int kEExt = 4, kFExt = 8;     // Gotoh state bits of affine P
+
+// ints of the affine form's dynamic shared arrays: F's edge slots
+// [2][kMaxThreads / 32][C], the F chunk of the row above [2][kPublish] and
+// the last row's F [kPublish]; a multiple of 4, so the profile after them
+// is int4-aligned
+template <int C>
+__host__ __device__ constexpr int f_ints() {
+  return 2 * (kMaxThreads / 32) * C + 3 * kPublish;
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// the codes of 0-based columns col0 .. col0 + C - 1 from the ring, as
+// unsigned bytes (compared with the rows' codes read the same way); col0
+// is a multiple of C, so they lie in one word or, C = 8, two
+template <int C>
+__device__ __forceinline__ void ring_codes(const uint32_t* ring, int col0,
+                                           int (&ac)[C]) {
+  constexpr int kWords = C > 4 ? C / 4 : 1;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const uint32_t v = ring[((col0 >> 2) + w) & (kRing / 4 - 1)];
+#pragma unroll
+    for (int c = 4 * w; c < 4 * w + 4 && c < C; ++c) {
+      const int shift = 8 * (C >= 4 ? c - 4 * w : (col0 & 3) + c);
+      ac[c] = (v >> shift) & 0xff;
+    }
+  }
+}
+
+// one tile: columns j0 .. j0 + nc - 1 of the thread's R rows. U: H of the
+// row above in those columns; diag0: H of the row above in column j0 - 1.
+// B gets the last row's H in each column computed.
+template <int R, int C, bool kPartial>
+__device__ __forceinline__ void tile(int j0, int nc, const int (&ac)[C],
+                                     const int (&code)[R], const int (&U)[C],
+                                     int diag0, int match, int mismatch,
+                                     int gap, int (&H)[R], int (&best)[R],
+                                     int (&best_j)[R], int (&B)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (kPartial && c >= nc) break;
+    int diag = c == 0 ? diag0 : U[c - 1];
+    int up = U[c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int left = H[r];
+      const int h = swcell::linear(
+          diag + swcell::compare(ac[c], code[r], match, mismatch), left, up,
+          gap);
+      swcell::track(h, j0 + c, best[r], best_j[r]);
+      diag = left;
+      up = h;
+      H[r] = h;
+    }
+    B[c] = H[R - 1];
+  }
+}
+
+// The scoring of the affine and table forms.
+struct Gotoh {
+  int match, mismatch, gap, open, extend;
+  const int4* prof;   // kSub: the thread's profile column
+  int T;              // kSub: the profile's row stride, in int4
+  int rows;           // kSub: the sentinel row, min(A, kMaxSym)
+};
+
+// the scores of column code aj against the thread's R rows: a column of
+// the thread's profile (kSub) or the match/mismatch compare
+template <int R, bool kSub>
+__device__ __forceinline__ void column_scores(int aj, const int (&code)[R],
+                                              const Gotoh& g, int (&s)[R]) {
+  if constexpr (kSub) {
+    const int4* p = g.prof + min(aj, g.rows) * (R / 4) * g.T;
+#pragma unroll
+    for (int r4 = 0; r4 < R / 4; ++r4) {
+      const int4 v = p[r4 * g.T];
+      s[4 * r4] = v.x;
+      s[4 * r4 + 1] = v.y;
+      s[4 * r4 + 2] = v.z;
+      s[4 * r4 + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[r] = swcell::compare(aj, code[r], g.match, g.mismatch);
+    }
+  }
+}
+
+// one tile of the affine or table form, as `tile`; affine, E[r] is
+// E(row r, j0 - 1) in and E of the tile's last column out, UF F of the row
+// above in the tile's columns, and BF gets the last row's F
+template <int R, int C, bool kPartial, bool kAffine, bool kSub>
+__device__ __forceinline__ void tile_gotoh(
+    int j0, int nc, const int (&ac)[C], const int (&code)[R],
+    const int (&U)[C], const int (&UF)[C], int diag0, const Gotoh& g,
+    int (&H)[R], int (&E)[R], int (&best)[R], int (&best_j)[R],
+    int (&B)[C], int (&BF)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (kPartial && c >= nc) break;
+    int diag = c == 0 ? diag0 : U[c - 1];
+    int up = U[c];
+    int f = kNeg;
+    if constexpr (kAffine) f = UF[c];
+    int s[R];
+    column_scores<R, kSub>(ac[c], code, g, s);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int left = H[r];
+      int h;
+      if constexpr (kAffine) {
+        E[r] = swcell::affine_e(E[r], left, g.open, g.extend);
+        f = swcell::affine_f(f, up, g.open, g.extend);
+        h = swcell::affine(diag + s[r], E[r], f);
+      } else {
+        h = swcell::linear(diag + s[r], left, up, g.gap);
+      }
+      swcell::track(h, j0 + c, best[r], best_j[r]);
+      diag = left;
+      up = h;
+      H[r] = h;
+    }
+    B[c] = H[R - 1];
+    if constexpr (kAffine) BF[c] = f;
+  }
+}
+
+// The extra arguments of the K4 (kP) and K5 (kBlock) forms, one kernel
+// parameter after the others.
+struct Ext {
+  int8_t* P;            // kP: P(i, j) at P[i * pitch + j], i <= n, j <= m
+  int pitch;            // kP: bytes a row, at least m + 1
+  const int* top;       // kBlock: H(0, :), m + 1, holding the corner
+  const int* left;      // kBlock: H(:, 0), n + 1, holding the corner
+  const int* top_f;     // kBlock, affine: F(0, :)
+  const int* left_e;    // kBlock, affine: E(:, 0)
+  int* right_e;         // kBlock, affine: E(:, m); [0] left to the caller
+  int* bottom;          // kBlock: H(n, :) or null; [0] left to the caller
+  int* bottom_f;        // kBlock, affine, with bottom: F(n, :)
+  int local;            // kBlock: 0 runs the global recurrence
+};
+
+// a thread's share of Ext
+struct Cap {
+  int8_t* prow;         // kP: &P(first + 1, 0)
+  int pitch;
+  int rows;             // kP: rows of the thread inside the matrix (< R
+                        // only for the thread holding row n)
+  int floor;            // kBlock: 0 (local) or INT_MIN (global)
+  int bottom_r;         // kBlock: the tile row that is row n, or -1
+  bool bottom_warp;     // kBlock: the warp holding row n, when exported
+  int* bottom;
+  int* bottom_f;
+};
+
+// one tile of the K4 (kP) or K5 (kBlock) form, in every scoring, as
+// `tile_gotoh` (a linear scoring takes g.gap): kP also stores the tile's
+// codes into P, kBlock runs the cell with x.floor in place of the zero
+// floor; kRowN (the warp holding row n) stores row n's H (and F) when
+// this thread holds it
+template <int R, int C, bool kPartial, bool kAffine, bool kSub, bool kP,
+          bool kBlock, bool kRowN = false>
+__device__ __forceinline__ void tile_ext(
+    int j0, int nc, const int (&ac)[C], const int (&code)[R],
+    const int (&U)[C], const int (&UF)[C], int diag0, const Gotoh& g,
+    const Cap& x, int (&H)[R], int (&E)[R], int (&best)[R],
+    int (&best_j)[R], int (&B)[C], int (&BF)[C]) {
+  // kP on a whole tile: the row's codes, a byte a column, stored once
+  constexpr bool kPack = kP && !kPartial;
+  constexpr int kWords = C > 4 ? C / 4 : 1;
+  uint32_t pk[R][kWords];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) pk[r][w] = 0;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (kPartial && c >= nc) break;
+    int diag = c == 0 ? diag0 : U[c - 1];
+    int up = U[c];
+    int f = kNeg;
+    if constexpr (kAffine) f = UF[c];
+    int s[R];
+    column_scores<R, kSub>(ac[c], code, g, s);
+    int hb = 0, fb = kNeg;  // kRowN: H and F of row n
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int left = H[r];
+      const int d = diag + s[r];
+      int h;
+      if constexpr (kP) {
+        // H on the chain as in the score-only cell; the move off it: DIAG
+        // if DIAG > 0, UP if UP > max(0, DIAG), LEFT if LEFT > max(0,
+        // DIAG, UP), the template's order
+        bool kd, ku;
+        const int h1 = __vibmax_s32(0, d, &kd);   // kd: DIAG does not win
+        int lv, hu;       // LEFT's value; max(0, DIAG, UP)
+        int bits = 0;     // affine: the state bits
+        if constexpr (kAffine) {
+          const int e_ext = E[r] + g.extend;
+          const int f_ext = f + g.extend;
+          E[r] = swcell::affine_e(E[r], left, g.open, g.extend);
+          f = swcell::affine_f(f, up, g.open, g.extend);
+          h = __vimax3_s32(h1, E[r], f);
+          hu = __vibmax_s32(h1, f, &ku);
+          lv = E[r];
+          bits = (E[r] == e_ext ? kEExt : 0) + (f == f_ext ? kFExt : 0);
+        } else {
+          lv = left + g.gap;
+          h = __viaddmax_s32(up, g.gap, max(h1, lv));
+          hu = __vibmax_s32(h1, up + g.gap, &ku);
+        }
+        const int code_ =
+            (lv > hu ? kLeft : !ku ? kUp : kd ? kNone : kDiagonal) + bits;
+        if constexpr (kPack) {
+          pk[r][c / 4] |= (uint32_t)code_ << (8 * (c % 4));
+        } else if (r < x.rows) {
+          x.prow[r * x.pitch + j0 + c] = (int8_t)code_;
+        }
+      } else {
+        if constexpr (kAffine) {
+          E[r] = swcell::affine_e(E[r], left, g.open, g.extend);
+          f = swcell::affine_f(f, up, g.open, g.extend);
+          h = __vimax3_s32(max(d, x.floor), E[r], f);
+        } else {
+          h = __viaddmax_s32(up, g.gap,
+                             __viaddmax_s32(left, g.gap, max(d, x.floor)));
+        }
+        if constexpr (kRowN) {
+          if (r == x.bottom_r) {
+            hb = h;
+            fb = f;
+          }
+        }
+      }
+      swcell::track(h, j0 + c, best[r], best_j[r]);
+      diag = left;
+      up = h;
+      H[r] = h;
+    }
+    if constexpr (kRowN) {
+      if (x.bottom_r >= 0) {              // this thread holds row n
+        x.bottom[j0 + c] = hb;
+        if constexpr (kAffine) x.bottom_f[j0 + c] = fb;
+      }
+    }
+    B[c] = H[R - 1];
+    if constexpr (kAffine) BF[c] = f;
+  }
+  if constexpr (kPack) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < x.rows) {
+        int8_t* p = x.prow + r * x.pitch + j0;
+        if constexpr (C == 1) {
+          *p = (int8_t)pk[r][0];
+        } else if constexpr (C == 2) {
+          *reinterpret_cast<uint16_t*>(p) = (uint16_t)pk[r][0];
+        } else {
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) {
+            reinterpret_cast<uint32_t*>(p)[w] = pk[r][w];
+          }
+        }
+      }
+    }
+  }
+}
+
+// sync:  [0] the stripe ticket, [1 + s] the last column stripe s published.
+// bnd:   (stripes - 1) x (m + 1) int32, row s = H of stripe s's last row.
+// best:  (stripes, 4) int32, row s = (score, i, j, 0) of the stripe's first
+//        max, or zeros when the stripe holds no positive cell.
+// right: (n + 1) int32, right[i] = H(i, m); right[0] is left to the caller.
+// open, extend: affine only; sub, A: (A, A) int32 S[a_code, b_code], the
+//        table form only; bnd_f: as bnd for F, affine only. Last, so that
+//        the parameters before them keep their offsets.
+// ext:   the K4 and K5 forms' arguments, after bnd_f for the same reason.
+// the launch bound of the source's instantiations: K1-K3's kMaxThreads
+// (stripe_rb.cu); stripe_rb_p.cu and stripe_rb_block.cu define it as the
+// tile's ext_threads(R) and one block an SM before including this header,
+// which keeps ptxas from trading registers for occupancy these
+// one-block-an-SM launches never use (it spilled 4-12 bytes at 64-128
+// registers without)
+#ifndef SW_RB_LAUNCH_BOUNDS
+#define SW_RB_LAUNCH_BOUNDS kMaxThreads
+#endif
+
+template <int R, int C, bool kAffine, bool kSub, bool kP = false,
+          bool kBlock = false>
+__global__ void __launch_bounds__(SW_RB_LAUNCH_BOUNDS)
+stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                 int m, int n, int match, int mismatch, int gap,
+                 int* __restrict__ sync, int* __restrict__ bnd,
+                 int* __restrict__ best_out, int* __restrict__ right,
+                 int open, int extend, const int* __restrict__ sub, int A,
+                 int* __restrict__ bnd_f, Ext ext) {
+  static_assert(kPublish % C == 0 && C <= kMaxCols, "C divides a chunk");
+  static_assert(!kSub || R % 4 == 0, "the profile holds 4 rows an int4");
+  static_assert(!(kP && kBlock), "the block form captures no P");
+  constexpr int kSteps = kPublish / C;         // steps a chunk
+  __shared__ int s_stripe, s_best, s_k;
+  __shared__ int s_edge[2][kMaxThreads / 32][C];  // each warp's last lane
+  __shared__ uint32_t s_ring[kRing / 4];       // the query, 4 codes a word
+  __shared__ int s_bnd[2][kPublish];           // the chunk of the row above
+  __shared__ int s_pub[kPublish];              // the last row's H, a chunk
+  // affine: s_fedge, s_bndf and s_pubf, F's twins of s_edge, s_bnd and
+  // s_pub; then, table, the profile
+  extern __shared__ int4 s_dyn[];
+  int* const s_f = reinterpret_cast<int*>(s_dyn);
+  auto s_fedge = reinterpret_cast<int (*)[kMaxThreads / 32][C]>(s_f);
+  auto s_bndf = reinterpret_cast<int (*)[kPublish]>(
+      s_f + 2 * (kMaxThreads / 32) * C);
+  int* const s_pubf = s_f + 2 * (kMaxThreads / 32) * C + 2 * kPublish;
+  int8_t* ring = reinterpret_cast<int8_t*>(s_ring);
+
+  const int k = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = k & 31;
+  const int warp = k >> 5;
+  if (k == 0) {
+    s_stripe = atomicAdd(&sync[0], 1);
+    s_best = 0;
+    s_k = T;
+  }
+  for (int x = k; x < 2 * (kMaxThreads / 32) * C; x += T) {
+    (&s_edge[0][0][0])[x] = 0;
+  }
+  if constexpr (kAffine) {
+    for (int x = k; x < 2 * (kMaxThreads / 32) * C; x += T) s_f[x] = kNeg;
+  }
+  for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
+  __syncthreads();
+
+  const int s = s_stripe;
+  const int first = s * T * R + k * R;     // rows first + 1 .. first + R
+  const int kt = (min(T * R, n - s * T * R) + R - 1) / R;  // threads with rows
+  const int tiles = (m + C - 1) / C;
+  const int steps = tiles + kt - 1;
+  int code[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    code[r] = first + r < n ? (uint8_t)b[first + r] : 0x100;
+  }
+  Gotoh g{match, mismatch, gap, open, extend, nullptr, T, 0};
+  if constexpr (kSub) {
+    // the thread's column of the profile; only this thread reads it
+    g.rows = min(A, kMaxSym);
+    int4* col = s_dyn + (kAffine ? f_ints<C>() / 4 : 0) + k;
+    g.prof = col;
+    int cb[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) cb[r] = first + r < n ? b[first + r] : -1;
+    for (int q = 0; q <= g.rows; ++q) {
+#pragma unroll
+      for (int r4 = 0; r4 < R / 4; ++r4) {
+        int v[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int bc = cb[4 * r4 + x];
+          v[x] = q < g.rows && bc >= 0 ? __ldg(&sub[q * A + bc]) : kNegSub;
+        }
+        col[(q * (R / 4) + r4) * T] = make_int4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+  Cap cap{nullptr, 0, 0, 0, -1, false, nullptr, nullptr};
+  if constexpr (kP) {
+    // row 0 and column 0 of P are NONE
+    cap.pitch = ext.pitch;
+    cap.rows = n - first;
+    if (first < n) cap.prow = ext.P + (size_t)(first + 1) * ext.pitch;
+    if (s == 0) {
+      for (int j = k; j <= m; j += T) ext.P[j] = kNone;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < cap.rows) cap.prow[r * cap.pitch] = kNone;
+    }
+  }
+  if constexpr (kBlock) {
+    cap.floor = ext.local ? 0 : INT_MIN;
+    // only the warp holding row n runs the tile's capturing copy, so the
+    // others pay nothing for the export
+    const int row_n_warp = (n - 1 - s * T * R) / (32 * R);
+    cap.bottom_warp = ext.bottom != nullptr &&
+                      (long long)(s + 1) * T * R >= n && warp == row_n_warp;
+    if (ext.bottom != nullptr && first < n && n <= first + R) {
+      cap.bottom_r = n - 1 - first;
+      cap.bottom = ext.bottom;
+      cap.bottom_f = ext.bottom_f;
+    }
+  }
+  const size_t m1 = (size_t)m + 1;
+  const int* up_row = bnd + (s > 0 ? (size_t)(s - 1) * m1 : 0);
+  int* down_row = bnd + (size_t)s * m1;
+  int* progress = sync + 1 + s;
+  const int* wait_on = sync + s;                       // stripe s-1's counter
+  // the last warp of a stripe above the last publishes its last row
+  const bool publish = warp == (T >> 5) - 1 &&
+                       (long long)(s + 1) * T * R < n;
+
+  // warp 0 of a stripe below the first: chunk c of the boundary row
+  // (columns 32c + 1 .. 32c + 32, one a lane) in cur, chunk c + 1 in nxt;
+  // affine, F's in cur_f and nxt_f
+  int cur = 0, nxt = 0, seen = 0;
+  int cur_f = kNeg, nxt_f = kNeg;
+  if (warp == 0 && s > 0) {
+    while (seen < min(kPublish, m)) seen = load_acquire(wait_on);
+    cur = lane + 1 <= m ? __ldcg(&up_row[lane + 1]) : 0;
+    if constexpr (kAffine) {
+      cur_f = lane + 1 <= m ? __ldcg(&bnd_f[(s - 1) * m1 + lane + 1]) : kNeg;
+    }
+    if (m > kPublish) {
+      while (seen < min(2 * kPublish, m)) seen = load_acquire(wait_on);
+      nxt = kPublish + lane + 1 <= m ? __ldcg(&up_row[kPublish + lane + 1])
+                                     : 0;
+      if constexpr (kAffine) {
+        nxt_f = kPublish + lane + 1 <= m
+                    ? __ldcg(&bnd_f[(s - 1) * m1 + kPublish + lane + 1])
+                    : kNeg;
+      }
+    }
+  }
+  // kBlock: stripe 0's row above is the injected row 0, whole from the
+  // start, so warp 0 reads it with no wait
+  if constexpr (kBlock) {
+    if (warp == 0 && s == 0) {
+      cur = lane + 1 <= m ? __ldg(&ext.top[lane + 1]) : 0;
+      if constexpr (kAffine) {
+        cur_f = lane + 1 <= m ? __ldg(&ext.top_f[lane + 1]) : kNeg;
+      }
+      if (m > kPublish) {
+        const int j = kPublish + lane + 1;
+        nxt = j <= m ? __ldg(&ext.top[j]) : 0;
+        if constexpr (kAffine) nxt_f = j <= m ? __ldg(&ext.top_f[j]) : kNeg;
+      }
+    }
+  }
+  // warp 0: the 32 columns of a that the ring takes next
+  int a_next = (warp == 0 && kAhead + lane < m) ? __ldg(&a[kAhead + lane]) : 0;
+
+  int H[R], best[R], best_j[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) H[r] = best[r] = best_j[r] = 0;
+  int E[R];                // affine: E(row, j0 - 1), the row's LEFT chain
+#pragma unroll
+  for (int r = 0; r < R; ++r) E[r] = kNeg;
+  int B[C];                // the last row's H in the tile's columns
+#pragma unroll
+  for (int c = 0; c < C; ++c) B[c] = 0;
+  int BF[C];               // affine: and its F
+#pragma unroll
+  for (int c = 0; c < C; ++c) BF[c] = kNeg;
+  int u_last = 0;          // H(first, j0 - 1): the tile's first DIAG
+  if constexpr (kBlock) {
+    // column 0: each row's H (and E) starts its LEFT chain; H(first, 0) is
+    // the first tile's DIAG, which thread 0 keeps and every other thread
+    // receives through the thread above's last-row slots (B), read at the
+    // step before its first tile
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (first + r < n) {
+        H[r] = __ldg(&ext.left[first + r + 1]);
+        if constexpr (kAffine) E[r] = __ldg(&ext.left_e[first + r + 1]);
+      }
+    }
+    if (first <= n) u_last = __ldg(&ext.left[first]);
+    const int h_last = first + R <= n ? __ldg(&ext.left[first + R]) : 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) B[c] = h_last;
+  }
+  int flushed = 0;         // the publishing warp: the column stored last step
+
+  for (int t = 0; t < steps; ++t) {
+    if (warp == 0 && t % kSteps == 0) {        // thread 0 starts a chunk
+      const int c0 = t * C;                    // its first 0-based column
+      const int col = c0 + kAhead + lane;      // staged now
+      if (col < m) ring[col & (kRing - 1)] = (int8_t)a_next;
+      a_next = col + kPublish < m ? __ldg(&a[col + kPublish]) : 0;
+      if (s > 0 || kBlock) {
+        if (t > 0) {
+          cur = nxt;
+          if constexpr (kAffine) cur_f = nxt_f;
+          const int lo = c0 + kPublish + 1;    // the next chunk's first column
+          if (lo <= m) {
+            const int want = min(c0 + 2 * kPublish, m);
+            if constexpr (kBlock) {
+              const int j = lo + lane;
+              if (s > 0) {
+                while (seen < want) seen = load_acquire(wait_on);
+                nxt = j <= m ? __ldcg(&up_row[j]) : 0;
+                if constexpr (kAffine) {
+                  nxt_f = j <= m ? __ldcg(&bnd_f[(s - 1) * m1 + j]) : kNeg;
+                }
+              } else {
+                nxt = j <= m ? __ldg(&ext.top[j]) : 0;
+                if constexpr (kAffine) {
+                  nxt_f = j <= m ? __ldg(&ext.top_f[j]) : kNeg;
+                }
+              }
+            } else {
+              while (seen < want) seen = load_acquire(wait_on);
+              nxt = lo + lane <= m ? __ldcg(&up_row[lo + lane]) : 0;
+              if constexpr (kAffine) {
+                nxt_f = lo + lane <= m
+                            ? __ldcg(&bnd_f[(s - 1) * m1 + lo + lane])
+                            : kNeg;
+              }
+            }
+          }
+        }
+        s_bnd[(t / kSteps) & 1][lane] = cur;
+        if constexpr (kAffine) s_bndf[(t / kSteps) & 1][lane] = cur_f;
+        __syncwarp();
+      }
+    }
+    // UP: H(first, columns of the tile), the last row of thread k-1 after
+    // step t-1; thread 0 takes the row above the stripe (zeros when s == 0,
+    // the injected row 0 in the block form); affine, UF: F likewise (NEG
+    // when s == 0)
+    int U[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) U[c] = __shfl_up_sync(kFull, B[c], 1);
+    int UF[C];
+    if constexpr (kAffine) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) UF[c] = __shfl_up_sync(kFull, BF[c], 1);
+    }
+    if (lane == 0) {
+      if (k > 0) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) U[c] = s_edge[(t + 1) & 1][warp - 1][c];
+        if constexpr (kAffine) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            UF[c] = s_fedge[(t + 1) & 1][warp - 1][c];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          U[c] = (kBlock || s > 0)
+                     ? s_bnd[(t / kSteps) & 1][(t * C + c) & (kPublish - 1)]
+                     : 0;
+        }
+        if constexpr (kAffine) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            UF[c] = (kBlock || s > 0) ? s_bndf[(t / kSteps) & 1]
+                                              [(t * C + c) & (kPublish - 1)]
+                                      : kNeg;
+          }
+        }
+      }
+    }
+    const int q = t - k;                       // the tile
+    const int j0 = q * C + 1;
+    if (k < kt && q >= 0 && j0 <= m) {
+      int ac[C];
+      ring_codes<C>(s_ring, q * C, ac);
+      if (j0 + C - 1 < m) {
+        if constexpr (kBlock) {
+          if (cap.bottom_warp) {
+            tile_ext<R, C, false, kAffine, kSub, kP, kBlock, true>(
+                j0, C, ac, code, U, UF, u_last, g, cap, H, E, best, best_j,
+                B, BF);
+          } else {
+            tile_ext<R, C, false, kAffine, kSub, kP, kBlock>(
+                j0, C, ac, code, U, UF, u_last, g, cap, H, E, best, best_j,
+                B, BF);
+          }
+        } else if constexpr (kP) {
+          tile_ext<R, C, false, kAffine, kSub, kP, kBlock>(
+              j0, C, ac, code, U, UF, u_last, g, cap, H, E, best, best_j, B,
+              BF);
+        } else if constexpr (!kAffine && !kSub) {
+          tile<R, C, false>(j0, C, ac, code, U, u_last, match, mismatch, gap,
+                            H, best, best_j, B);
+        } else {
+          tile_gotoh<R, C, false, kAffine, kSub>(j0, C, ac, code, U, UF,
+                                                 u_last, g, H, E, best,
+                                                 best_j, B, BF);
+        }
+      } else {                                 // the tile holding column m
+        const int nc = m - j0 + 1;
+        if constexpr (kBlock) {
+          if (cap.bottom_warp) {
+            tile_ext<R, C, true, kAffine, kSub, kP, kBlock, true>(
+                j0, nc, ac, code, U, UF, u_last, g, cap, H, E, best, best_j,
+                B, BF);
+          } else {
+            tile_ext<R, C, true, kAffine, kSub, kP, kBlock>(
+                j0, nc, ac, code, U, UF, u_last, g, cap, H, E, best, best_j,
+                B, BF);
+          }
+        } else if constexpr (kP) {
+          tile_ext<R, C, true, kAffine, kSub, kP, kBlock>(
+              j0, nc, ac, code, U, UF, u_last, g, cap, H, E, best, best_j, B,
+              BF);
+        } else if constexpr (!kAffine && !kSub) {
+          tile<R, C, true>(j0, nc, ac, code, U, u_last, match, mismatch, gap,
+                           H, best, best_j, B);
+        } else {
+          tile_gotoh<R, C, true, kAffine, kSub>(j0, nc, ac, code, U, UF,
+                                                u_last, g, H, E, best,
+                                                best_j, B, BF);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (first + r < n) right[first + r + 1] = H[r];
+        }
+        if constexpr (kBlock && kAffine) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (first + r < n) ext.right_e[first + r + 1] = E[r];
+          }
+        }
+      }
+      if (publish && lane == 31) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (j0 + c <= m) {
+            s_pub[(j0 - 1 + c) & (kPublish - 1)] = B[c];
+            if constexpr (kAffine) {
+              s_pubf[(j0 - 1 + c) & (kPublish - 1)] = BF[c];
+            }
+          }
+        }
+      }
+    }
+    if (publish) {
+      // the stripe's last row is thread T - 1's: at the end of a chunk
+      // (or at m) its warp stores the chunk, coalesced, and releases it a
+      // step later, when the stores have landed and the release's fence
+      // holds the block's barrier for no round trip
+      if (flushed > 0 && lane == 31) store_release(progress, flushed);
+      flushed = 0;
+      const int ql = t - (T - 1);
+      const int jl = min(ql * C + C, m);       // its tile's last column
+      if (ql >= 0 && ql * C < m && (jl % kPublish == 0 || jl == m)) {
+        __syncwarp();
+        const int col = ((jl - 1) & ~(kPublish - 1)) + 1 + lane;
+        if (col <= jl) {
+          down_row[col] = s_pub[lane];
+          if constexpr (kAffine) bnd_f[s * m1 + col] = s_pubf[lane];
+        }
+        flushed = jl;
+      }
+    }
+    u_last = U[C - 1];
+    if (lane == 31) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) s_edge[t & 1][warp][c] = B[c];
+      if constexpr (kAffine) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) s_fedge[t & 1][warp][c] = BF[c];
+      }
+    }
+    __syncthreads();
+  }
+  if (flushed > 0 && lane == 31) store_release(progress, flushed);   // m
+
+  // stripe argmax: score desc, then row asc; j is already the row's first
+  int tb = 0, ti = 0, tj = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (first + r < n && best[r] > tb) {
+      tb = best[r];
+      ti = first + r + 1;
+      tj = best_j[r];
+    }
+  }
+  if (tb > 0) atomicMax(&s_best, tb);
+  __syncthreads();
+  if (tb > 0 && tb == s_best) atomicMin(&s_k, k);
+  __syncthreads();
+  int* out = best_out + 4 * (size_t)s;
+  if (k == s_k) {
+    out[0] = tb; out[1] = ti; out[2] = tj; out[3] = 0;
+  } else if (k == 0 && s_best == 0) {
+    out[0] = out[1] = out[2] = out[3] = 0;
+  }
+}
+
+template <int R, int C, bool kAffine, bool kSub, bool kP = false,
+          bool kBlock = false>
+int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
+           int mismatch, int gap, int open, int extend, const int* sub,
+           int A, int T, int* sync, int* bnd, int* bnd_f, int* best,
+           int* right, cudaStream_t stream, const Ext& ext = Ext{}) {
+  constexpr int kTop = (kP || kBlock) ? ext_threads(R) : kMaxThreads;
+  if (m < 1 || n < 1 || T < 32 || T > kTop || T % 32 ||
+      (long long)n + (long long)T * R > INT_MAX ||
+      (long long)m + (long long)T * C > INT_MAX ||
+      (kAffine && bnd_f == nullptr) ||
+      (kSub && (sub == nullptr || A < 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kP && (ext.P == nullptr || ext.pitch < m + 1 || ext.pitch % 4 ||
+             (uintptr_t)(ext.P + 1) % 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kBlock &&
+      (ext.top == nullptr || ext.left == nullptr ||
+       (kAffine && (ext.top_f == nullptr || ext.left_e == nullptr ||
+                    ext.right_e == nullptr ||
+                    (ext.bottom != nullptr && ext.bottom_f == nullptr))))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int stripes = (n + T * R - 1) / (T * R);
+  const size_t smem =
+      (kAffine ? f_ints<C>() * sizeof(int) : 0) +
+      (kSub ? (size_t)((A < kMaxSym ? A : kMaxSym) + 1) * R * T * sizeof(int)
+            : 0);
+  auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock>;
+  if (kSub) {
+    // above 48 KB of static and dynamic shared memory a block needs an
+    // opt-in; the profile alone may pass it
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<stripes, T, smem, stream>>>(a, b, m, n, match, mismatch, gap,
+                                       sync, bnd, best, right, open, extend,
+                                       sub, A, bnd_f, ext);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// the tiles of the affine and table forms and of every K4 and K5 form
+// (stripe_fill.RB_FORM_TILES, RB_EXT_TILES), the points of chip_smoke.py's
+// sweeps; SW_RB_TILE is each source's own
+#define SW_RB_GOTOH_TILES(...)                                               \
+  SW_RB_TILE(8, 4, __VA_ARGS__)                                              \
+  SW_RB_TILE(8, 2, __VA_ARGS__)                                              \
+  SW_RB_TILE(4, 4, __VA_ARGS__)

@@ -1,5 +1,5 @@
 // The Smith-Waterman cell update on Hopper's DPX instructions, shared by
-// the register-blocked kernels (window_warp.cu K6, stripe_rb.cu K1).
+// the register-blocked kernels (window_warp.cu K6, stripe_rb.cuh K1-K5).
 //
 // The rules are those of stripe_kernel.cuh's step (and of the JAX
 // package's scan): the raw code compare aj == bi scores match or

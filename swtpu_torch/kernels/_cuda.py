@@ -26,9 +26,9 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
     "stripe_fill.cu", "stripe_block.cu", "walk_p.cu", "pairs_fill.cu",
     "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
-    "stripe_rb.cu"))
+    "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("stripe_kernel.cuh",
-                                            "sw_cell.cuh"))
+                                            "sw_cell.cuh", "stripe_rb.cuh"))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -108,6 +108,18 @@ ARGTYPES["sw_stripe_rb_affine"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 6
 # bnd, bnd_f, best, right, stream
 ARGTYPES["sw_stripe_rb_sub"] = ([_ptr, _ptr, _int, _int, _ptr] + [_int] * 8
                                 + [_ptr] * 6)
+# K4 register-blocked: the K1-K3 entry's arguments up to right, then P,
+# pitch, stream
+for _mode in ("linear", "affine", "sub"):
+    ARGTYPES[f"sw_stripe_rb_fill_p_{_mode}"] = (
+        ARGTYPES[f"sw_stripe_rb_{_mode}"][:-1] + [_ptr, _int, _ptr])
+# K5 register-blocked: the template's K5 entry's arguments with R, C after
+# T: a, b, m, n, the model, T, R, C, local, then as the template's
+ARGTYPES["sw_stripe_rb_block_linear"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 8
+ARGTYPES["sw_stripe_rb_block_affine"] = ([_ptr, _ptr] + [_int] * 10
+                                         + [_ptr] * 13)
+ARGTYPES["sw_stripe_rb_block_sub"] = ([_ptr, _ptr, _int, _int, _ptr]
+                                      + [_int] * 9 + [_ptr] * 13)
 
 
 @dataclasses.dataclass

@@ -9,7 +9,8 @@ of the device walk of ``swtpu.engine.traceback``:
   H[:, m].
 * ``stripe_fill`` (the ``stripe_fill`` counterpart with ``return_p=True``):
   the same, plus the predecessor codes as a row-major (n+1, m+1) int8 P on
-  the device.
+  the device (on a card, a view of rows padded to ``P_PITCH_ALIGN``
+  bytes).
 * ``band=`` on both (``stripe_fill_raw(band=)``): cells with |i-j| > band
   are H = 0, P = NONE.
 * ``stripe_block`` (the ``stripe_block_fn`` counterpart): a fill with
@@ -18,20 +19,22 @@ of the device walk of ``swtpu.engine.traceback``:
 * ``walk_p`` (the device walk of ``_stripe_window_walk``): the Gotoh walk
   of a row-major P from a corner, the moves end-first.
 
-The scoring picks the kernel: linear match/mismatch (K1, K4
-``sw_stripe_fill_p_linear``), affine
-match/mismatch (K2, ``sw_stripe_fill_p_affine``) and a substitution table
-with linear or affine gaps (K3, ``sw_stripe_fill_p_sub``); and a block
-entry (K5 ``sw_stripe_block_linear``, ``sw_stripe_block_affine``,
-``sw_stripe_block_sub``) serves each scoring. The walk is ``sw_walk_p``.
-Score-only (K1-K3) is routed by the band (``rb_takes``): with no band,
-``stripe_score`` runs the register-blocked stripe of ``csrc/stripe_rb.cu``,
-``sw_stripe_rb_linear`` (K1), ``sw_stripe_rb_affine`` (K2) or
-``sw_stripe_rb_sub`` (K3, either gap model); a band runs the stripe
-template's ``sw_stripe_score_{linear,affine,sub}`` (``csrc/stripe_fill.cu``)
-in their band mode (K4b), as it does the three fill_p entries. ``_launch``
-also reaches the template's score entries unbanded: the earlier K1-K3, on
-no route of the package.
+The scoring picks the kernel: linear match/mismatch, affine
+match/mismatch and a substitution table with linear or affine gaps. With
+no band every call runs the register-blocked stripe of
+``csrc/stripe_rb.cuh`` in the scoring's form: ``stripe_score`` its
+score-only entries (``csrc/stripe_rb.cu``: K1 ``sw_stripe_rb_linear``, K2
+``sw_stripe_rb_affine``, K3 ``sw_stripe_rb_sub``, either gap model),
+``stripe_fill`` its P-capture entries (``csrc/stripe_rb_p.cu``: K4
+``sw_stripe_rb_fill_p_{linear,affine,sub}``) and ``stripe_block`` its
+block entries (``csrc/stripe_rb_block.cu``: K5
+``sw_stripe_rb_block_{linear,affine,sub}``). A band runs the stripe
+template's ``sw_stripe_score_*`` and ``sw_stripe_fill_p_*``
+(``csrc/stripe_fill.cu``) in their band mode (K4b). The walk is
+``sw_walk_p``. ``_launch`` and ``_launch_block`` also reach the
+template's unbanded K1-K4 and its K5 (``sw_stripe_block_*``,
+``csrc/stripe_block.cu``): the earlier designs, on no route of the
+package.
 
 Each runs its hand-written kernel of ``csrc/`` for a tensor on a CUDA
 device and its plain version (``stripe_score_plain``,
@@ -99,6 +102,30 @@ RB_MAX_THREADS = 512            # its __launch_bounds__
 # int8 code reaches a row past RB_MAX_SYMBOLS)
 RB_PROFILE_BYTES = 227 * 1024 - 16 * 1024
 RB_MAX_SYMBOLS = 128
+# the register-blocked K4 and K5 (csrc/stripe_rb_p.cu, stripe_rb_block.cu):
+# mode -> entry
+RB_P_KERNELS = {mode: f"sw_stripe_rb_fill_p_{mode}"
+                for mode in ("linear", "affine", "sub")}
+RB_BLOCK_KERNELS = {mode: f"sw_stripe_rb_block_{mode}"
+                    for mode in ("linear", "affine", "sub")}
+# their (R, C) tiles, in every form, and their default (T, R, C), the
+# fastest of chip_smoke.py's sweeps at the path's sizes (K4 at 16384^2, K5
+# at the lean route's 25632^2 reverse pass), min of 5 interleaved rounds,
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6): K4 (64, 4, 4),
+# since P's scattered stores load each SM's store pipe and 256-row stripes
+# spread them over more SMs than (128, 8, 4)'s 1024 rows; K5 (128, 8, 4)
+RB_EXT_TILES = ((8, 4), (8, 2), (4, 4))
+RB_P_DEFAULTS = dict.fromkeys(RB_P_KERNELS, (64, 4, 4))
+RB_BLOCK_DEFAULTS = dict.fromkeys(RB_BLOCK_KERNELS, (128, 8, 4))
+# their launch bounds: 256 threads at R = 8, whose registers (up to 203)
+# pass the 128 a 512-thread block allows, and RB_MAX_THREADS for the one R =
+# 4 tile (at most 117), which a T above 256 runs when the caller names no
+# tile
+RB_EXT_MAX_THREADS = 256
+RB_WIDE_TILE = (4, 4)
+# K4 stores a row's codes of a tile at once, into rows of a pitch rounded
+# up to P_PITCH_ALIGN bytes and shifted so that column 1 is word-aligned
+P_PITCH_ALIGN = 16
 FILL_P_KERNEL = "sw_stripe_fill_p_linear"
 SCORE_AFFINE_KERNEL = "sw_stripe_score_affine"
 FILL_P_AFFINE_KERNEL = "sw_stripe_fill_p_affine"
@@ -118,7 +145,8 @@ _KERNELS = {
 }
 launches = dict.fromkeys(
     [*_KERNELS.values(), *(k + BAND_SUFFIX for k in _KERNELS.values()),
-     *BLOCK_KERNELS.values(), WALK_KERNEL, *RB_KERNELS.values()], 0)
+     *BLOCK_KERNELS.values(), WALK_KERNEL, *RB_KERNELS.values(),
+     *RB_P_KERNELS.values(), *RB_BLOCK_KERNELS.values()], 0)
 plain_calls = {"stripe_score_plain": 0, "stripe_fill_plain": 0,
                "stripe_block_plain": 0, "walk_p_plain": 0}
 
@@ -136,8 +164,9 @@ def _mode(scoring: Scoring, substitution) -> str:
 
 def kernel_name(scoring: Scoring, substitution, capture_p: bool,
                 banded: bool = False) -> str:
-    """The launch counter of the C entry that serves this scoring on a
-    CUDA device: the entry's name, plus ``BAND_SUFFIX`` when banded."""
+    """The launch counter of the stripe template's K1-K4 entry of this
+    scoring: the entry's name, plus ``BAND_SUFFIX`` when banded (K4b, what
+    a banded call runs on a CUDA device)."""
     name = _KERNELS[capture_p, _mode(scoring, substitution)]
     return name + BAND_SUFFIX if banded else name
 
@@ -152,6 +181,22 @@ def score_kernel_name(scoring: Scoring, substitution,
     return kernel_name(scoring, substitution, False, banded)
 
 
+def fill_kernel_name(scoring: Scoring, substitution,
+                     banded: bool = False) -> str:
+    """The launch counter of what ``stripe_fill`` runs on a CUDA device:
+    the register-blocked K4 entry of the scoring with no band, the
+    template's banded K4 (K4b) with one."""
+    if banded:
+        return kernel_name(scoring, substitution, True, True)
+    return RB_P_KERNELS[_mode(scoring, substitution)]
+
+
+def block_route_name(scoring: Scoring, substitution) -> str:
+    """The launch counter of what ``stripe_block`` runs on a CUDA device:
+    the register-blocked K5 entry of the scoring."""
+    return RB_BLOCK_KERNELS[_mode(scoring, substitution)]
+
+
 def rb_takes(scoring: Scoring, substitution,
              band: Optional[int]) -> bool:
     """The route of ``stripe_score`` on a card: the register-blocked K1,
@@ -162,24 +207,34 @@ def rb_takes(scoring: Scoring, substitution,
 
 def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
              C: Optional[int] = None, mode: str = "linear",
-             A: int = 0) -> tuple:
+             A: int = 0, kind: str = "score") -> tuple:
     """(threads, rows per thread, columns per step) of a register-blocked
-    launch of ``mode`` ('linear', 'affine' or 'sub', an alphabet of A
-    symbols) over n rows: T threads (default the form's, RB_DEFAULTS; a
-    multiple of 32 up to RB_MAX_THREADS, each holding R rows), no more
-    than ceil(n / R) needs, rounded up to a warp, and, for a table, no
-    more than the profile's shared memory holds (RB_PROFILE_BYTES)."""
-    dT, dR, dC = RB_DEFAULTS[mode]
-    T, R, C = (dT if T is None else T, dR if R is None else R,
-               dC if C is None else C)
+    launch of ``kind`` ('score' K1-K3, 'fill_p' K4 or 'block' K5) in
+    ``mode`` ('linear', 'affine' or 'sub', an alphabet of A symbols) over
+    n rows: T threads (default the form's, RB_DEFAULTS, RB_P_DEFAULTS or
+    RB_BLOCK_DEFAULTS; a multiple of 32 up to RB_MAX_THREADS, each holding
+    R rows; K4 and K5 above RB_EXT_MAX_THREADS only in RB_WIDE_TILE, their
+    default there), no more than ceil(n / R) needs, rounded up to a warp,
+    and, for a table, no more than the profile's shared memory holds
+    (RB_PROFILE_BYTES)."""
+    if kind == "score":
+        defaults, tiles = RB_DEFAULTS, RB_FORM_TILES[mode]
+    else:
+        defaults = RB_P_DEFAULTS if kind == "fill_p" else RB_BLOCK_DEFAULTS
+        tiles = RB_EXT_TILES
+    dT, dR, dC = defaults[mode]
+    T = dT if T is None else T
     if T < 32 or T > RB_MAX_THREADS or T % 32:
-        raise ValueError(f"threads T={T} of the register-blocked K1-K3 must "
-                         f"be a multiple of 32 in [32, {RB_MAX_THREADS}] "
-                         f"(each holds {R} rows)")
-    tiles = RB_FORM_TILES[mode]
+        raise ValueError(f"threads T={T} of the register-blocked {kind} "
+                         "kernels must be a multiple of 32 in [32, "
+                         f"{RB_MAX_THREADS}]")
+    if kind != "score" and T > RB_EXT_MAX_THREADS:
+        (dR, dC), tiles = RB_WIDE_TILE, (RB_WIDE_TILE,)
+    R, C = dR if R is None else R, dC if C is None else C
     if (R, C) not in tiles:
         raise ValueError(f"rows per thread R={R} and columns per step C={C}"
-                         f" must be one of the {mode} tiles {tiles}")
+                         f" must be one of the {mode} {kind} tiles {tiles}"
+                         f" at T={T}")
     T = min(T, -(-(-(-n // R)) // 32) * 32)
     if mode == "sub":
         rows = min(A, RB_MAX_SYMBOLS) + 1
@@ -188,7 +243,8 @@ def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
 
 
 def block_kernel_name(scoring: Scoring, substitution) -> str:
-    """The K5 entry that serves this scoring on a CUDA device."""
+    """The stripe template's K5 entry of this scoring, the earlier design
+    (``block_route_name`` names what a CUDA device runs)."""
     return BLOCK_KERNELS[_mode(scoring, substitution)]
 
 
@@ -264,9 +320,13 @@ def stripe_fill(a: torch.Tensor, b: torch.Tensor,
                 scoring: Scoring = Scoring(), T: Optional[int] = None,
                 substitution: Optional[torch.Tensor] = None,
                 band: Optional[int] = None) -> StripeOut:
-    """``stripe_score`` plus the row-major predecessor matrix P."""
+    """``stripe_score`` plus the row-major predecessor matrix P. ``T``:
+    threads per block (CUDA only; with no band each holds R rows, up to
+    RB_MAX_THREADS threads, ``rb_shape``; banded, one row, up to 1024)."""
     if _route(a, b, scoring, substitution) == "cpu":
         return stripe_fill_plain(a, b, scoring, substitution, band)
+    if band is None:
+        return _launch_rb_p(a, b, scoring, T, sub=substitution)
     return _launch(a, b, scoring, T, substitution, True, band)
 
 
@@ -305,15 +365,17 @@ def stripe_block(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
     affine also F of row 0 = ``top_f`` (m+1,) and E of column 0 =
     ``left_e`` (n+1,), NEG where None. ``local=False`` runs the global
     (Needleman-Wunsch) recurrence; the max then counts positive cells
-    only. ``want_bottom``: also export H and F of row n."""
+    only. ``want_bottom``: also export H and F of row n. ``T``: threads
+    per block (CUDA only; each holds R rows, up to RB_MAX_THREADS,
+    ``rb_shape``)."""
     dev = _route(a, b, scoring, substitution)
     bounds = _check_block(a, b, scoring, top_row, left_col, top_f, left_e)
     if dev == "cpu":
         return stripe_block_plain(a, b, scoring, *bounds, local=local,
                                   substitution=substitution,
                                   want_bottom=want_bottom)
-    return _launch_block(a, b, scoring, T, substitution, *bounds, local,
-                         want_bottom)
+    return _launch_rb_block(a, b, scoring, T, substitution, *bounds, local,
+                            want_bottom)
 
 
 def stripe_block_plain(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
@@ -347,10 +409,12 @@ def walk_p(P: torch.Tensor, wn: int, wm: int) -> torch.Tensor:
         return walk_p_plain(P, wn, wm)
     if P.device.type != "cuda":
         raise ValueError(f"no walk for device {P.device}")
-    P = P.contiguous()
+    if P.stride(1) != 1:
+        P = P.contiguous()
+    # the row pitch: K4's padded rows are walked in place
     moves = torch.empty(max(wn + wm, 1), dtype=torch.int8, device=P.device)
     count = torch.empty(1, dtype=torch.int32, device=P.device)
-    _call(WALK_KERNEL, P.device, [P.data_ptr(), P.shape[1], wn, wm,
+    _call(WALK_KERNEL, P.device, [P.data_ptr(), P.stride(0), wn, wm,
                                   moves.data_ptr(), count.data_ptr()])
     return moves[:int(count)].cpu()
 
@@ -544,6 +608,24 @@ def _launch(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
     return StripeOut(_reduce(best, right, n), right, P)
 
 
+def _rb_scratch(a, b, scoring: Scoring, sub, T: int, R: int) -> tuple:
+    """(a, b, sub, sync, bnd, bnd_f, best) of a register-blocked launch:
+    the inputs contiguous, the stripe ticket and progress counters
+    (zeroed), the H (and affine F) rows handed between stripes, the
+    per-stripe firsts."""
+    m, n = a.numel(), b.numel()
+    if n > (1 << 31) - 1 - T * R:
+        raise ValueError(f"n={n} rows overflow int32")
+    dev, i32 = a.device, torch.int32
+    stripes = -(-n // (T * R))
+    sync = torch.zeros(stripes + 1, dtype=i32, device=dev)
+    bnd = torch.empty(max(stripes - 1, 1) * (m + 1), dtype=i32, device=dev)
+    bnd_f = torch.empty_like(bnd) if scoring.is_affine else None
+    best = torch.empty((stripes, 4), dtype=i32, device=dev)
+    return (a.contiguous(), b.contiguous(),
+            None if sub is None else sub.contiguous(), sync, bnd, bnd_f, best)
+
+
 def _launch_rb(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
                T: Optional[int], R: Optional[int] = None,
                C: Optional[int] = None,
@@ -553,52 +635,99 @@ def _launch_rb(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
     mode = _mode(scoring, sub)
     m, n = a.numel(), b.numel()
     T, R, C = rb_shape(n, T, R, C, mode, 0 if sub is None else sub.shape[0])
-    if n > (1 << 31) - 1 - T * R:
-        raise ValueError(f"n={n} rows overflow int32")
-    dev = a.device
-    i32 = torch.int32
-    a, b = a.contiguous(), b.contiguous()
-    sub = None if sub is None else sub.contiguous()
-    stripes = -(-n // (T * R))
-    sync = torch.zeros(stripes + 1, dtype=i32, device=dev)
-    bnd = torch.empty(max(stripes - 1, 1) * (m + 1), dtype=i32, device=dev)
+    a, b, sub, sync, bnd, bnd_f, best = _rb_scratch(a, b, scoring, sub, T, R)
     # the F rows handed between stripes; the linear table entry takes null
-    bnd_f = torch.empty_like(bnd) if scoring.is_affine else None
     bnds = [bnd.data_ptr()] + ([_ptr(bnd_f)] if mode != "linear" else [])
-    best = torch.empty((stripes, 4), dtype=i32, device=dev)
-    right = torch.zeros(n + 1, dtype=i32, device=dev)
-    _call(RB_KERNELS[mode], dev,
+    right = torch.zeros(n + 1, dtype=torch.int32, device=a.device)
+    _call(RB_KERNELS[mode], a.device,
           [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T, R, C,
            sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr()])
     return StripeOut(_reduce(best, right, n), right, None)
 
 
-def _launch_block(a, b, scoring, T, sub, top_row, left_col, top_f, left_e,
-                  local, want_bottom) -> BlockOut:
-    name = block_kernel_name(scoring, sub)
+def p_matrix(n: int, m: int, device: torch.device) -> torch.Tensor:
+    """An uninitialized (n+1, m+1) int8 P for K4: a view of rows of a pitch
+    rounded up to P_PITCH_ALIGN bytes whose column 1 lies on a 4-byte
+    boundary (the storage starts 3 bytes into its allocation), so that a
+    row's codes of a tile store as words."""
+    pitch = -(-(m + 1) // P_PITCH_ALIGN) * P_PITCH_ALIGN
+    buf = torch.empty(3 + (n + 1) * pitch, dtype=torch.int8, device=device)
+    return buf[3:].view(n + 1, pitch)[:, :m + 1]
+
+
+def _launch_rb_p(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
+                 T: Optional[int], R: Optional[int] = None,
+                 C: Optional[int] = None,
+                 sub: Optional[torch.Tensor] = None,
+                 P: Optional[torch.Tensor] = None) -> StripeOut:
+    """The register-blocked K4 (``RB_P_KERNELS``, by the scoring) at T
+    threads of R rows and C columns a step (``rb_shape``). ``P``: the
+    (n+1, m+1) int8 output with unit column stride, column 1 and the row
+    pitch 4-byte aligned, default ``p_matrix``'s; the kernel writes every
+    cell of it and no other byte."""
+    mode = _mode(scoring, sub)
     m, n = a.numel(), b.numel()
-    dev = a.device
+    T, R, C = rb_shape(n, T, R, C, mode, 0 if sub is None else sub.shape[0],
+                       "fill_p")
+    if P is None:
+        P = p_matrix(n, m, a.device)
+    if P.dtype != torch.int8 or P.shape != (n + 1, m + 1) \
+            or P.stride(1) != 1 or P.stride(0) % 4 \
+            or (P.data_ptr() + 1) % 4 or P.device != a.device:
+        raise ValueError(f"P must be int8 ({n + 1}, {m + 1}) with unit "
+                         "column stride, column 1 and the row pitch 4-byte "
+                         f"aligned, on {a.device}, got {P.dtype} "
+                         f"{tuple(P.shape)} {P.stride()} on {P.device}")
+    a, b, sub, sync, bnd, bnd_f, best = _rb_scratch(a, b, scoring, sub, T, R)
+    bnds = [bnd.data_ptr()] + ([_ptr(bnd_f)] if mode != "linear" else [])
+    right = torch.zeros(n + 1, dtype=torch.int32, device=a.device)
+    _call(RB_P_KERNELS[mode], a.device,
+          [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T, R, C,
+           sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr(),
+           P.data_ptr(), P.stride(0)])
+    return StripeOut(_reduce(best, right, n), right, P)
+
+
+def _launch_rb_block(a, b, scoring, T, sub, top_row, left_col, top_f,
+                     left_e, local, want_bottom, R=None, C=None) -> BlockOut:
+    """The register-blocked K5 (``RB_BLOCK_KERNELS``, by the scoring) at T
+    threads of R rows and C columns a step (``rb_shape``); the
+    boundaries as ``_check_block`` returns them."""
+    mode = _mode(scoring, sub)
+    m, n = a.numel(), b.numel()
+    T, R, C = rb_shape(n, T, R, C, mode, 0 if sub is None else sub.shape[0],
+                       "block")
+    a, b, sub, sync, bnd, bnd_f, best = _rb_scratch(a, b, scoring, sub, T, R)
+    exports, args = _block_args(a, b, scoring, sub, [T, R, C], local,
+                                top_row, left_col, top_f, left_e,
+                                want_bottom, sync, bnd, bnd_f, best)
+    _call(RB_BLOCK_KERNELS[mode], a.device, args)
+    return BlockOut(_reduce(best, exports[1], n), *exports)
+
+
+def _block_args(a, b, scoring, sub, shape, local, top_row, left_col, top_f,
+                left_e, want_bottom, sync, bnd, bnd_f, best) -> tuple:
+    """((bottom, right, bottom_f, right_e), the arguments of a K5 entry,
+    the template's or the register-blocked one by ``shape``, [T] or [T,
+    R, C]): the exports allocated, [0] of each set from the boundaries
+    (the kernels write the rest): right[0] = top_row[m], bottom[0] =
+    left_col[n], the affine ones NEG."""
+    m, n = a.numel(), b.numel()
     i32 = torch.int32
-    a, b = a.contiguous(), b.contiguous()
-    sub = None if sub is None else sub.contiguous()
-    top_row, left_col = top_row.contiguous(), left_col.contiguous()
-    T, sync, bnd, bnd_f, best = _scratch(n, m, T, sub, scoring.is_affine,
-                                         dev)
-    # [0] of each export is the boundary's, set here; the kernel writes
-    # the rest
-    right = torch.empty(n + 1, dtype=i32, device=dev)
+    right = torch.empty(n + 1, dtype=i32, device=a.device)
     right[0] = top_row[m]
     bottom = bottom_f = right_e = None
     if want_bottom:
-        bottom = torch.empty(m + 1, dtype=i32, device=dev)
+        bottom = torch.empty(m + 1, dtype=i32, device=a.device)
         bottom[0] = left_col[n]
-    args = [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T,
+    top_row, left_col = top_row.contiguous(), left_col.contiguous()
+    args = [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), *shape,
             int(local), top_row.data_ptr(), left_col.data_ptr()]
     if scoring.is_affine:
         top_f, left_e = top_f.contiguous(), left_e.contiguous()
-        right_e = torch.full((n + 1,), NEG, dtype=i32, device=dev)
+        right_e = torch.full((n + 1,), NEG, dtype=i32, device=a.device)
         if want_bottom:
-            bottom_f = torch.full((m + 1,), NEG, dtype=i32, device=dev)
+            bottom_f = torch.full((m + 1,), NEG, dtype=i32, device=a.device)
     if scoring.is_affine or sub is not None:
         args += [_ptr(top_f), _ptr(left_e), sync.data_ptr(), bnd.data_ptr(),
                  _ptr(bnd_f), best.data_ptr(), right.data_ptr(),
@@ -606,9 +735,24 @@ def _launch_block(a, b, scoring, T, sub, top_row, left_col, top_f, left_e,
     else:
         args += [sync.data_ptr(), bnd.data_ptr(), best.data_ptr(),
                  right.data_ptr(), _ptr(bottom)]
-    _call(name, dev, args)
-    return BlockOut(_reduce(best, right, n), bottom, right, bottom_f,
-                    right_e)
+    return (bottom, right, bottom_f, right_e), args
+
+
+def _launch_block(a, b, scoring, T, sub, top_row, left_col, top_f, left_e,
+                  local, want_bottom) -> BlockOut:
+    """The stripe template's K5 (``block_kernel_name``), the earlier
+    design, at T rows a stripe."""
+    name = block_kernel_name(scoring, sub)
+    m, n = a.numel(), b.numel()
+    a, b = a.contiguous(), b.contiguous()
+    sub = None if sub is None else sub.contiguous()
+    T, sync, bnd, bnd_f, best = _scratch(n, m, T, sub, scoring.is_affine,
+                                         a.device)
+    exports, args = _block_args(a, b, scoring, sub, [T], local, top_row,
+                                left_col, top_f, left_e, want_bottom, sync,
+                                bnd, bnd_f, best)
+    _call(name, a.device, args)
+    return BlockOut(_reduce(best, exports[1], n), *exports)
 
 
 def _reduce(best: torch.Tensor, right: torch.Tensor, n: int) -> torch.Tensor:

@@ -197,7 +197,13 @@ def test_banded_kernel_names():
         assert sf.kernel_name(sc, S, True, True) == \
             f"sw_stripe_fill_p_{mode}[band]"
         assert sf.block_kernel_name(sc, S) == f"sw_stripe_block_{mode}"
-    assert len(sf.launches) == 19 and sf.WALK_KERNEL in sf.launches
+        # a band keeps the template's K4b; unbanded calls the
+        # register-blocked K4 and every block fill its K5
+        assert sf.fill_kernel_name(sc, S, True) == \
+            f"sw_stripe_fill_p_{mode}[band]"
+        assert sf.fill_kernel_name(sc, S) == f"sw_stripe_rb_fill_p_{mode}"
+        assert sf.block_route_name(sc, S) == f"sw_stripe_rb_block_{mode}"
+    assert len(sf.launches) == 25 and sf.WALK_KERNEL in sf.launches
 
 
 def test_cli_band_on_cpu():

@@ -40,6 +40,8 @@ from swtpu_torch.kernels import stripe_fill as sf
 KPUBLISH, KAHEAD, KRING = 32, 64, 8192     # the kernel's constants
 KMAXSYM = 128
 NEG, NEG_SUB = -(1 << 30), -(1 << 20)
+NONE, UP, LEFT, DIAGONAL, E_EXT, F_EXT = 0, 1, 2, 3, 4, 8   # P's codes
+GUARD = 0x5A                # a byte the model's P stores never write
 LINEAR = Scoring()
 DNA_AFFINE = Scoring(mode="affine")                       # 3/-3, -4/-1
 PROTEIN = Scoring(mode="affine", gap_open=-11, gap_extend=-1)
@@ -47,10 +49,17 @@ PROTEIN_LINEAR = Scoring(gap=-6)
 
 
 def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
-             C: int, table: np.ndarray = None) -> tuple:
+             C: int, table: np.ndarray = None, capture_p: bool = False,
+             block: dict = None, extra: dict = None) -> tuple:
     """The kernel's schedule in Python: ((4,) best, (n+1,) right) as the
     wrapper returns them. ``table``: the (A, A) S[a_code, b_code] of the
-    substitution form."""
+    substitution form. ``capture_p``: the K4 form, storing each cell's
+    code into P (a row's codes of a whole tile at once, the tile holding
+    column m a byte a cell), rows 0 and column 0 NONE. ``block``: the K5 form, a
+    dict of the injected ``top``, ``left`` (affine ``top_f``, ``left_e``),
+    ``local`` and ``want_bottom``. ``extra``, a dict, gets ``P`` (the
+    (n+1, m+1) codes), ``right_e``, ``bottom`` and ``bottom_f`` as the
+    forms write them."""
     m, n = len(a), len(b)
     affine = sc.is_affine
     k_steps = KPUBLISH // C
@@ -60,6 +69,16 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
     released = [set() for _ in range(S)]
     right = [0] * (n + 1)
     stripe_best = []
+    # P with a guard row and column: cells never stored keep GUARD
+    P = np.full((n + 2, m + 2), GUARD, np.int16) if capture_p else None
+    if block is not None:
+        top, left = block["top"], block["left"]
+        top_f = block.get("top_f") if affine else None
+        left_e = block.get("left_e") if affine else None
+        floor = 0 if block["local"] else None
+        right_e = [NEG] * (n + 1)
+        bottom = [None] * (m + 1) if block["want_bottom"] else None
+        bottom_f = [None] * (m + 1) if block["want_bottom"] else None
     for s in range(S):
         kt = (min(T * R, n - s * T * R) + R - 1) // R
         steps = -(-m // C) + kt - 1
@@ -80,6 +99,13 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                             int(table[q, cb[4 * r4 + x]])
                             if q < rows and cb[4 * r4 + x] >= 0 else NEG_SUB
                             for x in range(4))
+        if capture_p:                     # row 0 (stripe 0) and column 0
+            if s == 0:
+                P[0, :m + 1] = NONE
+            for k in range(T):
+                for r in range(R):
+                    if first[k] + r < n:
+                        P[first[k] + r + 1, 0] = NONE
         publish = (s + 1) * T * R < n
         ring = {c: c for c in range(min(KAHEAD, m))}   # slot -> column held
         a_next = [KAHEAD + x for x in range(32)]       # warp 0's register
@@ -87,7 +113,13 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
         def fetch(lo):
             """A chunk from column lo (H's and F's), after waiting for the
             progress of the stripe above to reach its end: a column it
-            releases."""
+            releases; stripe 0 of the block form reads the injected row
+            0, with no wait."""
+            if s == 0:
+                return ([int(top[lo + x]) if lo + x <= m else 0
+                         for x in range(32)],
+                        [int(top_f[lo + x]) if affine and lo + x <= m
+                         else NEG for x in range(32)])
             want = min(lo + KPUBLISH - 1, m)
             assert want % KPUBLISH == 0 or want == m
             assert want in released[s - 1]
@@ -96,8 +128,9 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     [bnd_f[s - 1, lo + x] if affine and lo + x <= m else NEG
                      for x in range(32)])
 
+        reads_row = s > 0 or block is not None
         cur = nxt = ([0] * 32, [NEG] * 32)
-        if s > 0:
+        if reads_row:
             cur = fetch(1)
             if m > KPUBLISH:
                 nxt = fetch(KPUBLISH + 1)
@@ -108,6 +141,18 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
         Bv = [[0] * C for _ in range(T)]
         BFv = [[NEG] * C for _ in range(T)]
         u_last = [0] * T
+        if block is not None:             # column 0: the rows' H and E
+            for k in range(T):
+                for r in range(R):
+                    if first[k] + r < n:
+                        H[k][r] = int(left[first[k] + r + 1])
+                        if affine:
+                            E[k][r] = int(left_e[first[k] + r + 1])
+                if first[k] <= n:
+                    u_last[k] = int(left[first[k]])
+                h_last = (int(left[first[k] + R]) if first[k] + R <= n
+                          else 0)
+                Bv[k] = [h_last] * C
         s_edge = [[[0] * C for _ in range(T // 32)] for _ in range(2)]
         s_fedge = [[[NEG] * C for _ in range(T // 32)] for _ in range(2)]
         s_bnd = [([0] * 32, [NEG] * 32), ([0] * 32, [NEG] * 32)]
@@ -123,7 +168,7 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     if col < m:
                         ring[col % KRING] = col
                     a_next[x] = col + KPUBLISH
-                if s > 0:
+                if reads_row:
                     if t > 0:
                         cur = nxt
                         if c0 + KPUBLISH + 1 <= m:
@@ -138,7 +183,7 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                 elif k:
                     U.append(list(s_edge[(t + 1) & 1][warp - 1]))
                     UF.append(list(s_fedge[(t + 1) & 1][warp - 1]))
-                elif s:
+                elif reads_row:
                     slot = s_bnd[(t // k_steps) & 1]
                     U.append([slot[0][(t * C + c) % 32] for c in range(C)])
                     UF.append([slot[1][(t * C + c) % 32] for c in range(C)])
@@ -151,6 +196,8 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                 if not (k < kt and q >= 0 and j0 <= m):
                     continue
                 nc = min(C, m - j0 + 1)
+                whole = j0 + C - 1 < m
+                tile_codes = {}          # a whole tile's: (row, column)
                 for c in range(nc):
                     col = q * C + c
                     assert ring[col % KRING] == col    # staged, not evicted
@@ -164,25 +211,60 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     else:
                         score = [sc.match if aj == code[k][r]
                                  else sc.mismatch for r in range(R)]
+                    fr = []
                     for r in range(R):
-                        left = H[k][r]
-                        if affine:
-                            E[k][r] = max(E[k][r] + sc.gap_extend,
-                                          left + sc.gap_open)
-                            f = max(f + sc.gap_extend, up + sc.gap_open)
-                            h = max(diag + score[r], E[k][r], f, 0)
+                        left_h = H[k][r]
+                        d = diag + score[r]
+                        if block is not None and floor is None:
+                            x = d                      # the global form
                         else:
-                            h = max(diag + score[r], left + sc.gap,
-                                    up + sc.gap, 0)
+                            x = max(d, 0)
+                        if affine:
+                            e_ext = E[k][r] + sc.gap_extend
+                            f_ext = f + sc.gap_extend
+                            E[k][r] = max(e_ext, left_h + sc.gap_open)
+                            f = max(f_ext, up + sc.gap_open)
+                            up_v, left_v = f, E[k][r]
+                        else:
+                            up_v = up + sc.gap
+                            left_v = left_h + sc.gap
+                        h = max(x, up_v, left_v)
+                        if capture_p:
+                            # the template's order: from 0 and NONE a
+                            # strictly greater DIAG, then UP, then LEFT
+                            h1 = max(d, 0)
+                            move = (LEFT if left_v > max(h1, up_v)
+                                    else UP if up_v > h1
+                                    else DIAGONAL if d > 0 else NONE)
+                            if affine:
+                                move += ((E_EXT if E[k][r] == e_ext else 0)
+                                         + (F_EXT if f == f_ext else 0))
+                            if first[k] + r < n:
+                                if whole:
+                                    tile_codes[r, c] = move
+                                else:
+                                    assert P[first[k] + r + 1, j0 + c] \
+                                        == GUARD
+                                    P[first[k] + r + 1, j0 + c] = move
+                        fr.append(f)
                         if h > best[k][r]:
                             best[k][r], best_j[k][r] = h, j0 + c
-                        diag, up, H[k][r] = left, h, h
+                        diag, up, H[k][r] = left_h, h, h
+                    if block is not None and bottom is not None \
+                            and first[k] < n <= first[k] + R:
+                        bottom[j0 + c] = H[k][n - 1 - first[k]]
+                        bottom_f[j0 + c] = fr[n - 1 - first[k]]
                     Bv[k][c] = H[k][R - 1]
                     BFv[k][c] = f
-                if j0 + C - 1 >= m:               # the tile holding column m
+                for (r, c), move in tile_codes.items():   # once a tile
+                    assert P[first[k] + r + 1, j0 + c] == GUARD
+                    P[first[k] + r + 1, j0 + c] = move
+                if not whole:                     # the tile holding column m
                     for r in range(R):
                         if first[k] + r < n:
                             right[first[k] + r + 1] = H[k][r]
+                            if block is not None:
+                                right_e[first[k] + r + 1] = E[k][r]
                 if publish and k == T - 1:
                     for c in range(nc):
                         s_pub[(j0 - 1 + c) % 32] = Bv[k][c]
@@ -219,12 +301,28 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                 if first[k] + r < n and best[k][r] > tb:
                     tb, ti, tj = best[k][r], first[k] + r + 1, best_j[k][r]
             tops.append((tb, ti, tj))
-        top = max(x[0] for x in tops)
-        stripe_best.append([*next(x for x in tops if x[0] == top), 0]
-                           if top > 0 else [0, 0, 0, 0])
+        top_s = max(x[0] for x in tops)
+        stripe_best.append([*next(x for x in tops if x[0] == top_s), 0]
+                           if top_s > 0 else [0, 0, 0, 0])
     right_t = torch.tensor(right, dtype=torch.int32)
+    if block is not None:
+        right_t[0] = right[0] = int(top[m])
     best_t = sf._reduce(torch.tensor(stripe_best, dtype=torch.int32),
                         right_t, n)
+    if extra is not None:
+        if capture_p:
+            # every cell of rows 0..n, columns 0..m stored, and no other
+            assert (P[:n + 1, :m + 1] != GUARD).all()
+            assert (P[n + 1] == GUARD).all() and (P[:, m + 1] == GUARD).all()
+            extra["P"] = P[:n + 1, :m + 1].astype(np.int8)
+        if block is not None:
+            extra["right_e"] = right_e if affine else None
+            if bottom is not None:
+                bottom[0] = int(left[n])
+                bottom_f[0] = NEG
+                assert None not in bottom
+                extra["bottom"] = bottom
+                extra["bottom_f"] = bottom_f if affine else None
     return best_t.tolist(), right
 
 

@@ -223,12 +223,14 @@ def test_kernel_names_follow_the_scoring():
            "sw_stripe_score_affine", "sw_stripe_fill_p_affine",
            "sw_stripe_score_sub", "sw_stripe_fill_p_sub"]
     # each counts its banded launches apart; then the block entries, the
-    # walk and the register-blocked K1-K3
+    # walk and the register-blocked K1-K5
     assert sorted(sf.launches) == sorted(
         six + [k + "[band]" for k in six]
         + ["sw_stripe_block_linear", "sw_stripe_block_affine",
            "sw_stripe_block_sub", "sw_walk_p", "sw_stripe_rb_linear",
-           "sw_stripe_rb_affine", "sw_stripe_rb_sub"])
+           "sw_stripe_rb_affine", "sw_stripe_rb_sub"]
+        + [f"sw_stripe_rb_{kind}_{mode}" for kind in ("fill_p", "block")
+           for mode in ("linear", "affine", "sub")])
 
 
 def test_substitution_gates_take_only_negative_gaps():
@@ -551,16 +553,22 @@ def test_new_kernels_match_plain_on_card(cuda, kind, m, n, T):
         got_s = sf.stripe_score(a, b, sc, T=min(T, sf.RB_MAX_THREADS),
                                 substitution=S)
         got_t = sf._launch(a, b, sc, T, S, False, None)
-        got_f = sf.stripe_fill(a, b, sc, T=T, substitution=S)
+        # fill_p runs the register-blocked K4 (at most RB_MAX_THREADS
+        # threads); the template's K4 at T through the private launcher
+        got_f = sf.stripe_fill(a, b, sc, T=min(T, sf.RB_MAX_THREADS),
+                               substitution=S)
+        got_tf = sf._launch(a, b, sc, T, S, True, None)
         torch.cuda.synchronize()
         for got in (got_s, got_t):
             assert torch.equal(got.best, plain_s.best)
             assert torch.equal(got.right_col, plain_s.right_col)
-        assert torch.equal(got_f.best, plain_s.best)
-        assert torch.equal(got_f.right_col, plain_s.right_col)
-        assert torch.equal(got_f.P, plain_f.P)
+        for got in (got_f, got_tf):
+            assert torch.equal(got.best, plain_s.best)
+            assert torch.equal(got.right_col, plain_s.right_col)
+            assert torch.equal(got.P, plain_f.P)
     assert sf.launches[sf.score_kernel_name(sc, S)] == 3
     assert sf.launches[sf.kernel_name(sc, S, False)] == 3
+    assert sf.launches[sf.fill_kernel_name(sc, S)] == 3
     assert sf.launches[sf.kernel_name(sc, S, True)] == 3
     assert not any(sf.plain_calls.values())
 

@@ -383,7 +383,7 @@ def test_block_kernels_match_plain_on_card(cuda, kind, m, n, local,
             assert (x is None) == (y is None)
             if x is not None:
                 assert torch.equal(x, y), T
-    assert sf.launches[sf.block_kernel_name(sc, S)] == 2
+    assert sf.launches[sf.block_route_name(sc, S)] == 2
     assert sf.plain_calls["stripe_block_plain"] == 0
 
 
@@ -411,7 +411,7 @@ def test_lean_routes_on_card_match_cpu(cuda, kind, monkeypatch):
         got = fn(a, b, sc, sub=S, alphabet=ALPHA[kind], device=cuda)
         assert got == want
         assert not any(sf.plain_calls.values()), sf.plain_calls
-        assert sf.launches[sf.block_kernel_name(sc, S)] > 0
+        assert sf.launches[sf.block_route_name(sc, S)] > 0
 
 
 @pytest.mark.gpu
@@ -428,8 +428,8 @@ def test_width_one_launches_the_kernels_on_card(cuda, kind, monkeypatch):
                        device=cuda) == want
     assert _row_split(a, b, sc, S, tb, device=cuda) == want_rows
     assert not any(sf.plain_calls.values()), sf.plain_calls
-    for name in (sf.score_kernel_name(sc, S), sf.kernel_name(sc, S, True),
-                 sf.block_kernel_name(sc, S), sf.WALK_KERNEL):
+    for name in (sf.score_kernel_name(sc, S), sf.fill_kernel_name(sc, S),
+                 sf.block_route_name(sc, S), sf.WALK_KERNEL):
         assert sf.launches[name] > 0, name
     # and each wrapper at m = 1 against its plain version
     at, bt, St = t(a), t(b), t(S)
