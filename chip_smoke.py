@@ -23,17 +23,21 @@ records, and ``python -m swtpu_torch map`` on 256 of those reads), and the
 sanitize path (``swtpu_torch.sanitize`` at 4096^2 and
 ``sanitize_pairs_packed`` on 16 pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Six kernels have a second,
+4096 4096 --skip-backtrack --sanitize``). Eight kernels have a second,
 earlier design beside them: unbanded score-only runs the register-blocked
 K1, K2 and K3 (``csrc/stripe_rb.cu``), unbanded P capture its K4
 (``csrc/stripe_rb_p.cu``, a row's codes of a tile stored as words), every
-block fill its K5 (``csrc/stripe_rb_block.cu``), and the search's window
-scorer the warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1-K6,
-the stripe template's, are held to their plain versions and timed in
-turns with the new ones in the same run (they launch on no path, bar K6
-for reads longer than 512 rows, and K4 with a band), K4 into guarded
-buffers (no byte off P written), and K1-K5 are swept over their (T, R,
-C). Each
+block fill its K5 (``csrc/stripe_rb_block.cu``), a band its band form
+(K4b, ``csrc/stripe_rb_band.cu``, each stripe visiting only the columns
+its rows' band reaches), the lean walk the tile-staged walk
+(``sw_walk_p_tiled``, ``csrc/walk_p.cu``), and the search's window scorer
+the warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1-K6 and
+K4b, the stripe template's, and the one-thread walk ``sw_walk_p`` are
+held to their plain versions and timed in turns with the new ones in the
+same run (they launch on no path, bar K6 for reads longer than 512 rows),
+K4 and K4b into guarded buffers (no byte off P written), and K1-K5 and
+K4b are swept over their (T, R, C). K4b is also timed against the
+template's at 4 x the path's n, score-only. Each
 phase prints one line; any failure raises, so the exit code is not 0. The
 line before the last is a JSON object describing each kernel of the paths
 (launches in the paths' runs, exactness, kernel and plain times, and the
@@ -122,6 +126,8 @@ ORIGIN = {
              "swtpu/kernels/pallas_fill.py:1190"),     # stripe_fill, return_p
     "rb_block": (CSRC + "stripe_rb_block.cu",
                  "swtpu/kernels/pallas_fill.py:1466"),  # stripe_block_fn
+    "rb_band": (CSRC + "stripe_rb_band.cu",
+                "swtpu/kernels/pallas_fill.py:358"),   # _kernel band mode
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -170,12 +176,15 @@ def origin(name: str) -> tuple:
             else "rb_gotoh" if name in sf.RB_KERNELS.values()
             else "rb_p" if name in sf.RB_P_KERNELS.values()
             else "rb_block" if name in sf.RB_BLOCK_KERNELS.values()
+            else "rb_band" if name in (*sf.RB_BAND_KERNELS.values(),
+                                       *sf.RB_BAND_P_KERNELS.values())
             else "pairs" if name.startswith("sw_pairs_")
             else "packed" if name.startswith("sw_packed_")
             else "window" if name.startswith("sw_window_")
             else "band" if name.endswith(sf.BAND_SUFFIX)
             else "block" if name in sf.BLOCK_KERNELS.values()
-            else "walk" if name == sf.WALK_KERNEL else "stripe")
+            else "walk" if name in (sf.WALK_KERNEL, sf.WALK_SCALAR_KERNEL)
+            else "stripe")
     return ORIGIN[kind]
 
 
@@ -342,22 +351,24 @@ def on_card(*arrays, dev) -> tuple:
 def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
-    kPacked, kWindow, kDebugH>, the walk, the warp-per-read K6 <R, kAffine,
-    kSub> and the register-blocked K1-K5 <R, C, kAffine, kSub, kP,
-    kBlock> (rb_ K1-K3, rb_p_ K4, rb_block_ K5)."""
+    kPacked, kWindow, kDebugH>, the two walks, the warp-per-read K6 <R,
+    kAffine, kSub> and the register-blocked K1-K5 and K4b <R, C, kAffine,
+    kSub, kP, kBlock, kBand> (rb_ K1-K3, rb_p_ K4, rb_block_ K5, rb_band_
+    and rb_p_band_ K4b)."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
         warp = re.search(r"window_warp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
         rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E"
-                       r"Lb(\d)ELb(\d)E", ln)
+                       r"Lb(\d)ELb(\d)ELb(\d)E", ln)
         if "Compiling entry function" in ln and warp:
             R, aff, sub = (int(v) for v in warp.groups())
             name = (f"warp_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}")
         elif "Compiling entry function" in ln and rb:
-            R, C, aff, sub, p, blk = (int(v) for v in rb.groups())
-            kind = "p_" if p else "block_" if blk else ""
+            R, C, aff, sub, p, blk, band = (int(v) for v in rb.groups())
+            kind = (("p_" if p else "block_" if blk else "")
+                    + ("band_" if band else ""))
             name = (f"rb_{kind}{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}_C{C}")
         elif "Compiling entry function" in ln and got:
@@ -371,6 +382,9 @@ def build_line() -> str:
                     f"{'affine' if aff else 'linear'}{'_band' if band else ''}")
         elif "Compiling entry function" in ln and "walk_p_kernel" in ln:
             name = "walk"
+        elif ("Compiling entry function" in ln
+              and "walk_p_tiled_kernel" in ln):
+            name = "walk_tiled"
         elif "spill" in ln and name:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -413,11 +427,15 @@ def _small_cases() -> list:
     ]
 
 
-# the template's unbanded score, fill_p and block entries, the earlier
-# K1-K5: on no path
+# the template's score, fill_p and block entries, unbanded and banded, the
+# earlier K1-K5 and K4b, and the one-thread walk: on no path
 EARLIER_SCORE = (sf.SCORE_KERNEL, sf.SCORE_AFFINE_KERNEL, sf.SCORE_SUB_KERNEL)
 EARLIER = (*EARLIER_SCORE, sf.FILL_P_KERNEL, sf.FILL_P_AFFINE_KERNEL,
-           sf.FILL_P_SUB_KERNEL, *sf.BLOCK_KERNELS.values())
+           sf.FILL_P_SUB_KERNEL, *sf.BLOCK_KERNELS.values(),
+           *(k + sf.BAND_SUFFIX for k in (*EARLIER_SCORE, sf.FILL_P_KERNEL,
+                                          sf.FILL_P_AFFINE_KERNEL,
+                                          sf.FILL_P_SUB_KERNEL)),
+           sf.WALK_SCALAR_KERNEL)
 # kernel mode -> (template score kernel, fill_p kernel, scorings, table)
 MODES = {
     "linear": (sf.SCORE_KERNEL, sf.FILL_P_KERNEL, [SCORING], None),
@@ -759,59 +777,167 @@ def _small_pair(mode: str, m: int, n: int, seed: int) -> tuple:
     return random_pair(m, n, seed=seed)
 
 
-def band_vs_plain(dev) -> dict:
-    """K4b: each banded entry against its plain version at bands 0, 1, 64
-    and wider than the pair, then at the banded path's shapes; returns
-    per-kernel records."""
+# K4b's small shapes (label, m, n): n not a multiple of any stripe's rows,
+# m < n and m > n (|n - m| of 990 and 700, past every band but 5000: whole
+# stripes outside the band), square; its bands: none kept (-1), the diagonal, a
+# window ending inside, at and past a chunk of 32 columns (31 / 32 / 33 at
+# 128-row stripes), the path's 64, wider than a stripe (300) and than the
+# pair; the band form's (T, R, C) sweep, at the small shapes and at the
+# path's 16384^2; the score-only size 4 x the path's n (the band form's
+# work is O(n band), its steps O(n))
+BAND_SHAPES = [("m<n", 300, 32 * 40 + 10), ("m>n", 1000, 300),
+               ("square", 300, 300)]
+BAND_BANDS = (-1, 0, 1, 7, 31, 32, 33, BAND, 300, 5000)
+BAND_SWEEP = [(T, R, C) for T in (32, 64, 128) for R, C in sf.RB_EXT_TILES]
+BAND_BIG_N = 4 * ALIGN_N
+
+
+def _band_pair(mode: str, m: int, n: int, seed: int) -> tuple:
+    """A pair of the mode's alphabet similar along the diagonal (b is a
+    with 30 % of its letters redrawn and three deleted), so a band cuts
+    through the alignment."""
+    rng = np.random.default_rng(seed)
+    letters = 20 if mode == "protein" else 4
+    a = rng.integers(0, letters, m).astype(np.int8)
+    b = np.resize(a, n + 3)
+    flip = rng.random(n + 3) < 0.3
+    b[flip] = rng.integers(0, letters, int(flip.sum()))
+    return a, np.delete(b, [n // 3, n // 3 + 1, n // 2])
+
+
+def band_vs_plain(dev) -> tuple:
+    """K4b: the band form (the route: ``stripe_score``/``stripe_fill`` with
+    a band, and ``_launch_rb``/``_launch_rb_p`` at every (T, R, C) of
+    BAND_SWEEP) and the template's band mode (``_launch``, the earlier
+    design, at T = 32 and its default) against their plain version at
+    BAND_SHAPES x BAND_BANDS, the band form's P into guarded buffers; then,
+    at the banded path's 16384^2 band 64, the two in turns, bit-equal, the
+    band form's sweep, and score-only at BAND_BIG_N^2 band 64 the two in
+    turns, best and right column equal. Returns (records, phase lines)."""
     table = on_card(BLOSUM62, dev=dev)[0]
-    recs = {}
+    recs, err, lines = {}, {}, []
     for mode, (_, _, scorings, S) in MODES.items():
         sub = None if S is None else table
-        at, bt = on_card(*_small_pair(mode, 300, 32 * 40 + 10, 8), dev=dev)
         for sc in scorings:
-            for band in (0, 1, BAND, 5000):
-                ps = sf.stripe_score_plain(at, bt, sc, sub, band)
-                pf = sf.stripe_fill_plain(at, bt, sc, sub, band)
-                for T in (32, 256):
-                    ks = sf.stripe_score(at, bt, sc, T=T, substitution=sub,
-                                         band=band)
-                    kf = sf.stripe_fill(at, bt, sc, T=T, substitution=sub,
-                                        band=band)
-                    torch.cuda.synchronize()
-                    e = max(diff(ks.best, ps.best),
-                            diff(ks.right_col, ps.right_col),
-                            diff(kf.best, pf.best),
-                            diff(kf.right_col, pf.right_col),
-                            diff(kf.P, pf.P))
-                    require(e == 0, f"band {band} {mode} {sc.mode} T={T}: "
-                            "kernel != plain")
-            phase("kernels", f"band [{mode} {sc.mode}] m=300 n=1290 bands "
-                  f"0/1/{BAND}/5000, T=32/256: equal")
-        # the banded path's shapes
+            names = (sf.score_kernel_name(sc, S, True),
+                     sf.fill_kernel_name(sc, S, True),
+                     sf.kernel_name(sc, S, False, True),
+                     sf.kernel_name(sc, S, True, True))
+            for label, m, n in BAND_SHAPES:
+                at, bt = on_card(*_band_pair(mode, m, n, m + n), dev=dev)
+                for band in BAND_BANDS:
+                    p = sf.stripe_fill_plain(at, bt, sc, sub, band)
+                    runs = [
+                        (names[0], "route", lambda: sf.stripe_score(
+                            at, bt, sc, substitution=sub, band=band)),
+                        (names[1], "route", lambda: sf.stripe_fill(
+                            at, bt, sc, substitution=sub, band=band))]
+                    for shape in BAND_SWEEP:
+                        runs.append((names[0], shape, lambda shape=shape:
+                                     sf._launch_rb(at, bt, sc, *shape,
+                                                   sub=sub, band=band)))
+                        runs.append((names[1], shape, lambda shape=shape:
+                                     sf._launch_rb_p(
+                                         at, bt, sc, *shape, sub=sub,
+                                         P=guarded[0], band=band)))
+                    for T in (32, None):
+                        runs.append((names[2], T, lambda T=T: sf._launch(
+                            at, bt, sc, T, sub, False, band)))
+                        runs.append((names[3], T, lambda T=T: sf._launch(
+                            at, bt, sc, T, sub, True, band)))
+                    for name, shape, run in runs:
+                        guarded = guarded_p(bt.numel(), at.numel(), dev)
+                        k = run()
+                        torch.cuda.synchronize()
+                        e = max(diff(k.best, p.best),
+                                diff(k.right_col, p.right_col),
+                                0 if k.P is None else diff(k.P, p.P))
+                        if k.P is not None and k.P.data_ptr() == \
+                                guarded[0].data_ptr():
+                            require(bool((guarded[1][~guarded[2]]
+                                          == GUARD).all()),
+                                    f"{name} {shape}: a guard byte written")
+                        err[name] = max(err.get(name, 0), e)
+                        require(e == 0, f"{name} [{mode} {sc.mode}] {label} "
+                                f"band {band} {shape}: kernel != plain")
+            phase("kernels", f"band [{mode} {sc.mode}] {len(BAND_SHAPES)} "
+                  f"shapes x bands {'/'.join(map(str, BAND_BANDS))}: "
+                  f"{names[0]} and {names[1]} routed and at "
+                  f"{len(BAND_SWEEP)} (T, R, C), P guarded; {names[2]} and "
+                  f"{names[3]} at T=32/default: equal")
+
+        # the banded path's size: the band form and the template in turns
         sc = scorings[0]
+        names = (sf.score_kernel_name(sc, S, True),
+                 sf.fill_kernel_name(sc, S, True),
+                 sf.kernel_name(sc, S, False, True),
+                 sf.kernel_name(sc, S, True, True))
         at, bt = on_card(*MODELS[mode][3](ALIGN_N, ALIGN_N), dev=dev)
-        for capture_p in (False, True):
-            name = sf.kernel_name(sc, S, capture_p, True)
-            fn = sf.stripe_fill if capture_p else sf.stripe_score
-            plain = sf.stripe_fill_plain if capture_p else sf.stripe_score_plain
-            k_ms, k = timed_ms(lambda: fn(at, bt, sc, substitution=sub,
-                                          band=BAND), 3)
-            p_ms, p = timed_ms(lambda: plain(at, bt, sc, sub, BAND), 1)
+        ps_ms, ps = timed_ms(lambda: sf.stripe_score_plain(at, bt, sc, sub,
+                                                           BAND), 1)
+        pf_ms, pf = timed_ms(lambda: sf.stripe_fill_plain(at, bt, sc, sub,
+                                                          BAND), 1)
+        P = sf.p_matrix(ALIGN_N, ALIGN_N, dev)
+        s_ms, so_ms, ks, kso = ab_ms(
+            lambda: sf.stripe_score(at, bt, sc, substitution=sub, band=BAND),
+            lambda: sf._launch(at, bt, sc, None, sub, False, BAND))
+        f_ms, fo_ms, kf, kfo = ab_ms(
+            lambda: sf._launch_rb_p(at, bt, sc, None, sub=sub, P=P,
+                                    band=BAND),
+            lambda: sf._launch(at, bt, sc, None, sub, True, BAND))
+        cells = band_cells(ALIGN_N, ALIGN_N, BAND)
+        for name, ms, k, p, p_ms in ((names[0], s_ms, ks, ps, ps_ms),
+                                     (names[2], so_ms, kso, ps, ps_ms),
+                                     (names[1], f_ms, kf, pf, pf_ms),
+                                     (names[3], fo_ms, kfo, pf, pf_ms)):
             e = max(diff(k.best, p.best), diff(k.right_col, p.right_col),
                     0 if k.P is None else diff(k.P, p.P))
             require(e == 0, f"{name} != plain at the banded path's size")
+            capture_p = k.P is not None
             recs[name] = dict(
-                ms=k_ms, plain_ms=p_ms, max_abs_err=e,
-                **bound(band_cells(ALIGN_N, ALIGN_N, BAND),
-                        OPS_PER_CELL[mode] + BAND_OPS
+                ms=ms, plain_ms=p_ms, max_abs_err=max(e, err[name]),
+                **bound(cells, OPS_PER_CELL[mode] + BAND_OPS
                         + (P_OPS[mode] if capture_p else 0),
                         fill_bytes(ALIGN_N, ALIGN_N, S, capture_p)))
-            phase("kernels", f"{name} {ALIGN_N}^2 band {BAND}: "
-                  f"{k.best.tolist()} kernel {k_ms:.3f} ms, plain "
-                  f"{p_ms:.1f} ms, equal")
-            del k, p
+        del kfo, kso
+        sweep = {}
+        for kind, launch, same in (
+                ("score", lambda T, R, C: sf._launch_rb(
+                    at, bt, sc, T, R, C, sub=sub, band=BAND),
+                 lambda x: diff(x.best, ps.best) == 0
+                 and diff(x.right_col, ps.right_col) == 0),
+                ("fill_p", lambda T, R, C: sf._launch_rb_p(
+                    at, bt, sc, T, R, C, sub=sub, P=P, band=BAND),
+                 lambda x: diff(x.best, pf.best) == 0
+                 and diff(x.P, pf.P) == 0)):
+            sweep[kind] = ext_sweep(names[kind == "fill_p"], launch, same,
+                                    BAND_SWEEP)
+        del P, kf, ks, ps, pf
         torch.cuda.empty_cache()
-    return recs
+        # score-only at 4 x n: the band form's steps grow with n, the
+        # template's with n + m
+        at, bt = on_card(*MODELS[mode][3](BAND_BIG_N, BAND_BIG_N), dev=dev)
+        b_ms, bo_ms, kb, kbo = ab_ms(
+            lambda: sf.stripe_score(at, bt, sc, substitution=sub, band=BAND),
+            lambda: sf._launch(at, bt, sc, None, sub, False, BAND))
+        require(diff(kb.best, kbo.best) == 0
+                and diff(kb.right_col, kbo.right_col) == 0,
+                f"{names[0]} != {names[2]} at {BAND_BIG_N}^2 band {BAND}")
+        del at, bt, kb, kbo
+        torch.cuda.empty_cache()
+        lines += [
+            f"[{mode}] {ALIGN_N}^2 band {BAND} in turns: {names[0]} "
+            f"{s_ms:.3f} ms, {names[2]} {so_ms:.3f} ms ({so_ms / s_ms:.2f}x); "
+            f"{names[1]} {f_ms:.3f} ms (P cleared in the call), {names[3]} "
+            f"{fo_ms:.3f} ms ({fo_ms / f_ms:.2f}x); plain {ps_ms:.1f} / "
+            f"{pf_ms:.1f} ms; all equal",
+            f"[{mode}] {BAND_BIG_N}^2 band {BAND} score-only in turns: "
+            f"{names[0]} {b_ms:.3f} ms ({b_ms / s_ms:.2f}x its {ALIGN_N}^2), "
+            f"{names[2]} {bo_ms:.3f} ms ({bo_ms / so_ms:.2f}x); best and "
+            "right column equal",
+            f"[{mode}] {ALIGN_N}^2 band {BAND}: {sweep['score']}",
+            f"[{mode}] {ALIGN_N}^2 band {BAND}: {sweep['fill_p']}"]
+    return recs, lines
 
 
 def _bounds(m: int, n: int, seed: int, anchored: bool, dev) -> tuple:
@@ -933,42 +1059,121 @@ def rows_vs_plain(dev) -> dict:
     return err
 
 
-def walk_vs_plain(dev) -> int:
-    """The walk kernel against its plain version on linear, affine and
-    protein P at small shapes; returns the max error."""
+def _gap_runs_p(dev) -> tuple:
+    """(P, corner) on the card: random codes, and from the corner a path of
+    20 DIAGONAL moves, a 70-long UP run (F_EXT on all its cells but the
+    last) across a 64-row tile's border, 10 DIAGONAL, a 70-long LEFT run
+    (E_EXT) across a 64-column tile's border, then DIAGONAL to row 0."""
+    rng = np.random.default_rng(21)
+    P = rng.integers(1, 16, (260, 320)).astype(np.int8)
+    i, j = 250, 300
+    for kind, length in (("D", 20), ("U", 70), ("D", 10), ("L", 70),
+                         ("D", 150)):
+        for t in range(length):
+            if kind == "D":
+                P[i, j] = 3
+                i, j = i - 1, j - 1
+            elif kind == "U":
+                P[i, j] = ((1 if t == 0 else int(P[i, j]) & 7)
+                           | (8 if t < length - 1 else 0))
+                i -= 1
+            else:
+                P[i, j] = ((2 if t == 0 else int(P[i, j]) & 11)
+                           | (4 if t < length - 1 else 0))
+                j -= 1
+    return on_card(P, dev=dev)[0], (250, 300)
+
+
+def _layouts(P: torch.Tensor) -> list:
+    """P in three layouts on its card: K4's (``sf.p_matrix``: rows padded
+    to 16 bytes, 3 bytes into the allocation), contiguous, and 5 bytes into
+    a buffer at a pitch of 7 bytes past its width."""
+    n1, m1 = P.shape
+    padded = sf.p_matrix(n1 - 1, m1 - 1, P.device)
+    padded.copy_(P)
+    buf = torch.zeros(5 + n1 * (m1 + 7), dtype=torch.int8, device=P.device)
+    odd = buf[5:].view(n1, m1 + 7)[:, :m1]
+    odd.copy_(P)
+    return [padded, P.contiguous(), odd]
+
+
+def walk_vs_plain(dev) -> dict:
+    """The walk kernels, the route's tile-staged one and the earlier
+    one-thread one, against their plain version on linear, affine and
+    protein P of the register-blocked K4 at a 900x800 pair (the route's
+    padded P and a contiguous copy), from the max, the corner, corners on
+    64-cell tile edges and near row and column 0; on P of random codes and
+    on a P whose path holds 70-long UP and LEFT runs across tile borders,
+    each in three layouts (``_layouts``). Returns max errors by entry."""
     table = on_card(BLOSUM62, dev=dev)[0]
+    cases = []
     for mode, (_, _, scorings, S) in MODES.items():
         sc, sub = scorings[0], (None if S is None else table)
         at, bt = on_card(*_small_pair(mode, 900, 800, 4), dev=dev)
         out = sf.stripe_fill(at, bt, sc, substitution=sub, T=32)
         _, i, j, _ = out.best.tolist()
         n, m = bt.numel(), at.numel()
-        # the route's P (rows padded) and a contiguous copy: the walk reads
-        # either in place
-        other = out.P.contiguous()
-        for P in (out.P, other):
-            for corner in ((i, j), (n, m), (0, 9), (n - 1, 3)):
-                k = sf.walk_p(P, *corner)
+        cases.append((mode, [out.P, out.P.contiguous()],
+                      [(i, j), (n, m), (0, 9), (n - 1, 3), (64, 64),
+                       (128, 127), (127, 128), (640, 704)]))
+    rng = np.random.default_rng(20)
+    codes = rng.integers(1, 16, (300, 333)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.002] = 0
+    cases.append(("random codes", _layouts(on_card(codes, dev=dev)[0]),
+                  [(64, 64), (63, 63), (128, 127), (299, 332), (200, 64)]))
+    runs, start = _gap_runs_p(dev)
+    cases.append(("gap runs", _layouts(runs), [start, (192, 256)]))
+    for label, layouts, corners in cases:
+        for P in layouts:
+            for corner in corners:
                 p = sf.walk_p_plain(P, *corner)
-                require(torch.equal(k, p), f"walk {mode} {corner}: kernel "
-                        "!= plain")
-        phase("kernels", f"{sf.WALK_KERNEL} [{mode}] 4 corners of a "
-              f"900x800 P, rows of {out.P.stride(0)} and "
-              f"{other.stride(0)} bytes: equal "
-              f"({len(sf.walk_p(out.P, i, j))} moves from the max)")
-    return 0
+                require(torch.equal(sf.walk_p(P, *corner), p)
+                        and torch.equal(sf._launch_walk(
+                            P, *corner, sf.WALK_SCALAR_KERNEL), p),
+                        f"walk {label} {corner} rows of {P.stride(0)}: "
+                        "kernel != plain")
+        phase("kernels", f"{sf.WALK_KERNEL} and {sf.WALK_SCALAR_KERNEL} "
+              f"[{label}] {len(corners)} corners of a {tuple(layouts[0].shape)}"
+              f" P, rows of {'/'.join(str(P.stride(0)) for P in layouts)} "
+              "bytes: equal")
+    want = "D" * 20 + "U" * 70 + "D" * 10 + "L" * 70 + "D" * 150
+    require("".join("-ULD"[x] for x in sf.walk_p(runs, *start).tolist())
+            == want, "walk: the gap runs' path")
+    return dict.fromkeys((sf.WALK_KERNEL, sf.WALK_SCALAR_KERNEL), 0)
 
 
-def ext_sweep(name: str, launch, same) -> str:
-    """The register-blocked K4 or K5 entry ``name`` at RB_EXT_SWEEP's
+def walk_ab(P: torch.Tensor, wn: int, wm: int) -> tuple:
+    """(tile-staged ms, one-thread ms, moves): the route's walk and the
+    earlier one timed in turns (``ab_ms``) by CUDA events around the launch
+    alone (the moves' buffer allocated before, their fetch after), each
+    one's moves equal."""
+    moves = torch.empty(max(wn + wm, 1), dtype=torch.int8, device=P.device)
+    count = torch.empty(1, dtype=torch.int32, device=P.device)
+
+    def run(name):
+        return lambda: sf._call(name, P.device, [
+            P.data_ptr(), P.stride(0), wn, wm, moves.data_ptr(),
+            count.data_ptr()])
+
+    t_ms, s_ms, _, _ = ab_ms(run(sf.WALK_KERNEL), run(sf.WALK_SCALAR_KERNEL))
+    got = []
+    for name in (sf.WALK_KERNEL, sf.WALK_SCALAR_KERNEL):
+        run(name)()
+        got.append(moves[:int(count)].cpu())
+    require(torch.equal(*got), "the two walks differ")
+    return t_ms, s_ms, got[0]
+
+
+def ext_sweep(name: str, launch, same, shapes=RB_EXT_SWEEP) -> str:
+    """The register-blocked K4, K5 or K4b entry ``name`` at ``shapes``'
     (T, R, C), each point ``launch(T, R, C)`` checked bit-equal by
     ``same`` and timed in RB_SWEEP_ROUNDS rounds over every point, the
     min of its rounds kept; returns the phase line's part."""
-    for shape in RB_EXT_SWEEP:
+    for shape in shapes:
         require(same(launch(*shape)), f"{name} {shape}: sweep point differs")
-    best = dict.fromkeys(RB_EXT_SWEEP, float("inf"))
+    best = dict.fromkeys(shapes, float("inf"))
     for _ in range(RB_SWEEP_ROUNDS):
-        for shape in RB_EXT_SWEEP:
+        for shape in shapes:
             ms, _ = timed_ms(lambda: launch(*shape), 1)
             best[shape] = min(best[shape], ms)
     fastest = min(best, key=best.get)
@@ -1041,9 +1246,10 @@ def lean_parts(mode: str, dev) -> tuple:
                                               P=Q),
         lambda x: diff(x.P, out.P) == 0 and diff(x.best, out.best) == 0)
     del Q
-    w_ms, moves = timed_ms(lambda: sf.walk_p(out.P, wn, wm), 3)
+    w_ms, ws_ms, moves = walk_ab(out.P, wn, wm)
     pw_ms, pmoves = timed_ms(lambda: sf.walk_p_plain(out.P, wn, wm), 1)
-    require(torch.equal(moves, pmoves), f"{mode}: walk kernel != plain")
+    require(torch.equal(moves, pmoves) and torch.equal(
+        sf.walk_p(out.P, wn, wm), pmoves), f"{mode}: walk kernel != plain")
     del out, P
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1052,17 +1258,18 @@ def lean_parts(mode: str, dev) -> tuple:
     tb._render(ca, cb, alphabet)
     host_s = time.perf_counter() - t0
     # one byte of P read and one move written per move
-    recs[sf.WALK_KERNEL] = dict(ms=w_ms, plain_ms=pw_ms, max_abs_err=0,
-                                **bound(len(moves), WALK_OPS,
-                                        2 * len(moves) + 4))
+    for entry, ms in ((sf.WALK_KERNEL, w_ms), (sf.WALK_SCALAR_KERNEL, ws_ms)):
+        recs[entry] = dict(ms=ms, plain_ms=pw_ms, max_abs_err=0,
+                           **bound(len(moves), WALK_OPS, 2 * len(moves) + 4))
     lines = [
         f"{SCORE_N}^2 parts: forward {fwd_s * 1e3:.1f} ms (wall); reverse "
         f"{ei}x{ej} {name} {k_ms:.3f} ms, {old} {o_ms:.3f} ms in turns "
         f"(plain {p_ms:.1f} ms, equal); window {wn}x{wm} refill {fill} "
         f"{f_ms:.3f} ms (min of 3, P allocated outside the call), "
         f"{fill_old} {fo_ms:.3f} ms in turns (P equal); walk {len(moves)} "
-        f"moves {w_ms:.3f} ms (plain {pw_ms:.1f} ms, P copied to the host, "
-        f"equal); host strings {host_s * 1e3:.1f} ms",
+        f"moves {sf.WALK_KERNEL} {w_ms:.3f} ms, {sf.WALK_SCALAR_KERNEL} "
+        f"{ws_ms:.3f} ms in turns (the launch alone; plain {pw_ms:.1f} ms, "
+        f"P copied to the host; equal); host strings {host_s * 1e3:.1f} ms",
         f"{ei}x{ej} reverse pass: {block_sweep}",
         f"{wn}x{wm} window: {fill_sweep}"]
     return recs, lines
@@ -2052,7 +2259,10 @@ def run(dev, name: str, start: float, pool, scans) -> int:
         recs[entry]["max_abs_err"] = max(recs[entry]["max_abs_err"], e)
     phase("kernels", f"K1-K4 and the register-blocked K1-K4 against their "
           f"plain versions in {time.perf_counter() - t0:.1f} s")
-    recs.update(band_vs_plain(dev))
+    band_recs, band_lines = band_vs_plain(dev)
+    recs.update(band_recs)
+    for line in band_lines:
+        phase("kernels", line)
     block_err = block_vs_plain(dev)
     for entry, e in rows_vs_plain(dev).items():
         block_err[entry] = max(block_err[entry], e)
@@ -2060,10 +2270,10 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     for mode in MODES:
         lean_recs, lines = lean_parts(mode, dev)
         for entry, rec in lean_recs.items():
-            if entry == sf.WALK_KERNEL:
+            if entry in walk_err:
                 if mode != "linear":    # the benchmark pair's walk
                     continue
-                rec["max_abs_err"] = max(rec["max_abs_err"], walk_err)
+                rec["max_abs_err"] = max(rec["max_abs_err"], walk_err[entry])
             else:
                 rec["max_abs_err"] = max(rec["max_abs_err"], block_err[entry])
             recs[entry] = rec

@@ -7,15 +7,17 @@ checkouts of swtpu_torch, on a machine with the CUDA toolkit.
 Compiles each kernel source of ``swtpu_torch/csrc`` (the stripe
 template's ``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
 ``window_fill.cu``, ``sanitize_fill.cu``, and ``window_warp.cu``,
-``stripe_rb.cu``, ``stripe_rb_p.cu``, ``stripe_rb_block.cu``) in both
-checkouts, where each has it, to cubins for
-sm_90a with the port's flags and disassembles them with ``cuobjdump
--sass``. For every kernel the old checkout has, it prints its instruction
-count and the number of SASS lines that differ from the new checkout's
-kernel of the same name (for an instantiation of ``stripe_kernel``,
-``stripe_rb_kernel`` or ``window_warp_kernel``, of the same template
-arguments, the new template's added arguments 0 or false); then every
-kernel of the new checkout that the old lacks, as new. Exits 1 when any
+``stripe_rb.cu``, ``stripe_rb_p.cu``, ``stripe_rb_block.cu``,
+``stripe_rb_band.cu``, ``walk_p.cu``) in both checkouts, where each has
+it, to cubins for sm_90a with the port's flags and disassembles them with
+``cuobjdump -sass``. For every kernel the old checkout has, it prints its
+instruction count and the number of SASS lines that differ (in their
+words: cuobjdump's padding follows the widest line of a cubin) from the new
+checkout's kernel of the same name (for an instantiation of
+``stripe_kernel``, ``stripe_rb_kernel`` or ``window_warp_kernel``, of the
+same template arguments, the new template's added arguments 0 or false;
+the walks by their function's name); then every kernel of the new
+checkout that the old lacks, as new. Exits 1 when any
 earlier kernel differs or is missing. NEW_CHECKOUT defaults to this
 script's checkout.
 """
@@ -33,13 +35,16 @@ from pathlib import Path
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 SOURCES = ("stripe_fill.cu", "stripe_block.cu", "pairs_fill.cu",
            "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
-           "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu")
+           "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
+           "stripe_rb_band.cu", "walk_p.cu")
 FUNC = re.compile(r"Function : (\S+)")
 # a template's name and its integer and bool arguments (the mangled name
 # around them holds a hash of the source's path)
 NAME = re.compile(r"(stripe_kernel|stripe_rb_kernel|window_warp_kernel)"
                   r"I((?:L[bi]\d+E)+)E")
 ARG = re.compile(r"L[bi](\d+)E")
+# a kernel that is no template, in the source's anonymous namespace
+PLAIN = re.compile(r"\d+(walk_p_kernel|walk_p_tiled_kernel)E")
 
 
 def sass(checkout: Path, src: str, tmp: str, nvcc: str) -> dict:
@@ -57,12 +62,16 @@ def sass(checkout: Path, src: str, tmp: str, nvcc: str) -> dict:
         got = FUNC.search(ln)
         if got:
             tmpl = NAME.search(got.group(1))
+            plain = PLAIN.search(got.group(1))
             key = ((tmpl.group(1), tuple(int(v) for v in
                                          ARG.findall(tmpl.group(2))))
-                   if tmpl else got.group(1))
+                   if tmpl else (plain.group(1), ()) if plain
+                   else got.group(1))
             out[key] = []
         elif key is not None and ln.strip():
-            out[key].append(ln.strip())
+            # cuobjdump pads an instruction to the widest of its cubin:
+            # compare the words alone
+            out[key].append(" ".join(ln.split()))
     return out
 
 

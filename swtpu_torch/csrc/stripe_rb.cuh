@@ -8,10 +8,13 @@
 //     predecessor code per cell into a row-major (n+1) x (m+1) P;
 //   * stripe_rb_block.cu - the boundary-injected block fill (K5, kBlock):
 //     row 0 and column 0 from the caller, local or global (NW), exporting
-//     E of column m and, on request, H and F of row n.
+//     E of column m and, on request, H and F of row n;
+//   * stripe_rb_band.cu  - the band form (K4b, kBand) of the score-only and
+//     P-capture fills: only the cells with |i - j| <= band, each stripe
+//     visiting only the columns its rows' band reaches.
 // Three scorings, one template: linear match/mismatch (K1), affine
 // match/mismatch (K2, Gotoh E and F) and a substitution table with linear
-// or affine gaps (K3); K4 and K5 take each of them.
+// or affine gaps (K3); K4, K5 and K4b take each of them.
 //
 // Replaces, with no band, the Pallas kernel of the JAX package
 // (swtpu/kernels/pallas_fill.py, body `_kernel` :192 launched by
@@ -117,9 +120,26 @@
 //     by column when the caller asks for it; only its warp runs the copy
 //     of the tile that keeps row n's values, so the other warps, and
 //     every warp of a pass that asks for no row n, pay nothing for it.
+//   * The band form (kBand): stripe s (rows r0 .. r1) visits only the
+//     columns max(1, r0 - band) .. min(m, r1 + band), its window
+//     (band_window), the first rounded down to a chunk so that a tile and
+//     a chunk start where they do unbanded; thread k's tiles are the
+//     window's, shifted by its first column. A cell of a window outside
+//     the band is masked in the cell (tile_ext's kBand) to H = 0, E = F =
+//     NEG, P = NONE, the template's band semantics. The row above is read
+//     only where the stripe above stored it, up to its window's end (past
+//     it, H = 0 and F = NEG: outside its last row's band), so no wait is on
+//     a column nobody writes; thread 0's first DIAG, the row above's cell
+//     left of the window, is read there too; a stripe releases m at its
+//     end, and a stripe whose window is empty (band < 0, or rows below m +
+//     band) stores no cell and still takes its ticket and releases. P is
+//     cleared by the caller: only the windows' tiles are stored. The launch
+//     runs about n / R + n / C steps whatever m, where unbanded it runs m /
+//     C + n / R.
 //   * The affine and table forms keep their extra arrays in dynamic shared
 //     memory and their extra parameters last, and the K4 and K5 forms
-//     their template parameters and their argument (Ext) last, so the
+//     their template parameters and their argument (Ext) last, and K4b its
+//     template parameter and its argument (band) after those, so the
 //     earlier forms' code is what it was before they were added
 //     (scripts/torch_sass_diff.py).
 //
@@ -323,15 +343,32 @@ struct Cap {
   bool bottom_warp;     // kBlock: the warp holding row n, when exported
   int* bottom;
   int* bottom_f;
+  int bdiff;            // kBand: band - first - 1, so that cell (first + 1 +
+  unsigned bw;          // r, j) is in the band iff bdiff + j - r <= bw,
+                        // 2 band, compared unsigned
 };
+
+// kBand: whether row r of the thread's tile from column j0 holds a cell in
+// the band (columns j0 .. j0 + C - 1; the cell test of tile_ext, bdiff +
+// j - r in 0 .. bw)
+template <int C>
+__device__ __forceinline__ bool band_reaches(const Cap& x, int j0, int r) {
+  const int lo = x.bdiff + j0 - r;
+  return lo + C - 1 >= 0 && lo <= (int)x.bw;
+}
 
 // one tile of the K4 (kP) or K5 (kBlock) form, in every scoring, as
 // `tile_gotoh` (a linear scoring takes g.gap): kP also stores the tile's
 // codes into P, kBlock runs the cell with x.floor in place of the zero
 // floor; kRowN (the warp holding row n) stores row n's H (and F) when
-// this thread holds it
+// this thread holds it; kBand masks the cells with |i - j| > band to H =
+// 0, E = F = NEG and P = NONE: DIAG to NEG and, linear, the gap to NEG
+// (UP and LEFT are at least 0, so UP + NEG and LEFT + NEG stay below 0
+// without overflow), affine E and F selected to NEG, so the chain down the
+// tile keeps its one DPX instruction a row (linear) and adds a select on F
+// (affine)
 template <int R, int C, bool kPartial, bool kAffine, bool kSub, bool kP,
-          bool kBlock, bool kRowN = false>
+          bool kBlock, bool kRowN = false, bool kBand = false>
 __device__ __forceinline__ void tile_ext(
     int j0, int nc, const int (&ac)[C], const int (&code)[R],
     const int (&U)[C], const int (&UF)[C], int diag0, const Gotoh& g,
@@ -359,7 +396,14 @@ __device__ __forceinline__ void tile_ext(
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int left = H[r];
-      const int d = diag + s[r];
+      int d = diag + s[r];
+      [[maybe_unused]] bool in = true;    // kBand: the cell lies in the band
+      [[maybe_unused]] int gap = g.gap;
+      if constexpr (kBand) {
+        in = (unsigned)(x.bdiff + j0 + c - r) <= x.bw;
+        d = in ? d : kNeg;
+        gap = in ? gap : kNeg;
+      }
       int h;
       if constexpr (kP) {
         // H on the chain as in the score-only cell; the move off it: DIAG
@@ -374,30 +418,41 @@ __device__ __forceinline__ void tile_ext(
           const int f_ext = f + g.extend;
           E[r] = swcell::affine_e(E[r], left, g.open, g.extend);
           f = swcell::affine_f(f, up, g.open, g.extend);
+          if constexpr (kBand) {
+            E[r] = in ? E[r] : kNeg;
+            f = in ? f : kNeg;
+          }
           h = __vimax3_s32(h1, E[r], f);
           hu = __vibmax_s32(h1, f, &ku);
           lv = E[r];
           bits = (E[r] == e_ext ? kEExt : 0) + (f == f_ext ? kFExt : 0);
         } else {
-          lv = left + g.gap;
-          h = __viaddmax_s32(up, g.gap, max(h1, lv));
-          hu = __vibmax_s32(h1, up + g.gap, &ku);
+          lv = left + gap;
+          h = __viaddmax_s32(up, gap, max(h1, lv));
+          hu = __vibmax_s32(h1, up + gap, &ku);
         }
-        const int code_ =
+        int code_ =
             (lv > hu ? kLeft : !ku ? kUp : kd ? kNone : kDiagonal) + bits;
+        // kBand: a masked linear cell reads NONE already (every move is
+        // below 0); a masked affine cell's state bits are cleared here
+        if constexpr (kBand && kAffine) code_ = in ? code_ : kNone;
         if constexpr (kPack) {
           pk[r][c / 4] |= (uint32_t)code_ << (8 * (c % 4));
-        } else if (r < x.rows) {
+        } else if (r < x.rows && (!kBand || in)) {
           x.prow[r * x.pitch + j0 + c] = (int8_t)code_;
         }
       } else {
         if constexpr (kAffine) {
           E[r] = swcell::affine_e(E[r], left, g.open, g.extend);
           f = swcell::affine_f(f, up, g.open, g.extend);
+          if constexpr (kBand) {
+            E[r] = in ? E[r] : kNeg;
+            f = in ? f : kNeg;
+          }
           h = __vimax3_s32(max(d, x.floor), E[r], f);
         } else {
-          h = __viaddmax_s32(up, g.gap,
-                             __viaddmax_s32(left, g.gap, max(d, x.floor)));
+          h = __viaddmax_s32(up, gap,
+                             __viaddmax_s32(left, gap, max(d, x.floor)));
         }
         if constexpr (kRowN) {
           if (r == x.bottom_r) {
@@ -423,7 +478,9 @@ __device__ __forceinline__ void tile_ext(
   if constexpr (kPack) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r < x.rows) {
+      // kBand: a row of the tile wholly outside the band is NONE, which the
+      // caller's clear of P left there: no store
+      if (r < x.rows && (!kBand || band_reaches<C>(x, j0, r))) {
         int8_t* p = x.prow + r * x.pitch + j0;
         if constexpr (C == 1) {
           *p = (int8_t)pk[r][0];
@@ -440,6 +497,31 @@ __device__ __forceinline__ void tile_ext(
   }
 }
 
+// The band form's window of stripe s (rows s * rows + 1 .. min(n, (s + 1) *
+// rows)): the columns col0 + 1 .. end, in `tiles` tiles of C from column
+// col0 + 1, where col0 rounds max(1, r0 - band) - 1 down to a chunk, so a
+// tile starts at 1 + C q and a chunk at 1 + 32 c, and end is the last
+// tile's last column (at most m); no tile when band < 0 or the band has
+// left the matrix, and then end = col0.
+__device__ __forceinline__ void band_window(int s, int rows, int C, int m,
+                                            int n, int band, int& col0,
+                                            int& tiles, int& end) {
+  const int r0 = s * rows + 1;
+  const int r1 = min(n, r0 - 1 + rows);
+  const int lo = max(1, r0 - band);
+  const int hi = min(m, r1 + band);
+  if (band < 0 || lo > hi) {
+    col0 = min(m, lo - 1) / kPublish * kPublish;
+    tiles = 0;
+    end = col0;
+  } else {
+    col0 = (lo - 1) / kPublish * kPublish;
+    const int q1 = (hi - 1) / C;
+    tiles = q1 - col0 / C + 1;
+    end = min(m, (q1 + 1) * C);
+  }
+}
+
 // sync:  [0] the stripe ticket, [1 + s] the last column stripe s published.
 // bnd:   (stripes - 1) x (m + 1) int32, row s = H of stripe s's last row.
 // best:  (stripes, 4) int32, row s = (score, i, j, 0) of the stripe's first
@@ -449,6 +531,8 @@ __device__ __forceinline__ void tile_ext(
 //        table form only; bnd_f: as bnd for F, affine only. Last, so that
 //        the parameters before them keep their offsets.
 // ext:   the K4 and K5 forms' arguments, after bnd_f for the same reason.
+// band:  kBand's half-width, -1 .. m + n, last: a field added to Ext
+//        changed an earlier instantiation's register allocation.
 // the launch bound of the source's instantiations: K1-K3's kMaxThreads
 // (stripe_rb.cu); stripe_rb_p.cu and stripe_rb_block.cu define it as the
 // tile's ext_threads(R) and one block an SM before including this header,
@@ -460,17 +544,18 @@ __device__ __forceinline__ void tile_ext(
 #endif
 
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
-          bool kBlock = false>
+          bool kBlock = false, bool kBand = false>
 __global__ void __launch_bounds__(SW_RB_LAUNCH_BOUNDS)
 stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                  int m, int n, int match, int mismatch, int gap,
                  int* __restrict__ sync, int* __restrict__ bnd,
                  int* __restrict__ best_out, int* __restrict__ right,
                  int open, int extend, const int* __restrict__ sub, int A,
-                 int* __restrict__ bnd_f, Ext ext) {
+                 int* __restrict__ bnd_f, Ext ext, int band) {
   static_assert(kPublish % C == 0 && C <= kMaxCols, "C divides a chunk");
   static_assert(!kSub || R % 4 == 0, "the profile holds 4 rows an int4");
   static_assert(!(kP && kBlock), "the block form captures no P");
+  static_assert(!(kBand && kBlock), "the block form takes no band");
   constexpr int kSteps = kPublish / C;         // steps a chunk
   __shared__ int s_stripe, s_best, s_k;
   __shared__ int s_edge[2][kMaxThreads / 32][C];  // each warp's last lane
@@ -502,14 +587,31 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   if constexpr (kAffine) {
     for (int x = k; x < 2 * (kMaxThreads / 32) * C; x += T) s_f[x] = kNeg;
   }
-  for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
+  if constexpr (!kBand) {
+    for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
+  }
   __syncthreads();
 
   const int s = s_stripe;
   const int first = s * T * R + k * R;     // rows first + 1 .. first + R
   const int kt = (min(T * R, n - s * T * R) + R - 1) / R;  // threads with rows
-  const int tiles = (m + C - 1) / C;
-  const int steps = tiles + kt - 1;
+  // the columns col0 + 1 .. end the stripe visits, in `tiles` tiles; the
+  // stripe above stored its last row's pcol0 + 1 .. pend. Every column with
+  // no band; kBand, the windows of band_window
+  int tiles = (m + C - 1) / C;
+  int col0 = 0, end = m, pcol0 = 0, pend = m;
+  if constexpr (kBand) {
+    band_window(s, T * R, C, m, n, band, col0, tiles, end);
+    if (s > 0) {
+      int ptiles;
+      band_window(s - 1, T * R, C, m, n, band, pcol0, ptiles, pend);
+    }
+    for (int c = k; c < kAhead && col0 + c < m; c += T) {
+      ring[(col0 + c) & (kRing - 1)] = a[col0 + c];
+    }
+    __syncthreads();
+  }
+  const int steps = kBand && tiles == 0 ? 0 : tiles + kt - 1;
   int code[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -539,17 +641,24 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
   Cap cap{nullptr, 0, 0, 0, -1, false, nullptr, nullptr};
   if constexpr (kP) {
-    // row 0 and column 0 of P are NONE
+    // row 0 and column 0 of P are NONE (kBand: the caller clears P, and
+    // only the windows' tiles are stored)
     cap.pitch = ext.pitch;
     cap.rows = n - first;
     if (first < n) cap.prow = ext.P + (size_t)(first + 1) * ext.pitch;
-    if (s == 0) {
-      for (int j = k; j <= m; j += T) ext.P[j] = kNone;
-    }
+    if constexpr (!kBand) {
+      if (s == 0) {
+        for (int j = k; j <= m; j += T) ext.P[j] = kNone;
+      }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < cap.rows) cap.prow[r * cap.pitch] = kNone;
+      for (int r = 0; r < R; ++r) {
+        if (r < cap.rows) cap.prow[r * cap.pitch] = kNone;
+      }
     }
+  }
+  if constexpr (kBand) {
+    cap.bdiff = band - first - 1;
+    cap.bw = 2u * (unsigned)band;
   }
   if constexpr (kBlock) {
     cap.floor = ext.local ? 0 : INT_MIN;
@@ -578,7 +687,29 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   // affine, F's in cur_f and nxt_f
   int cur = 0, nxt = 0, seen = 0;
   int cur_f = kNeg, nxt_f = kNeg;
-  if (warp == 0 && s > 0) {
+  if constexpr (kBand) {
+    // the row above holds H = 0 and F = NEG past pend (outside its band):
+    // read only up to pend, so no wait is on a column it never stores
+    // (the wait covers column col0 too: thread 0's first DIAG)
+    if (warp == 0 && s > 0 && tiles > 0 && col0 <= pend) {
+      while (seen < min(col0 + kPublish, pend)) seen = load_acquire(wait_on);
+      const int j = col0 + 1 + lane;
+      cur = j <= pend ? __ldcg(&up_row[j]) : 0;
+      if constexpr (kAffine) {
+        cur_f = j <= pend ? __ldcg(&bnd_f[(s - 1) * m1 + j]) : kNeg;
+      }
+      if (col0 + kPublish < end && col0 + kPublish < pend) {
+        while (seen < min(col0 + 2 * kPublish, pend)) {
+          seen = load_acquire(wait_on);
+        }
+        const int jn = j + kPublish;
+        nxt = jn <= pend ? __ldcg(&up_row[jn]) : 0;
+        if constexpr (kAffine) {
+          nxt_f = jn <= pend ? __ldcg(&bnd_f[(s - 1) * m1 + jn]) : kNeg;
+        }
+      }
+    }
+  } else if (warp == 0 && s > 0) {
     while (seen < min(kPublish, m)) seen = load_acquire(wait_on);
     cur = lane + 1 <= m ? __ldcg(&up_row[lane + 1]) : 0;
     if constexpr (kAffine) {
@@ -611,7 +742,8 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     }
   }
   // warp 0: the 32 columns of a that the ring takes next
-  int a_next = (warp == 0 && kAhead + lane < m) ? __ldg(&a[kAhead + lane]) : 0;
+  const int a0 = col0 + kAhead + lane;
+  int a_next = (warp == 0 && a0 < m) ? __ldg(&a[a0]) : 0;
 
   int H[R], best[R], best_j[R];
 #pragma unroll
@@ -626,6 +758,13 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 #pragma unroll
   for (int c = 0; c < C; ++c) BF[c] = kNeg;
   int u_last = 0;          // H(first, j0 - 1): the tile's first DIAG
+  if constexpr (kBand) {
+    // thread 0's, H(r0 - 1, col0), is the row above's when col0 lies in
+    // pcol0 + 1 .. pend (warp 0 waited for it), else 0 (outside the band)
+    if (k == 0 && s > 0 && tiles > 0 && pcol0 < col0 && col0 <= pend) {
+      u_last = __ldcg(&up_row[col0]);
+    }
+  }
   if constexpr (kBlock) {
     // column 0: each row's H (and E) starts its LEFT chain; H(first, 0) is
     // the first tile's DIAG, which thread 0 keeps and every other thread
@@ -647,7 +786,7 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 
   for (int t = 0; t < steps; ++t) {
     if (warp == 0 && t % kSteps == 0) {        // thread 0 starts a chunk
-      const int c0 = t * C;                    // its first 0-based column
+      const int c0 = col0 + t * C;             // its first 0-based column
       const int col = c0 + kAhead + lane;      // staged now
       if (col < m) ring[col & (kRing - 1)] = (int8_t)a_next;
       a_next = col + kPublish < m ? __ldg(&a[col + kPublish]) : 0;
@@ -656,7 +795,23 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
           cur = nxt;
           if constexpr (kAffine) cur_f = nxt_f;
           const int lo = c0 + kPublish + 1;    // the next chunk's first column
-          if (lo <= m) {
+          if constexpr (kBand) {
+            if (lo <= end) {
+              nxt = 0;
+              nxt_f = kNeg;
+              if (lo <= pend) {
+                while (seen < min(c0 + 2 * kPublish, pend)) {
+                  seen = load_acquire(wait_on);
+                }
+                if (lo + lane <= pend) {
+                  nxt = __ldcg(&up_row[lo + lane]);
+                  if constexpr (kAffine) {
+                    nxt_f = __ldcg(&bnd_f[(s - 1) * m1 + lo + lane]);
+                  }
+                }
+              }
+            }
+          } else if (lo <= m) {
             const int want = min(c0 + 2 * kPublish, m);
             if constexpr (kBlock) {
               const int j = lo + lane;
@@ -727,13 +882,18 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
         }
       }
     }
-    const int q = t - k;                       // the tile
+    const int q = col0 / C + t - k;            // the tile
     const int j0 = q * C + 1;
-    if (k < kt && q >= 0 && j0 <= m) {
+    if (kBand ? k < kt && t - k >= 0 && t - k < tiles
+              : k < kt && q >= 0 && j0 <= m) {
       int ac[C];
       ring_codes<C>(s_ring, q * C, ac);
       if (j0 + C - 1 < m) {
-        if constexpr (kBlock) {
+        if constexpr (kBand) {
+          tile_ext<R, C, false, kAffine, kSub, kP, false, false, true>(
+              j0, C, ac, code, U, UF, u_last, g, cap, H, E, best, best_j, B,
+              BF);
+        } else if constexpr (kBlock) {
           if (cap.bottom_warp) {
             tile_ext<R, C, false, kAffine, kSub, kP, kBlock, true>(
                 j0, C, ac, code, U, UF, u_last, g, cap, H, E, best, best_j,
@@ -757,7 +917,11 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
         }
       } else {                                 // the tile holding column m
         const int nc = m - j0 + 1;
-        if constexpr (kBlock) {
+        if constexpr (kBand) {
+          tile_ext<R, C, true, kAffine, kSub, kP, false, false, true>(
+              j0, nc, ac, code, U, UF, u_last, g, cap, H, E, best, best_j, B,
+              BF);
+        } else if constexpr (kBlock) {
           if (cap.bottom_warp) {
             tile_ext<R, C, true, kAffine, kSub, kP, kBlock, true>(
                 j0, nc, ac, code, U, UF, u_last, g, cap, H, E, best, best_j,
@@ -810,8 +974,9 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       if (flushed > 0 && lane == 31) store_release(progress, flushed);
       flushed = 0;
       const int ql = t - (T - 1);
-      const int jl = min(ql * C + C, m);       // its tile's last column
-      if (ql >= 0 && ql * C < m && (jl % kPublish == 0 || jl == m)) {
+      const int jl = min(col0 + ql * C + C, m);  // its tile's last column
+      if (kBand ? ql >= 0 && ql < tiles && (jl % kPublish == 0 || jl == end)
+                : ql >= 0 && ql * C < m && (jl % kPublish == 0 || jl == m)) {
         __syncwarp();
         const int col = ((jl - 1) & ~(kPublish - 1)) + 1 + lane;
         if (col <= jl) {
@@ -832,7 +997,13 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     }
     __syncthreads();
   }
-  if (flushed > 0 && lane == 31) store_release(progress, flushed);   // m
+  if constexpr (kBand) {
+    // the window's end, or nothing, was stored: release m, past any column
+    // the stripe below waits for
+    if (publish && lane == 31) store_release(progress, m);
+  } else if (flushed > 0 && lane == 31) {
+    store_release(progress, flushed);                               // m
+  }
 
   // stripe argmax: score desc, then row asc; j is already the row's first
   int tb = 0, ti = 0, tj = 0;
@@ -857,17 +1028,26 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 }
 
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
-          bool kBlock = false>
+          bool kBlock = false, bool kBand = false>
 int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
            int mismatch, int gap, int open, int extend, const int* sub,
            int A, int T, int* sync, int* bnd, int* bnd_f, int* best,
-           int* right, cudaStream_t stream, const Ext& ext = Ext{}) {
-  constexpr int kTop = (kP || kBlock) ? ext_threads(R) : kMaxThreads;
+           int* right, cudaStream_t stream, const Ext& ext = Ext{},
+           int band = 0) {
+  constexpr int kTop =
+      (kP || kBlock || kBand) ? ext_threads(R) : kMaxThreads;
   if (m < 1 || n < 1 || T < 32 || T > kTop || T % 32 ||
       (long long)n + (long long)T * R > INT_MAX ||
       (long long)m + (long long)T * C > INT_MAX ||
       (kAffine && bnd_f == nullptr) ||
       (kSub && (sub == nullptr || A < 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // kBand: the band's sums (r1 + band, the window's ends and the cell's
+  // band test) stay in int
+  if (kBand && (band < -1 || (long long)band > (long long)m + n ||
+                2LL * ((long long)m + n) + (long long)T * R + kMaxCols >
+                    INT_MAX)) {
     return (int)cudaErrorInvalidValue;
   }
   if (kP && (ext.P == nullptr || ext.pitch < m + 1 || ext.pitch % 4 ||
@@ -886,7 +1066,7 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
       (kAffine ? f_ints<C>() * sizeof(int) : 0) +
       (kSub ? (size_t)((A < kMaxSym ? A : kMaxSym) + 1) * R * T * sizeof(int)
             : 0);
-  auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock>;
+  auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock, kBand>;
   if (kSub) {
     // above 48 KB of static and dynamic shared memory a block needs an
     // opt-in; the profile alone may pass it
@@ -896,7 +1076,7 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
   }
   kernel<<<stripes, T, smem, stream>>>(a, b, m, n, match, mismatch, gap,
                                        sync, bnd, best, right, open, extend,
-                                       sub, A, bnd_f, ext);
+                                       sub, A, bnd_f, ext, band);
   return (int)cudaGetLastError();
 }
 

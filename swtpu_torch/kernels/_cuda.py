@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
     "stripe_fill.cu", "stripe_block.cu", "walk_p.cu", "pairs_fill.cu",
     "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
-    "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu"))
+    "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
+    "stripe_rb_band.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("stripe_kernel.cuh",
                                             "sw_cell.cuh", "stripe_rb.cuh"))
 BUILD_DIR = _PKG / "build"
@@ -65,8 +66,10 @@ ARGTYPES["sw_stripe_block_affine"] = [_ptr, _ptr] + [_int] * 8 + [_ptr] * 13
 # the affine entry from top on
 ARGTYPES["sw_stripe_block_sub"] = ([_ptr, _ptr, _int, _int, _ptr]
                                    + [_int] * 7 + [_ptr] * 13)
-# P, m1, wn, wm, moves, count, stream
+# P, pitch, wn, wm, moves, count, stream: the earlier walk and the
+# tile-staged one
 ARGTYPES["sw_walk_p"] = [_ptr] + [_int] * 3 + [_ptr] * 3
+ARGTYPES["sw_walk_p_tiled"] = ARGTYPES["sw_walk_p"]
 # K8: a, b, B, m, n, the model, T, sync, bnd, [bnd_f], best, right, band,
 # stream
 ARGTYPES["sw_pairs_score_linear"] = ([_ptr, _ptr] + [_int] * 7 + [_ptr] * 4
@@ -113,6 +116,13 @@ ARGTYPES["sw_stripe_rb_sub"] = ([_ptr, _ptr, _int, _int, _ptr] + [_int] * 8
 for _mode in ("linear", "affine", "sub"):
     ARGTYPES[f"sw_stripe_rb_fill_p_{_mode}"] = (
         ARGTYPES[f"sw_stripe_rb_{_mode}"][:-1] + [_ptr, _int, _ptr])
+# K4b register-blocked (the band form): the K1-K3 and K4 entries'
+# arguments up to the stream, then the band and the stream
+for _mode in ("linear", "affine", "sub"):
+    ARGTYPES[f"sw_stripe_rb_band_{_mode}"] = (
+        ARGTYPES[f"sw_stripe_rb_{_mode}"][:-1] + [_int, _ptr])
+    ARGTYPES[f"sw_stripe_rb_fill_p_band_{_mode}"] = (
+        ARGTYPES[f"sw_stripe_rb_fill_p_{_mode}"][:-1] + [_int, _ptr])
 # K5 register-blocked: the template's K5 entry's arguments with R, C after
 # T: a, b, m, n, the model, T, R, C, local, then as the template's
 ARGTYPES["sw_stripe_rb_block_linear"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 8

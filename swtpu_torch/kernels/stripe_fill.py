@@ -12,7 +12,8 @@ of the device walk of ``swtpu.engine.traceback``:
   the device (on a card, a view of rows padded to ``P_PITCH_ALIGN``
   bytes).
 * ``band=`` on both (``stripe_fill_raw(band=)``): cells with |i-j| > band
-  are H = 0, P = NONE.
+  are H = 0, P = NONE; a stripe visits only the columns its rows' band
+  reaches.
 * ``stripe_block`` (the ``stripe_block_fn`` counterpart): a fill with
   injected row 0 and column 0, local or global (NW), exporting the right
   column, E of column m and, on request, H and F of row n.
@@ -20,21 +21,22 @@ of the device walk of ``swtpu.engine.traceback``:
   of a row-major P from a corner, the moves end-first.
 
 The scoring picks the kernel: linear match/mismatch, affine
-match/mismatch and a substitution table with linear or affine gaps. With
-no band every call runs the register-blocked stripe of
-``csrc/stripe_rb.cuh`` in the scoring's form: ``stripe_score`` its
-score-only entries (``csrc/stripe_rb.cu``: K1 ``sw_stripe_rb_linear``, K2
+match/mismatch and a substitution table with linear or affine gaps. Every
+call runs the register-blocked stripe of ``csrc/stripe_rb.cuh`` in the
+scoring's form: ``stripe_score`` its score-only entries
+(``csrc/stripe_rb.cu``: K1 ``sw_stripe_rb_linear``, K2
 ``sw_stripe_rb_affine``, K3 ``sw_stripe_rb_sub``, either gap model),
 ``stripe_fill`` its P-capture entries (``csrc/stripe_rb_p.cu``: K4
 ``sw_stripe_rb_fill_p_{linear,affine,sub}``) and ``stripe_block`` its
 block entries (``csrc/stripe_rb_block.cu``: K5
-``sw_stripe_rb_block_{linear,affine,sub}``). A band runs the stripe
-template's ``sw_stripe_score_*`` and ``sw_stripe_fill_p_*``
-(``csrc/stripe_fill.cu``) in their band mode (K4b). The walk is
-``sw_walk_p``. ``_launch`` and ``_launch_block`` also reach the
-template's unbanded K1-K4 and its K5 (``sw_stripe_block_*``,
-``csrc/stripe_block.cu``): the earlier designs, on no route of the
-package.
+``sw_stripe_rb_block_{linear,affine,sub}``); with a band, its band form
+(``csrc/stripe_rb_band.cu``, K4b: ``sw_stripe_rb_band_*`` and
+``sw_stripe_rb_fill_p_band_*``). The walk is ``sw_walk_p_tiled``.
+``_launch``, ``_launch_block`` and ``_launch_walk`` also reach the earlier
+designs, on no route of the package: the stripe template's K1-K4 and their
+band mode (``sw_stripe_score_*``, ``sw_stripe_fill_p_*``,
+``csrc/stripe_fill.cu``), its K5 (``sw_stripe_block_*``,
+``csrc/stripe_block.cu``) and the one-thread walk ``sw_walk_p``.
 
 Each runs its hand-written kernel of ``csrc/`` for a tensor on a CUDA
 device and its plain version (``stripe_score_plain``,
@@ -117,6 +119,21 @@ RB_BLOCK_KERNELS = {mode: f"sw_stripe_rb_block_{mode}"
 RB_EXT_TILES = ((8, 4), (8, 2), (4, 4))
 RB_P_DEFAULTS = dict.fromkeys(RB_P_KERNELS, (64, 4, 4))
 RB_BLOCK_DEFAULTS = dict.fromkeys(RB_BLOCK_KERNELS, (128, 8, 4))
+# the band form (K4b, csrc/stripe_rb_band.cu): score-only and P-capture
+# entries by mode, in RB_EXT_TILES under the same launch bounds, and their
+# default (T, R, C), the fastest of chip_smoke.py's sweeps at 16384^2 band
+# 64 (9 points, min of 5 rounds) in each of three runs on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 6): score-only (128, 8, 4) for
+# linear and the table, 0.1-2.7 % and 1.5-7.5 % faster than (128, 4, 4),
+# which DNA affine takes (2 % faster than (128, 8, 4)); P capture (128, 4,
+# 4) in every form. The sweeps ran at one band, so the band does not pick T
+RB_BAND_KERNELS = {mode: f"sw_stripe_rb_band_{mode}"
+                   for mode in ("linear", "affine", "sub")}
+RB_BAND_P_KERNELS = {mode: f"sw_stripe_rb_fill_p_band_{mode}"
+                     for mode in ("linear", "affine", "sub")}
+RB_BAND_DEFAULTS = {"linear": (128, 8, 4), "affine": (128, 4, 4),
+                    "sub": (128, 8, 4)}
+RB_BAND_P_DEFAULTS = dict.fromkeys(RB_BAND_P_KERNELS, (128, 4, 4))
 # their launch bounds: 256 threads at R = 8, whose registers (up to 203)
 # pass the 128 a 512-thread block allows, and RB_MAX_THREADS for the one R =
 # 4 tile (at most 117), which a T above 256 runs when the caller names no
@@ -135,7 +152,10 @@ BAND_SUFFIX = "[band]"
 BLOCK_KERNELS = {"linear": "sw_stripe_block_linear",
                  "affine": "sw_stripe_block_affine",
                  "sub": "sw_stripe_block_sub"}
-WALK_KERNEL = "sw_walk_p"
+# the walk of P: the tile-staged walk, the route's, and the one-thread
+# walk, the earlier design
+WALK_KERNEL = "sw_walk_p_tiled"
+WALK_SCALAR_KERNEL = "sw_walk_p"
 # (capture P, mode) -> the C entry of csrc/stripe_fill.cu
 _KERNELS = {
     (False, "linear"): SCORE_KERNEL, (True, "linear"): FILL_P_KERNEL,
@@ -145,8 +165,10 @@ _KERNELS = {
 }
 launches = dict.fromkeys(
     [*_KERNELS.values(), *(k + BAND_SUFFIX for k in _KERNELS.values()),
-     *BLOCK_KERNELS.values(), WALK_KERNEL, *RB_KERNELS.values(),
-     *RB_P_KERNELS.values(), *RB_BLOCK_KERNELS.values()], 0)
+     *BLOCK_KERNELS.values(), WALK_KERNEL, WALK_SCALAR_KERNEL,
+     *RB_KERNELS.values(), *RB_P_KERNELS.values(),
+     *RB_BLOCK_KERNELS.values(), *RB_BAND_KERNELS.values(),
+     *RB_BAND_P_KERNELS.values()], 0)
 plain_calls = {"stripe_score_plain": 0, "stripe_fill_plain": 0,
                "stripe_block_plain": 0, "walk_p_plain": 0}
 
@@ -165,8 +187,8 @@ def _mode(scoring: Scoring, substitution) -> str:
 def kernel_name(scoring: Scoring, substitution, capture_p: bool,
                 banded: bool = False) -> str:
     """The launch counter of the stripe template's K1-K4 entry of this
-    scoring: the entry's name, plus ``BAND_SUFFIX`` when banded (K4b, what
-    a banded call runs on a CUDA device)."""
+    scoring, the earlier design: the entry's name, plus ``BAND_SUFFIX``
+    when banded (its band mode, the earlier K4b)."""
     name = _KERNELS[capture_p, _mode(scoring, substitution)]
     return name + BAND_SUFFIX if banded else name
 
@@ -174,21 +196,19 @@ def kernel_name(scoring: Scoring, substitution, capture_p: bool,
 def score_kernel_name(scoring: Scoring, substitution,
                       banded: bool = False) -> str:
     """The launch counter of what ``stripe_score`` runs on a CUDA device:
-    the register-blocked entry of the scoring where ``rb_takes``, else
-    ``kernel_name``'s."""
-    if rb_takes(scoring, substitution, 0 if banded else None):
-        return RB_KERNELS[_mode(scoring, substitution)]
-    return kernel_name(scoring, substitution, False, banded)
+    the register-blocked entry of the scoring, its band form when
+    banded."""
+    return (RB_BAND_KERNELS if banded else RB_KERNELS)[
+        _mode(scoring, substitution)]
 
 
 def fill_kernel_name(scoring: Scoring, substitution,
                      banded: bool = False) -> str:
     """The launch counter of what ``stripe_fill`` runs on a CUDA device:
-    the register-blocked K4 entry of the scoring with no band, the
-    template's banded K4 (K4b) with one."""
-    if banded:
-        return kernel_name(scoring, substitution, True, True)
-    return RB_P_KERNELS[_mode(scoring, substitution)]
+    the register-blocked K4 entry of the scoring, its band form when
+    banded."""
+    return (RB_BAND_P_KERNELS if banded else RB_P_KERNELS)[
+        _mode(scoring, substitution)]
 
 
 def block_route_name(scoring: Scoring, substitution) -> str:
@@ -197,30 +217,26 @@ def block_route_name(scoring: Scoring, substitution) -> str:
     return RB_BLOCK_KERNELS[_mode(scoring, substitution)]
 
 
-def rb_takes(scoring: Scoring, substitution,
-             band: Optional[int]) -> bool:
-    """The route of ``stripe_score`` on a card: the register-blocked K1,
-    K2 or K3 for every scoring ``kernels_take`` admits with no band; the
-    template's banded K1-K3 (K4b) with one."""
-    return band is None
-
-
 def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
              C: Optional[int] = None, mode: str = "linear",
              A: int = 0, kind: str = "score") -> tuple:
     """(threads, rows per thread, columns per step) of a register-blocked
-    launch of ``kind`` ('score' K1-K3, 'fill_p' K4 or 'block' K5) in
-    ``mode`` ('linear', 'affine' or 'sub', an alphabet of A symbols) over
-    n rows: T threads (default the form's, RB_DEFAULTS, RB_P_DEFAULTS or
-    RB_BLOCK_DEFAULTS; a multiple of 32 up to RB_MAX_THREADS, each holding
-    R rows; K4 and K5 above RB_EXT_MAX_THREADS only in RB_WIDE_TILE, their
+    launch of ``kind`` ('score' K1-K3, 'fill_p' K4, 'block' K5, or the
+    band form K4b, 'band' and 'fill_p_band') in ``mode`` ('linear',
+    'affine' or 'sub', an alphabet of A symbols) over n rows: T threads
+    (default the form's, RB_DEFAULTS, RB_P_DEFAULTS, RB_BLOCK_DEFAULTS,
+    RB_BAND_DEFAULTS or RB_BAND_P_DEFAULTS; a multiple of 32 up to
+    RB_MAX_THREADS, each holding R rows; every form but K1-K3 in
+    RB_EXT_TILES, above RB_EXT_MAX_THREADS only in RB_WIDE_TILE, its
     default there), no more than ceil(n / R) needs, rounded up to a warp,
     and, for a table, no more than the profile's shared memory holds
     (RB_PROFILE_BYTES)."""
     if kind == "score":
         defaults, tiles = RB_DEFAULTS, RB_FORM_TILES[mode]
     else:
-        defaults = RB_P_DEFAULTS if kind == "fill_p" else RB_BLOCK_DEFAULTS
+        defaults = {"fill_p": RB_P_DEFAULTS, "block": RB_BLOCK_DEFAULTS,
+                    "band": RB_BAND_DEFAULTS,
+                    "fill_p_band": RB_BAND_P_DEFAULTS}[kind]
         tiles = RB_EXT_TILES
     dT, dR, dC = defaults[mode]
     T = dT if T is None else T
@@ -302,18 +318,14 @@ def stripe_score(a: torch.Tensor, b: torch.Tensor,
                  substitution: Optional[torch.Tensor] = None,
                  band: Optional[int] = None) -> StripeOut:
     """Score-only local fill of a (m,) against b (n,), int8 codes on one
-    device. ``T``: threads per block (CUDA only; on the register-blocked
-    route, with no band, a thread holds its form's R rows, up to
-    RB_MAX_THREADS threads, ``rb_shape``; banded, one row, up to 1024
-    threads). ``substitution``: an
-    (A, A) int32 table S[a_code, b_code] on the same device, or None for
-    the match/mismatch compare. ``band``: keep only the cells with
+    device. ``T``: threads per block (CUDA only; a thread holds its form's
+    R rows, up to RB_MAX_THREADS threads, ``rb_shape``). ``substitution``:
+    an (A, A) int32 table S[a_code, b_code] on the same device, or None
+    for the match/mismatch compare. ``band``: keep only the cells with
     |i - j| <= band (None: every cell)."""
     if _route(a, b, scoring, substitution) == "cpu":
         return stripe_score_plain(a, b, scoring, substitution, band)
-    if rb_takes(scoring, substitution, band):
-        return _launch_rb(a, b, scoring, T, sub=substitution)
-    return _launch(a, b, scoring, T, substitution, False, band)
+    return _launch_rb(a, b, scoring, T, sub=substitution, band=band)
 
 
 def stripe_fill(a: torch.Tensor, b: torch.Tensor,
@@ -321,13 +333,11 @@ def stripe_fill(a: torch.Tensor, b: torch.Tensor,
                 substitution: Optional[torch.Tensor] = None,
                 band: Optional[int] = None) -> StripeOut:
     """``stripe_score`` plus the row-major predecessor matrix P. ``T``:
-    threads per block (CUDA only; with no band each holds R rows, up to
-    RB_MAX_THREADS threads, ``rb_shape``; banded, one row, up to 1024)."""
+    threads per block (CUDA only; each holds R rows, up to RB_MAX_THREADS
+    threads, ``rb_shape``)."""
     if _route(a, b, scoring, substitution) == "cpu":
         return stripe_fill_plain(a, b, scoring, substitution, band)
-    if band is None:
-        return _launch_rb_p(a, b, scoring, T, sub=substitution)
-    return _launch(a, b, scoring, T, substitution, True, band)
+    return _launch_rb_p(a, b, scoring, T, sub=substitution, band=band)
 
 
 def stripe_score_plain(a: torch.Tensor, b: torch.Tensor,
@@ -409,13 +419,20 @@ def walk_p(P: torch.Tensor, wn: int, wm: int) -> torch.Tensor:
         return walk_p_plain(P, wn, wm)
     if P.device.type != "cuda":
         raise ValueError(f"no walk for device {P.device}")
+    return _launch_walk(P, wn, wm)
+
+
+def _launch_walk(P: torch.Tensor, wn: int, wm: int,
+                 name: str = WALK_KERNEL) -> torch.Tensor:
+    """The walk entry ``name`` (the route's WALK_KERNEL or the earlier
+    WALK_SCALAR_KERNEL) on a CUDA P; the moves on the CPU."""
     if P.stride(1) != 1:
         P = P.contiguous()
     # the row pitch: K4's padded rows are walked in place
     moves = torch.empty(max(wn + wm, 1), dtype=torch.int8, device=P.device)
     count = torch.empty(1, dtype=torch.int32, device=P.device)
-    _call(WALK_KERNEL, P.device, [P.data_ptr(), P.stride(0), wn, wm,
-                                  moves.data_ptr(), count.data_ptr()])
+    _call(name, P.device, [P.data_ptr(), P.stride(0), wn, wm,
+                           moves.data_ptr(), count.data_ptr()])
     return moves[:int(count)].cpu()
 
 
@@ -582,6 +599,8 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 def _launch(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
             T: Optional[int], sub: Optional[torch.Tensor],
             capture_p: bool, band: Optional[int]) -> StripeOut:
+    """The stripe template's K1-K4 (``kernel_name``), or their band mode,
+    the earlier designs, at T rows a stripe."""
     name = kernel_name(scoring, sub, capture_p)
     m, n = a.numel(), b.numel()
     dev = a.device
@@ -600,12 +619,16 @@ def _launch(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
     if capture_p:
         P = torch.zeros((n + 1, m + 1), dtype=torch.int8, device=dev)
         args.append(P.data_ptr())
-    # |i - j| < m + n everywhere: a wider band changes nothing and a band
-    # below -1 keeps no more cells than -1
-    args.append(NO_BAND if band is None else max(-1, min(int(band), m + n)))
+    args.append(NO_BAND if band is None else _clamp_band(band, m, n))
     _call(name, dev, args, kernel_name(scoring, sub, capture_p,
                                        band is not None))
     return StripeOut(_reduce(best, right, n), right, P)
+
+
+def _clamp_band(band: int, m: int, n: int) -> int:
+    """|i - j| < m + n everywhere: a wider band changes nothing and a band
+    below -1 keeps no more cells than -1."""
+    return max(-1, min(int(band), m + n))
 
 
 def _rb_scratch(a, b, scoring: Scoring, sub, T: int, R: int) -> tuple:
@@ -629,19 +652,27 @@ def _rb_scratch(a, b, scoring: Scoring, sub, T: int, R: int) -> tuple:
 def _launch_rb(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
                T: Optional[int], R: Optional[int] = None,
                C: Optional[int] = None,
-               sub: Optional[torch.Tensor] = None) -> StripeOut:
-    """The register-blocked K1-K3 (``RB_KERNELS``, by the scoring) at T
-    threads of R rows and C columns a step (``rb_shape``)."""
+               sub: Optional[torch.Tensor] = None,
+               band: Optional[int] = None) -> StripeOut:
+    """The register-blocked K1-K3 (``RB_KERNELS``, by the scoring), or
+    with a band their band form (``RB_BAND_KERNELS``), at T threads of R
+    rows and C columns a step (``rb_shape``)."""
     mode = _mode(scoring, sub)
     m, n = a.numel(), b.numel()
-    T, R, C = rb_shape(n, T, R, C, mode, 0 if sub is None else sub.shape[0])
+    T, R, C = rb_shape(n, T, R, C, mode, 0 if sub is None else sub.shape[0],
+                       "score" if band is None else "band")
     a, b, sub, sync, bnd, bnd_f, best = _rb_scratch(a, b, scoring, sub, T, R)
     # the F rows handed between stripes; the linear table entry takes null
     bnds = [bnd.data_ptr()] + ([_ptr(bnd_f)] if mode != "linear" else [])
+    # zeroed: a banded launch writes only the rows whose band reaches m
     right = torch.zeros(n + 1, dtype=torch.int32, device=a.device)
-    _call(RB_KERNELS[mode], a.device,
-          [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T, R, C,
-           sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr()])
+    args = [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T, R, C,
+            sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr()]
+    if band is None:
+        _call(RB_KERNELS[mode], a.device, args)
+    else:
+        _call(RB_BAND_KERNELS[mode], a.device,
+              args + [_clamp_band(band, m, n)])
     return StripeOut(_reduce(best, right, n), right, None)
 
 
@@ -659,16 +690,19 @@ def _launch_rb_p(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
                  T: Optional[int], R: Optional[int] = None,
                  C: Optional[int] = None,
                  sub: Optional[torch.Tensor] = None,
-                 P: Optional[torch.Tensor] = None) -> StripeOut:
-    """The register-blocked K4 (``RB_P_KERNELS``, by the scoring) at T
-    threads of R rows and C columns a step (``rb_shape``). ``P``: the
-    (n+1, m+1) int8 output with unit column stride, column 1 and the row
-    pitch 4-byte aligned, default ``p_matrix``'s; the kernel writes every
-    cell of it and no other byte."""
+                 P: Optional[torch.Tensor] = None,
+                 band: Optional[int] = None) -> StripeOut:
+    """The register-blocked K4 (``RB_P_KERNELS``, by the scoring), or with
+    a band its band form (``RB_BAND_P_KERNELS``), at T threads of R rows
+    and C columns a step (``rb_shape``). ``P``: the (n+1, m+1) int8 output
+    with unit column stride, column 1 and the row pitch 4-byte aligned,
+    default ``p_matrix``'s; the kernel writes every cell of it (banded:
+    every cell of its windows, after the wrapper clears P's cells) and no
+    other byte."""
     mode = _mode(scoring, sub)
     m, n = a.numel(), b.numel()
     T, R, C = rb_shape(n, T, R, C, mode, 0 if sub is None else sub.shape[0],
-                       "fill_p")
+                       "fill_p" if band is None else "fill_p_band")
     if P is None:
         P = p_matrix(n, m, a.device)
     if P.dtype != torch.int8 or P.shape != (n + 1, m + 1) \
@@ -678,13 +712,19 @@ def _launch_rb_p(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
                          "column stride, column 1 and the row pitch 4-byte "
                          f"aligned, on {a.device}, got {P.dtype} "
                          f"{tuple(P.shape)} {P.stride()} on {P.device}")
+    if band is not None:
+        P.zero_()           # NONE: the band form stores its windows only
     a, b, sub, sync, bnd, bnd_f, best = _rb_scratch(a, b, scoring, sub, T, R)
     bnds = [bnd.data_ptr()] + ([_ptr(bnd_f)] if mode != "linear" else [])
     right = torch.zeros(n + 1, dtype=torch.int32, device=a.device)
-    _call(RB_P_KERNELS[mode], a.device,
-          [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T, R, C,
-           sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr(),
-           P.data_ptr(), P.stride(0)])
+    args = [a.data_ptr(), b.data_ptr(), m, n, *_model(scoring, sub), T, R, C,
+            sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr(),
+            P.data_ptr(), P.stride(0)]
+    if band is None:
+        _call(RB_P_KERNELS[mode], a.device, args)
+    else:
+        _call(RB_BAND_P_KERNELS[mode], a.device,
+              args + [_clamp_band(band, m, n)])
     return StripeOut(_reduce(best, right, n), right, P)
 
 

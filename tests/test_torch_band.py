@@ -3,9 +3,14 @@
 On the CPU the port's banded ``scan_fill`` is held against the JAX scan,
 its banded stripe wrappers (plain versions here) against the Pallas stripe
 kernel's band mode in interpret mode, and ``align``/``score`` with
-``EngineConfig(band=)`` against ``swtpu.align``/``swtpu.score``. The DP is
-integer: every comparison is exact. The ``gpu`` tests hold the banded
-kernels against their plain versions on the card and skip elsewhere."""
+``EngineConfig(band=)`` against ``swtpu.align``/``swtpu.score``. The band
+form of the register-blocked stripe (``csrc/stripe_rb_band.cu``, each
+stripe visiting only the columns its rows' band reaches) runs only on a
+card; here the Python model of its schedule (``rb_model(band=)`` of
+``test_torch_stripe_rb``) is held against the plain versions and the JAX
+scan at the edges of its windows. The DP is integer: every comparison is
+exact. The ``gpu`` tests hold the banded kernels against their plain
+versions on the card and skip elsewhere."""
 
 import subprocess
 import sys
@@ -28,6 +33,7 @@ from swtpu_torch.convert import substitution_from_jax
 from swtpu_torch.dispatch.plan import choose_exec
 from swtpu_torch.kernels import stripe_fill as sf
 from swtpu_torch.kernels.scan_fill import diag_to_rowmajor, embed_table, scan_fill
+from test_torch_stripe_rb import KPUBLISH, rb_model, rb_window
 
 REPO = Path(__file__).resolve().parent.parent
 DNA_AFFINE = Scoring(mode="affine")                          # 3/-3, -4/-1
@@ -130,6 +136,124 @@ def test_band_zero_keeps_the_diagonal():
     assert (ii == jj).all() and len(ii) == 5
 
 
+# (kind, m, n, band, T, R, C) of the band form: |n - m| > band either way,
+# a band wider than a stripe's rows and than the pair, band -1 and 0,
+# windows ending inside, at and past a chunk of 32 columns (128-row
+# stripes, band 31 / 32 / 33: stripe 1's window then starts on a chunk, so
+# its first DIAG is the row above's), n not a multiple of T*R, two warps,
+# every tile
+BAND_FORM_CASES = {
+    "m_below_n_far": ("dna_linear", 100, 330, 7, 32, 4, 4),
+    "m_above_n_far": ("dna_affine", 330, 100, 7, 32, 8, 2),
+    "band_wider_than_a_stripe": ("protein", 300, 290, 200, 32, 4, 4),
+    "band_minus_one": ("dna_linear", 120, 150, -1, 32, 8, 4),
+    "band_zero": ("protein_linear", 150, 160, 0, 32, 8, 4),
+    "window_ends_inside_a_chunk": ("dna_linear", 300, 300, 31, 32, 4, 4),
+    "window_ends_at_a_chunk": ("dna_affine", 300, 300, 32, 32, 4, 4),
+    "window_ends_past_a_chunk": ("protein", 300, 300, 33, 32, 4, 4),
+    "two_warps_ragged": ("dna_affine", 260, 700, 64, 64, 8, 2),
+    "band_wider_than_the_pair": ("protein_linear", 90, 200, 5000, 32, 8, 4),
+}
+
+
+def _jax_band(a, b, sc, S, band):
+    """The JAX scan's banded fill: ((4,) best, right column, row-major P)."""
+    jx = jax_scan_fill(jnp.asarray(a), jnp.asarray(b),
+                       scoring=_jax_scoring(sc), return_p=True, band=band,
+                       sub_table=None if S is None else
+                       jnp.asarray(jax_embed(S)))
+    P = diag_to_rowmajor(torch.from_numpy(np.array(jx.p_diag)), len(b),
+                         len(a)).numpy()
+    return ([int(jx.max_score), int(jx.max_i), int(jx.max_j),
+             int(jx.last_cell)], np.asarray(jx.right_col), P)
+
+
+@pytest.mark.parametrize("case", list(BAND_FORM_CASES))
+def test_band_form_model_matches_plain_and_jax(case):
+    kind, m, n, band, T, R, C = BAND_FORM_CASES[case]
+    a, b, sc, S = _pair(kind, m, n, seed=406)
+    m, n = len(a), len(b)
+    clamped = sf._clamp_band(band, m, n)          # as the wrapper passes it
+    extra = {}
+    got, right = rb_model(a, b, sc, T, R, C, S, capture_p=True, extra=extra,
+                          band=clamped)
+    assert rb_model(a, b, sc, T, R, C, S, band=clamped) == (got, right)
+    plain = sf.stripe_fill_plain(_t(a), _t(b), sc, _t(S), band)
+    assert got == plain.best.tolist()
+    assert right == plain.right_col.tolist()
+    np.testing.assert_array_equal(extra["P"], plain.P.numpy())
+    want, want_right, want_P = _jax_band(a, b, sc, S, band)
+    assert got == want
+    np.testing.assert_array_equal(right, want_right)
+    np.testing.assert_array_equal(extra["P"], want_P)
+
+
+@pytest.mark.parametrize("band", [-1, 0, 5, 31, 32, 33, 200, 5000])
+@pytest.mark.parametrize("m, n, T, R, C", [(300, 290, 32, 4, 4),
+                                           (100, 700, 64, 8, 2),
+                                           (700, 100, 32, 8, 4)])
+def test_band_windows_cover_the_band_alone(m, n, T, R, C, band):
+    """Each stripe's window (``rb_window``, csrc/stripe_rb.cuh
+    ``band_window``) starts on a chunk, holds every column its rows' band
+    reaches and ends in the tile holding the last; none when band < 0 or
+    the band has left the matrix; the windows do not move left."""
+    last = (0, 0, 0)
+    for s in range(-(-n // (T * R))):
+        col0, tiles, end = rb_window(s, T, R, C, m, n, band)
+        r0, r1 = s * T * R + 1, min(n, (s + 1) * T * R)
+        lo, hi = max(1, r0 - band), min(m, r1 + band)
+        assert col0 % KPUBLISH == 0 and col0 % C == 0
+        if band < 0 or lo > hi:
+            assert tiles == 0 and end == col0
+            continue
+        assert col0 < lo <= col0 + KPUBLISH
+        assert end == min(m, col0 + tiles * C) and end - C < hi <= end
+        assert col0 >= last[0] and end >= last[2]
+        last = (col0, tiles, end)
+
+
+@pytest.mark.parametrize("m, n, band", [(40, 200, 5), (200, 40, 5),
+                                        (150, 300, 140), (100, 120, -1),
+                                        (64, 300, 0)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_band_edges_match_jax(kind, m, n, band):
+    """The plain banded versions against the JAX scan where the band form
+    leaves whole stripes out: |n - m| > band, a band wider than one
+    stripe's rows, band -1."""
+    a, b, sc, S = _pair(kind, m, n, seed=407)
+    plain = sf.stripe_fill_plain(_t(a), _t(b), sc, _t(S), band)
+    score = sf.stripe_score_plain(_t(a), _t(b), sc, _t(S), band)
+    want, want_right, want_P = _jax_band(a, b, sc, S, band)
+    assert plain.best.tolist() == score.best.tolist() == want
+    np.testing.assert_array_equal(plain.right_col.numpy(), want_right)
+    np.testing.assert_array_equal(score.right_col.numpy(), want_right)
+    np.testing.assert_array_equal(plain.P.numpy(), want_P)
+
+
+def test_rb_shape_of_the_band_form():
+    for kind, defaults in (("band", sf.RB_BAND_DEFAULTS),
+                           ("fill_p_band", sf.RB_BAND_P_DEFAULTS)):
+        assert set(defaults) == {"linear", "affine", "sub"}
+        for mode, (T, R, C) in defaults.items():
+            assert (R, C) in sf.RB_EXT_TILES and T <= sf.RB_EXT_MAX_THREADS
+            assert sf.rb_shape(16384, mode=mode, A=21, kind=kind) == \
+                (T, R, C)
+            for R_, C_ in sf.RB_EXT_TILES:
+                assert sf.rb_shape(40, None, R_, C_, mode, 21, kind) == \
+                    (32, R_, C_)
+                for T_ in (32, 64, 128, 256):
+                    assert sf.rb_shape(16384, T_, R_, C_, mode, 21,
+                                       kind) == (T_, R_, C_)
+            # the launch bounds of csrc/stripe_rb_band.cu: above 256
+            # threads only the R = 4 tile
+            assert sf.rb_shape(16384, 512, mode=mode, A=21, kind=kind) == \
+                (512, *sf.RB_WIDE_TILE)
+            for bad in (dict(T=544), dict(T=16), dict(T=512, R=8, C=4),
+                        dict(R=16, C=4), dict(R=8, C=8)):
+                with pytest.raises(ValueError, match="multiple|tiles"):
+                    sf.rb_shape(1000, mode=mode, A=21, kind=kind, **bad)
+
+
 def _fields(r):
     return (r.max_score, r.max_i, r.max_j, r.last_cell, r.max_pos,
             r.aligned_a, r.aligned_b, r.path)
@@ -197,13 +321,18 @@ def test_banded_kernel_names():
         assert sf.kernel_name(sc, S, True, True) == \
             f"sw_stripe_fill_p_{mode}[band]"
         assert sf.block_kernel_name(sc, S) == f"sw_stripe_block_{mode}"
-        # a band keeps the template's K4b; unbanded calls the
-        # register-blocked K4 and every block fill its K5
+        # a band runs the register-blocked stripe's band form, score-only
+        # and with P; unbanded calls its K1-K4 and every block fill its K5
+        assert sf.score_kernel_name(sc, S, True) == f"sw_stripe_rb_band_{mode}"
         assert sf.fill_kernel_name(sc, S, True) == \
-            f"sw_stripe_fill_p_{mode}[band]"
+            f"sw_stripe_rb_fill_p_band_{mode}"
         assert sf.fill_kernel_name(sc, S) == f"sw_stripe_rb_fill_p_{mode}"
         assert sf.block_route_name(sc, S) == f"sw_stripe_rb_block_{mode}"
-    assert len(sf.launches) == 25 and sf.WALK_KERNEL in sf.launches
+    # the walk: the tile-staged entry, and the one-thread one beside it
+    assert sf.WALK_KERNEL == "sw_walk_p_tiled"
+    assert sf.WALK_SCALAR_KERNEL == "sw_walk_p"
+    assert len(sf.launches) == 32 and sf.WALK_KERNEL in sf.launches \
+        and sf.WALK_SCALAR_KERNEL in sf.launches
 
 
 def test_cli_band_on_cpu():
@@ -247,8 +376,10 @@ def test_banded_kernels_match_plain_on_card(cuda, kind, band):
         assert torch.equal(got_s.right_col, plain.right_col)
         assert torch.equal(got_f.best, plain.best)
         assert torch.equal(got_f.P, plain.P)
-    assert sf.launches[sf.kernel_name(sc, S, False, True)] == 2
-    assert sf.launches[sf.kernel_name(sc, S, True, True)] == 2
+    assert sf.launches[sf.score_kernel_name(sc, S, True)] == 2
+    assert sf.launches[sf.fill_kernel_name(sc, S, True)] == 2
+    assert sf.launches[sf.kernel_name(sc, S, False, True)] == 0
+    assert sf.launches[sf.kernel_name(sc, S, True, True)] == 0
     assert not any(sf.plain_calls.values())
 
 
@@ -262,4 +393,36 @@ def test_banded_align_on_card_matches_cpu(cuda, kind):
     sf.reset_counts()
     got = swtpu_torch.align(a, b, sc, device="cuda", **kw)
     assert _fields(got) == _fields(want)
-    assert sf.launches[sf.kernel_name(sc, S, True, True)] == 1
+    assert sf.launches[sf.fill_kernel_name(sc, S, True)] == 1
+    assert sf.launches[sf.WALK_KERNEL] == 0   # its P is walked on the host
+    assert sf.launches[sf.kernel_name(sc, S, True, True)] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BAND_FORM_CASES))
+def test_band_form_kernels_match_plain_on_card(cuda, case):
+    """The band form's entries at the model's cases, each at its own (T,
+    R, C), the default and every (T, R, C) of chip_smoke.py's sweep, P
+    into a guarded buffer: no byte off P written."""
+    from test_torch_stripe_rb_p import _guarded_p
+    kind, m, n, band, T, R, C = BAND_FORM_CASES[case]
+    a, b, sc, S = _pair(kind, m, n, seed=406)
+    m, n = len(a), len(b)
+    at, bt, St = _t(a, cuda), _t(b, cuda), _t(S, cuda)
+    plain = sf.stripe_fill_plain(at, bt, sc, St, band)
+    shapes = [(T, R, C), (None, None, None)] + [
+        (T_, R_, C_) for T_ in (32, 64, 128) for R_, C_ in sf.RB_EXT_TILES]
+    sf.reset_counts()
+    for shape in shapes:
+        got_s = sf._launch_rb(at, bt, sc, *shape, sub=St, band=band)
+        P, buf, cells = _guarded_p(n, m, cuda)
+        got_f = sf._launch_rb_p(at, bt, sc, *shape, sub=St, P=P, band=band)
+        torch.cuda.synchronize()
+        for got in (got_s, got_f):
+            assert torch.equal(got.best, plain.best), shape
+            assert torch.equal(got.right_col, plain.right_col), shape
+        assert torch.equal(got_f.P, plain.P), shape
+        assert bool((buf[~cells] == 0x5A).all()), shape
+    assert sf.launches[sf.score_kernel_name(sc, St, True)] == len(shapes)
+    assert sf.launches[sf.fill_kernel_name(sc, St, True)] == len(shapes)
+

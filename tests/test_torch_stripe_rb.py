@@ -48,18 +48,45 @@ PROTEIN = Scoring(mode="affine", gap_open=-11, gap_extend=-1)
 PROTEIN_LINEAR = Scoring(gap=-6)
 
 
+def rb_window(s: int, T: int, R: int, C: int, m: int, n: int,
+              band: int = None) -> tuple:
+    """(col0, tiles, end) of stripe s: it visits the tiles of columns col0
+    + 1 .. end, ``tiles`` of them. With no band every column; with one the
+    columns max(1, r0 - band) .. min(m, r1 + band) of its rows r0 .. r1,
+    the first rounded down to a chunk of kPublish, so a tile starts at 1 +
+    C*q and a chunk at 1 + 32*c; none when band < 0 or the band has left
+    the matrix (tiles 0, end = col0)."""
+    if band is None:
+        return 0, -(-m // C), m
+    r0, r1 = s * T * R + 1, min(n, (s + 1) * T * R)
+    lo, hi = max(1, r0 - band), min(m, r1 + band)
+    if band < 0 or lo > hi:
+        col0 = min(m, lo - 1) // KPUBLISH * KPUBLISH
+        return col0, 0, col0
+    col0 = (lo - 1) // KPUBLISH * KPUBLISH
+    q1 = (hi - 1) // C
+    return col0, q1 - col0 // C + 1, min(m, (q1 + 1) * C)
+
+
 def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
              C: int, table: np.ndarray = None, capture_p: bool = False,
-             block: dict = None, extra: dict = None) -> tuple:
+             block: dict = None, extra: dict = None,
+             band: int = None) -> tuple:
     """The kernel's schedule in Python: ((4,) best, (n+1,) right) as the
     wrapper returns them. ``table``: the (A, A) S[a_code, b_code] of the
     substitution form. ``capture_p``: the K4 form, storing each cell's
     code into P (a row's codes of a whole tile at once, the tile holding
-    column m a byte a cell), rows 0 and column 0 NONE. ``block``: the K5 form, a
+    column m a byte a cell), rows 0 and column 0 NONE (banded: P cleared
+    first, as the wrapper does, and only the windows' tiles stored).
+    ``block``: the K5 form, a
     dict of the injected ``top``, ``left`` (affine ``top_f``, ``left_e``),
     ``local`` and ``want_bottom``. ``extra``, a dict, gets ``P`` (the
     (n+1, m+1) codes), ``right_e``, ``bottom`` and ``bottom_f`` as the
-    forms write them."""
+    forms write them. ``band``: the band form (K4b), each stripe visiting
+    only its ``rb_window``, cells with |i - j| > band masked to H = 0, E =
+    F = NEG and P = NONE, the row above read only where the stripe above
+    stored it (H = 0, F = NEG past its window), each stripe releasing m at
+    its end."""
     m, n = len(a), len(b)
     affine = sc.is_affine
     k_steps = KPUBLISH // C
@@ -71,6 +98,9 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
     stripe_best = []
     # P with a guard row and column: cells never stored keep GUARD
     P = np.full((n + 2, m + 2), GUARD, np.int16) if capture_p else None
+    if capture_p and band is not None:
+        P[:n + 1, :m + 1] = NONE          # the wrapper's one clear of P
+        stored = np.zeros((n + 1, m + 1), bool)
     if block is not None:
         top, left = block["top"], block["left"]
         top_f = block.get("top_f") if affine else None
@@ -79,9 +109,22 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
         right_e = [NEG] * (n + 1)
         bottom = [None] * (m + 1) if block["want_bottom"] else None
         bottom_f = [None] * (m + 1) if block["want_bottom"] else None
+    def store(i, j, move):
+        """One code into P: each cell of the windows once."""
+        if band is None:
+            assert P[i, j] == GUARD
+        else:
+            assert not stored[i, j]
+            stored[i, j] = True
+        P[i, j] = move
+
     for s in range(S):
         kt = (min(T * R, n - s * T * R) + R - 1) // R
-        steps = -(-m // C) + kt - 1
+        col0, tiles, end = rb_window(s, T, R, C, m, n, band)
+        steps = tiles + kt - 1 if tiles else 0
+        # the columns the stripe above stored: pcol0 + 1 .. pend
+        pcol0, _, pend = (rb_window(s - 1, T, R, C, m, n, band) if s
+                          else (0, 0, m))
         first = [s * T * R + k * R for k in range(T)]
         code = [[int(b[first[k] + r]) & 0xff if first[k] + r < n else 0x100
                  for r in range(R)] for k in range(T)]
@@ -99,7 +142,7 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                             int(table[q, cb[4 * r4 + x]])
                             if q < rows and cb[4 * r4 + x] >= 0 else NEG_SUB
                             for x in range(4))
-        if capture_p:                     # row 0 (stripe 0) and column 0
+        if capture_p and band is None:    # row 0 (stripe 0) and column 0
             if s == 0:
                 P[0, :m + 1] = NONE
             for k in range(T):
@@ -107,8 +150,9 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     if first[k] + r < n:
                         P[first[k] + r + 1, 0] = NONE
         publish = (s + 1) * T * R < n
-        ring = {c: c for c in range(min(KAHEAD, m))}   # slot -> column held
-        a_next = [KAHEAD + x for x in range(32)]       # warp 0's register
+        ring = {(col0 + c) % KRING: col0 + c          # slot -> column held
+                for c in range(KAHEAD) if col0 + c < m}
+        a_next = [col0 + KAHEAD + x for x in range(32)]  # warp 0's register
 
         def fetch(lo):
             """A chunk from column lo (H's and F's), after waiting for the
@@ -120,27 +164,34 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                          for x in range(32)],
                         [int(top_f[lo + x]) if affine and lo + x <= m
                          else NEG for x in range(32)])
-            want = min(lo + KPUBLISH - 1, m)
-            assert want % KPUBLISH == 0 or want == m
+            if lo > pend:                 # past the stripe above's window
+                return [0] * 32, [NEG] * 32
+            want = min(lo + KPUBLISH - 1, pend)
+            assert want % KPUBLISH == 0 or want == pend
             assert want in released[s - 1]
-            return ([bnd[s - 1, lo + x] if lo + x <= m else 0
+            return ([bnd[s - 1, lo + x] if lo + x <= pend else 0
                      for x in range(32)],
-                    [bnd_f[s - 1, lo + x] if affine and lo + x <= m else NEG
-                     for x in range(32)])
+                    [bnd_f[s - 1, lo + x] if affine and lo + x <= pend
+                     else NEG for x in range(32)])
 
         reads_row = s > 0 or block is not None
         cur = nxt = ([0] * 32, [NEG] * 32)
-        if reads_row:
-            cur = fetch(1)
-            if m > KPUBLISH:
-                nxt = fetch(KPUBLISH + 1)
+        u0 = 0                    # thread 0's first DIAG: H(r0 - 1, col0)
+        if reads_row and tiles:
+            cur = fetch(col0 + 1)
+            if col0 + KPUBLISH < end:
+                nxt = fetch(col0 + KPUBLISH + 1)
+            if s > 0 and pcol0 < col0 <= pend:
+                # the first fetch's wait covered the column
+                assert min(col0 + KPUBLISH, pend) >= col0
+                u0 = bnd[s - 1, col0]
         H = [[0] * R for _ in range(T)]
         E = [[NEG] * R for _ in range(T)]
         best = [[0] * R for _ in range(T)]
         best_j = [[0] * R for _ in range(T)]
         Bv = [[0] * C for _ in range(T)]
         BFv = [[NEG] * C for _ in range(T)]
-        u_last = [0] * T
+        u_last = [u0] + [0] * (T - 1)
         if block is not None:             # column 0: the rows' H and E
             for k in range(T):
                 for r in range(R):
@@ -161,7 +212,7 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
         flushed = 0
         for t in range(steps):
             if t % k_steps == 0:              # warp 0: thread 0 starts a chunk
-                c0 = t * C
+                c0 = col0 + t * C
                 for x in range(32):
                     col = c0 + KAHEAD + x
                     assert a_next[x] == col
@@ -171,7 +222,7 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                 if reads_row:
                     if t > 0:
                         cur = nxt
-                        if c0 + KPUBLISH + 1 <= m:
+                        if c0 + KPUBLISH + 1 <= end:
                             nxt = fetch(c0 + KPUBLISH + 1)
                     s_bnd[(t // k_steps) & 1] = (list(cur[0]), list(cur[1]))
             U, UF = [], []
@@ -191,9 +242,9 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     U.append([0] * C)              # the zero row
                     UF.append([NEG] * C)
             for k in range(T):
-                q = t - k
+                q = col0 // C + t - k
                 j0 = q * C + 1
-                if not (k < kt and q >= 0 and j0 <= m):
+                if not (k < kt and 0 <= t - k < tiles):
                     continue
                 nc = min(C, m - j0 + 1)
                 whole = j0 + C - 1 < m
@@ -215,6 +266,12 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     for r in range(R):
                         left_h = H[k][r]
                         d = diag + score[r]
+                        # the band form's mask: DIAG and (linear) the gap
+                        # to NEG, E and F to NEG, so H = 0 and P = NONE
+                        inb = (band is None
+                               or abs(first[k] + r + 1 - (j0 + c)) <= band)
+                        if not inb:
+                            d = NEG
                         if block is not None and floor is None:
                             x = d                      # the global form
                         else:
@@ -222,12 +279,14 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                         if affine:
                             e_ext = E[k][r] + sc.gap_extend
                             f_ext = f + sc.gap_extend
-                            E[k][r] = max(e_ext, left_h + sc.gap_open)
-                            f = max(f_ext, up + sc.gap_open)
+                            E[k][r] = (max(e_ext, left_h + sc.gap_open)
+                                       if inb else NEG)
+                            f = max(f_ext, up + sc.gap_open) if inb else NEG
                             up_v, left_v = f, E[k][r]
                         else:
-                            up_v = up + sc.gap
-                            left_v = left_h + sc.gap
+                            gap = sc.gap if inb else NEG
+                            up_v = up + gap
+                            left_v = left_h + gap
                         h = max(x, up_v, left_v)
                         if capture_p:
                             # the template's order: from 0 and NONE a
@@ -239,13 +298,12 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                             if affine:
                                 move += ((E_EXT if E[k][r] == e_ext else 0)
                                          + (F_EXT if f == f_ext else 0))
+                                move = move if inb else NONE
                             if first[k] + r < n:
                                 if whole:
                                     tile_codes[r, c] = move
-                                else:
-                                    assert P[first[k] + r + 1, j0 + c] \
-                                        == GUARD
-                                    P[first[k] + r + 1, j0 + c] = move
+                                elif inb:    # banded: NONE outside
+                                    store(first[k] + r + 1, j0 + c, move)
                         fr.append(f)
                         if h > best[k][r]:
                             best[k][r], best_j[k][r] = h, j0 + c
@@ -257,8 +315,12 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     Bv[k][c] = H[k][R - 1]
                     BFv[k][c] = f
                 for (r, c), move in tile_codes.items():   # once a tile
-                    assert P[first[k] + r + 1, j0 + c] == GUARD
-                    P[first[k] + r + 1, j0 + c] = move
+                    # banded: a row wholly outside the band stays NONE
+                    reach = band is None or any(
+                        abs(first[k] + r + 1 - (j0 + x)) <= band
+                        for x in range(C))
+                    if reach:
+                        store(first[k] + r + 1, j0 + c, move)
                 if not whole:                     # the tile holding column m
                     for r in range(R):
                         if first[k] + r < n:
@@ -274,9 +336,8 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                     released[s].add(flushed)
                 flushed = 0
                 ql = t - (T - 1)
-                jl = min(ql * C + C, m)
-                if ql >= 0 and ql * C < m and (jl % KPUBLISH == 0
-                                                or jl == m):
+                jl = min(col0 + ql * C + C, m)
+                if 0 <= ql < tiles and (jl % KPUBLISH == 0 or jl == end):
                     for x in range(32):
                         col = ((jl - 1) & ~(KPUBLISH - 1)) + 1 + x
                         if col <= jl:
@@ -291,8 +352,11 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                 s_fedge[t & 1][w] = list(BFv[32 * w + 31])
         if flushed:
             released[s].add(flushed)
+        if band is not None:
+            released[s].add(m)            # a stripe ends by releasing m
         if publish:
-            assert all((s, j) in bnd for j in range(1, m + 1))
+            assert all((s, j) in bnd for j in range(col0 + 1, end + 1))
+            assert len([j for (x, j) in bnd if x == s]) == end - col0
         # the block's first max: score desc, then row asc
         tops = []
         for k in range(T):
@@ -483,33 +547,44 @@ def test_rb_gotoh_model_matches_plain_and_jax(case):
 
 # ---- the route and the shape, as pure Python ----
 
-def test_rb_takes_linear_unbanded_match_mismatch_only():
-    """Every unbanded scoring takes the register-blocked route: K1 for
-    linear match/mismatch, K2 affine, K3 a table (both gap models); a
-    band takes the template's K4b."""
+def test_rb_takes_linear_unbanded_match_mismatch_only(monkeypatch):
+    """Every scoring takes the register-blocked route on a card (the
+    launch recorded instead of run): K1 for linear match/mismatch, K2
+    affine, K3 a table (both gap models), and, banded, their band form;
+    the template's entries launch on no route."""
     table = torch.zeros((4, 4), dtype=torch.int32)
+    seen = []
+    monkeypatch.setattr(sf, "_route", lambda *args, **kw: "cuda")
+    monkeypatch.setattr(sf, "_call",
+                        lambda name, dev, args, *rest: seen.append(name))
+    a, b = random_pair(40, 300, seed=15)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
     for sc, sub in ((Scoring(), None),
                     (Scoring(match=2, mismatch=-1, gap=-3), None),
                     (DNA_AFFINE, None), (Scoring(), table),
                     (PROTEIN, table)):
-        assert sf.rb_takes(sc, sub, None)
-        for band in (0, 8):
-            assert not sf.rb_takes(sc, sub, band)
+        mode = sf._mode(sc, sub)
+        for band in (None, -1, 0, 8, 10 ** 6):
+            seen.clear()
+            sf.stripe_score(at, bt, sc, substitution=sub, band=band)
+            assert seen == [(sf.RB_KERNELS if band is None
+                             else sf.RB_BAND_KERNELS)[mode]]
 
 
 def test_score_kernel_names_follow_the_route():
     table = torch.zeros((4, 4), dtype=torch.int32)
     assert sf.score_kernel_name(Scoring(), None) == sf.RB_KERNEL
     assert sf.score_kernel_name(Scoring(), None, True) == \
-        "sw_stripe_score_linear[band]"
+        "sw_stripe_rb_band_linear"
     assert sf.score_kernel_name(DNA_AFFINE, None) == sf.RB_AFFINE_KERNEL
     assert sf.score_kernel_name(DNA_AFFINE, None, True) == \
-        sf.SCORE_AFFINE_KERNEL + sf.BAND_SUFFIX
+        sf.RB_BAND_KERNELS["affine"]
     assert sf.score_kernel_name(Scoring(), table) == sf.RB_SUB_KERNEL
     assert sf.score_kernel_name(PROTEIN, table) == sf.RB_SUB_KERNEL
     assert sf.score_kernel_name(PROTEIN, table, True) == \
-        sf.SCORE_SUB_KERNEL + sf.BAND_SUFFIX
+        "sw_stripe_rb_band_sub"
     assert set(sf.RB_KERNELS.values()) <= set(sf.launches)
+    assert set(sf.RB_BAND_KERNELS.values()) <= set(sf.launches)
 
 
 def test_rb_shape_clamps_threads_to_the_rows():
@@ -704,7 +779,8 @@ def test_score_routes_each_form_to_its_rb_kernel_on_card(card, form):
                        sf.stripe_score_plain(at, bt, sc, St, band=16).best)
     assert sf.launches[sf.score_kernel_name(sc, St)] == 1
     assert sf.launches[sf.kernel_name(sc, St, False)] == 0
-    assert sf.launches[sf.kernel_name(sc, St, False, True)] == 1
+    assert sf.launches[sf.score_kernel_name(sc, St, True)] == 1
+    assert sf.launches[sf.kernel_name(sc, St, False, True)] == 0
 
 
 @pytest.mark.gpu
@@ -719,4 +795,5 @@ def test_score_routes_to_the_rb_kernel_on_card(card):
                        sf.stripe_score_plain(at, bt, band=16).best)
     assert sf.launches[sf.RB_KERNEL] == 1
     assert sf.launches[sf.SCORE_KERNEL] == 0
-    assert sf.launches[sf.SCORE_KERNEL + sf.BAND_SUFFIX] == 1
+    assert sf.launches[sf.RB_BAND_KERNELS["linear"]] == 1
+    assert sf.launches[sf.SCORE_KERNEL + sf.BAND_SUFFIX] == 0

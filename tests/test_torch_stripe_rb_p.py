@@ -255,20 +255,29 @@ def _record(monkeypatch):
 def test_fill_launches_the_rb_p_entry(form, monkeypatch):
     """Unbanded stripe_fill on a card launches the form's register-blocked
     K4 entry with the arguments its ctypes signature declares, at
-    rb_shape's (T, R, C), into P's storage with P's row pitch; a band
-    keeps the template's K4b."""
+    rb_shape's (T, R, C), into P's storage with P's row pitch; a band its
+    band form, with the band (clamped to m + n) after the pitch, into a P
+    cleared first."""
     sc, S = FORMS[form]
     a, b = (_protein(70, 900, 70) if S is not None
             else random_pair(70, 900, seed=70))
     St = _t(S)
     seen = _record(monkeypatch)
     out = sf.stripe_fill(_t(a), _t(b), sc, substitution=St)
-    sf.stripe_fill(_t(a), _t(b), sc, substitution=St, band=8)
-    (name, _, args), (_, band_counter, _) = seen
+    banded = sf.stripe_fill(_t(a), _t(b), sc, substitution=St, band=8)
+    wide = sf.stripe_fill(_t(a), _t(b), sc, substitution=St, band=10 ** 6)
+    (name, _, args), (band_name, _, band_args), (_, _, wide_args) = seen
     mode = sf._mode(sc, St)
     assert name == sf.RB_P_KERNELS[mode] == sf.fill_kernel_name(sc, St)
-    assert band_counter == sf.fill_kernel_name(sc, St, True) \
-        == sf.kernel_name(sc, St, True, True)
+    assert band_name == sf.fill_kernel_name(sc, St, True) \
+        == sf.RB_BAND_P_KERNELS[mode]
+    assert len(band_args) + 1 == len(_cuda.ARGTYPES[band_name])
+    assert band_args[-3:] == [banded.P.data_ptr(), banded.P.stride(0), 8]
+    assert wide_args[-1] == 70 + 900
+    assert not banded.P.any()             # cleared: the launch was recorded
+    tail = 7 if mode == "linear" else 8   # sync ... P, pitch, band
+    assert tuple(band_args[-tail - 3:-tail]) == sf.rb_shape(
+        900, mode=mode, A=21, kind="fill_p_band")
     assert len(args) + 1 == len(_cuda.ARGTYPES[name])        # + the stream
     assert out.P.shape == (901, 71)
     assert args[-2:] == [out.P.data_ptr(), out.P.stride(0)]

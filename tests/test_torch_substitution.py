@@ -223,13 +223,14 @@ def test_kernel_names_follow_the_scoring():
            "sw_stripe_score_affine", "sw_stripe_fill_p_affine",
            "sw_stripe_score_sub", "sw_stripe_fill_p_sub"]
     # each counts its banded launches apart; then the block entries, the
-    # walk and the register-blocked K1-K5
+    # two walks and the register-blocked K1-K5 and their band form
     assert sorted(sf.launches) == sorted(
         six + [k + "[band]" for k in six]
         + ["sw_stripe_block_linear", "sw_stripe_block_affine",
-           "sw_stripe_block_sub", "sw_walk_p", "sw_stripe_rb_linear",
-           "sw_stripe_rb_affine", "sw_stripe_rb_sub"]
-        + [f"sw_stripe_rb_{kind}_{mode}" for kind in ("fill_p", "block")
+           "sw_stripe_block_sub", "sw_walk_p", "sw_walk_p_tiled",
+           "sw_stripe_rb_linear", "sw_stripe_rb_affine", "sw_stripe_rb_sub"]
+        + [f"sw_stripe_rb_{kind}_{mode}"
+           for kind in ("fill_p", "block", "band", "fill_p_band")
            for mode in ("linear", "affine", "sub")])
 
 

@@ -337,6 +337,201 @@ def test_walk_p_plain_follows_the_state_bits():
         sf.walk_p(P.to(torch.int32), 3, 4)
 
 
+# ---- the tile-staged walk (sw_walk_p_tiled), as a model of its schedule
+
+WALK_TILE, WALK_CHUNKS = 64, 5      # csrc/walk_p.cu kTileRows/Diags, kChunks
+WALK_EDGE = 16                      # kEdge
+UNSTAGED = -99
+
+
+def walk_tiled_model(buf: np.ndarray, base: int, pitch: int, wn: int,
+                     wm: int, lag_seed: int = 0) -> list:
+    """The tile-staged walk over the P whose row i starts at byte base + i
+    * pitch of ``buf`` (an allocation whose first byte lies on 16 bytes),
+    as csrc/walk_p.cu schedules it: tiles of WALK_TILE rows by WALK_TILE
+    diagonals d = j - i (row i of tile (bi, bd) holds columns i + dlo ..
+    i + dlo + WALK_TILE - 1, dlo = bd WALK_TILE - wn), sixteen slots by
+    (bi % 4, bd % 4). For each walker's tile it sees, the loader stages the
+    tile, the two above and, when the walker entered it within WALK_EDGE
+    diagonals of a side, the two beside them on that side; a row from the
+    16-byte chunk holding its first column, a chunk copied whole only
+    inside the row's columns 0 .. wm, byte by byte at the row's ends, no
+    byte elsewhere; it leaves a slot that holds the walker's tile. The
+    loader lags at random (``lag_seed``): it sees the walker's tile before
+    the walker reads it, sees one of the walker's tiles since its last pass
+    while the walker reads, or sees none, and is made to see the walker's
+    tile when the walker waits on it. Asserts the walker reads only a slot
+    that holds its tile, staged bytes only, and that the loader never
+    refills the slot the walker reads. Returns the moves, end-first."""
+    rng = np.random.default_rng(lag_seed)
+    slots = {}                    # slot -> (tile, bytes), once landed
+    tds = (wn + wm) // WALK_TILE + 1
+
+    def slot_of(ti, td):
+        return (ti % 4) * 4 + td % 4
+
+    def stage(ti, td):
+        i0, dlo = ti * WALK_TILE, td * WALK_TILE - wn
+        data = np.full((WALK_TILE, 16 * WALK_CHUNKS), UNSTAGED, np.int16)
+        for r in range(min(wn, i0 + WALK_TILE - 1) - i0 + 1):
+            i = i0 + r
+            lo, hi = max(0, i + dlo), min(wm, i + dlo + WALK_TILE - 1)
+            row = base + i * pitch
+            g0 = (row + i + dlo) // 16 * 16
+            for c in range(WALK_CHUNKS):
+                g = g0 + 16 * c
+                if lo > hi or g > row + hi or g + 15 < row + lo:
+                    continue
+                if g >= row and g + 15 <= row + wm:        # cp.async
+                    data[r, 16 * c:16 * c + 16] = buf[g:g + 16]
+                else:
+                    for y in range(16):
+                        if row <= g + y <= row + wm:
+                            data[r, 16 * c + y] = buf[g + y]
+        return data
+
+    def load(seen, reading):
+        """The loader's pass for the walker's tile ``seen`` (and the side
+        it entered near); ``reading``: the walker's tile now."""
+        (bi, bd), near = seen
+        for x in range(3 + 2 * (near != 0)):
+            ti, td = bi - (x if x < 3 else x - 3), bd + (0 if x < 3 else near)
+            if ti < 0 or td < 0 or td >= tds:
+                continue
+            sl = slot_of(ti, td)
+            held = slots.get(sl, (None,))[0]
+            if held == (ti, td) or held == reading:
+                continue
+            slots[sl] = ((ti, td), stage(ti, td))
+
+    i, j, state, moves = wn, wm, 0, []
+    done = i <= 0 or j <= 0
+    unseen = []                   # the walker's tiles since the loader's pass
+    while not done:
+        bi, bd = i // WALK_TILE, (j - i + wn) // WALK_TILE
+        i0, dlo = bi * WALK_TILE, bd * WALK_TILE - wn
+        rd = j - i - dlo
+        near = -1 if rd < WALK_EDGE else 1 if rd >= WALK_TILE - WALK_EDGE \
+            else 0
+        unseen.append(((bi, bd), near))
+        when = rng.integers(3)            # before, while reading, never
+        if when == 0 or slots.get(slot_of(bi, bd), (None,))[0] != (bi, bd):
+            load(unseen[-1], (bi, bd))
+            unseen = []
+        elif when == 1:
+            k = int(rng.integers(len(unseen)))
+            load(unseen[k], (bi, bd))
+            unseen = unseen[k + 1:]
+        tile, data = slots[slot_of(bi, bd)]
+        assert tile == (bi, bd)
+        ra = (base + i * pitch + i + dlo) % 16
+        while i >= max(i0, 1) and j >= 1 and 0 <= rd < WALK_TILE:
+            code = int(data[i - i0, ra + rd])
+            assert code != UNSTAGED, (i, j)
+            move = state or code & 3
+            if move == 0:
+                done = True
+                break
+            moves.append(move)
+            if move == 2:                       # LEFT
+                state = 2 if code & 4 else 0
+                j -= 1
+                rd -= 1
+            else:                               # UP or DIAGONAL
+                state = 1 if move == 1 and code & 8 else 0
+                j -= move != 1
+                rd += move == 1
+                i -= 1
+                ra = (ra - pitch - 1) % 16
+        done = done or i == 0 or j == 0
+    return moves
+
+
+def _p_layouts(P: np.ndarray) -> list:
+    """(label, bytes, base, pitch) of P (rows x cols int8) in three
+    layouts: K4's padded rows (``sf.p_matrix``: 3 bytes in, a pitch of 16),
+    contiguous, and an odd start with an odd pitch."""
+    n1, m1 = P.shape
+    out = []
+    for label, base, pitch in (
+            ("padded", 3, -(-m1 // sf.P_PITCH_ALIGN) * sf.P_PITCH_ALIGN),
+            ("contiguous", 0, m1), ("odd", 5, m1 + 7)):
+        buf = np.full(base + n1 * pitch + 16, 0x5A, np.int8)
+        buf[base:base + n1 * pitch].reshape(n1, pitch)[:, :m1] = P
+        out.append((label, buf, base, pitch))
+    return out
+
+
+def _gap_runs_p() -> tuple:
+    """(P, corner): random codes, and from the corner a path of 20
+    DIAGONAL moves, a 70-long UP run (F_EXT on all its cells but the last)
+    across a tile's row border, 10 DIAGONAL, a 70-long LEFT run (E_EXT)
+    across a tile's column border, then DIAGONAL to row 0."""
+    rng = np.random.default_rng(21)
+    P = rng.integers(1, 16, (260, 320)).astype(np.int8)
+    i, j = 250, 300
+    for kind, length in (("D", 20), ("U", 70), ("D", 10), ("L", 70),
+                         ("D", 150)):
+        for t in range(length):
+            if kind == "D":
+                P[i, j] = 3
+                i, j = i - 1, j - 1
+            elif kind == "U":       # the run's first code says UP; then the
+                bit = 8 if t < length - 1 else 0      # state, while F_EXT
+                P[i, j] = (1 if t == 0 else int(P[i, j]) & 7) | bit
+                i -= 1
+            else:
+                bit = 4 if t < length - 1 else 0
+                P[i, j] = (2 if t == 0 else int(P[i, j]) & 11) | bit
+                j -= 1
+    return P, (250, 300)
+
+
+def _walk_ps() -> list:
+    """(label, P, corners): codes drawn at random (any move, any state
+    bit, a rare NONE: long walks across many tiles and their corners), the
+    gap runs of ``_gap_runs_p``, and a DNA affine P of the port's fill."""
+    rng = np.random.default_rng(20)
+    codes = rng.integers(1, 16, (300, 333)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.002] = 0
+    rand_corners = [(64, 64), (63, 63), (128, 127), (127, 128), (299, 332),
+                    (65, 200), (200, 64), (1, 1)]
+    runs, corner = _gap_runs_p()
+    a, b = random_pair(260, 300, seed=22)
+    fill = sf.stripe_fill_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                DNA_AFFINE)
+    _, i, j, _ = fill.best.tolist()
+    return [("random", codes, rand_corners),
+            ("gap runs", runs, [corner, (192, 256), (191, 255)]),
+            ("dna_affine", fill.P.numpy(), [(i, j), (300, 260), (128, 128),
+                                            (192, 191)])]
+
+
+@pytest.mark.parametrize("layout", ["padded", "contiguous", "odd"])
+def test_walk_tiled_model_matches_plain(layout):
+    for label, P, corners in _walk_ps():
+        (_, buf, base, pitch), = [x for x in _p_layouts(P) if x[0] == layout]
+        Pt = torch.from_numpy(P)
+        for wn, wm in corners:
+            want = sf.walk_p_plain(Pt, wn, wm).tolist()
+            for lag in range(3):
+                assert walk_tiled_model(buf, base, pitch, wn, wm,
+                                        lag) == want, (label, wn, wm, lag)
+
+
+def test_walk_tiled_model_crosses_gap_runs():
+    """The UP and LEFT runs keep their state (F_EXT / E_EXT) across tile
+    borders: the walk takes the path ``_gap_runs_p`` laid, in every
+    layout."""
+    P, corner = _gap_runs_p()
+    want = "D" * 20 + "U" * 70 + "D" * 10 + "L" * 70 + "D" * 150
+    assert "".join("-ULD"[m] for m in sf.walk_p_plain(
+        torch.from_numpy(P), *corner).tolist()) == want
+    for _, buf, base, pitch in _p_layouts(P):
+        moves = walk_tiled_model(buf, base, pitch, *corner)
+        assert "".join("-ULD"[m] for m in moves) == want
+
+
 # ------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -398,6 +593,31 @@ def test_walk_kernel_matches_plain_on_card(cuda, kind):
     for corner in ((i, j), (n, m), (0, 5)):
         assert torch.equal(sf.walk_p(out.P, *corner),
                            sf.walk_p_plain(out.P, *corner))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["padded", "contiguous", "odd"])
+def test_walk_tiled_kernel_matches_plain_on_card(cuda, layout):
+    """sw_walk_p_tiled (the route's walk) and sw_walk_p (the earlier one)
+    against the plain walk on the P of ``_walk_ps`` in each layout of
+    ``_p_layouts``: corners on tile edges, gap runs across tiles, random
+    codes."""
+    for label, P, corners in _walk_ps():
+        (_, buf, base, pitch), = [x for x in _p_layouts(P)
+                                  if x[0] == layout]
+        n1, m1 = P.shape
+        on_card = torch.from_numpy(buf).to(cuda)
+        Pc = on_card[base:base + n1 * pitch].view(n1, pitch)[:, :m1]
+        assert Pc.stride(0) == pitch
+        for corner in corners:
+            want = sf.walk_p_plain(Pc, *corner)
+            sf.reset_counts()
+            assert torch.equal(sf.walk_p(Pc, *corner), want), (label, corner)
+            assert torch.equal(sf._launch_walk(Pc, *corner,
+                                               sf.WALK_SCALAR_KERNEL), want)
+            assert sf.launches[sf.WALK_KERNEL] == 1
+            assert sf.launches[sf.WALK_SCALAR_KERNEL] == 1
+        assert bool((on_card[:base] == 0x5A).all())
 
 
 @pytest.mark.gpu
