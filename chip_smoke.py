@@ -23,21 +23,24 @@ records, and ``python -m swtpu_torch map`` on 256 of those reads), and the
 sanitize path (``swtpu_torch.sanitize`` at 4096^2 and
 ``sanitize_pairs_packed`` on 16 pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Eight kernels have a second,
+4096 4096 --skip-backtrack --sanitize``). Ten kernels have a second,
 earlier design beside them: unbanded score-only runs the register-blocked
 K1, K2 and K3 (``csrc/stripe_rb.cu``), unbanded P capture its K4
 (``csrc/stripe_rb_p.cu``, a row's codes of a tile stored as words), every
 block fill its K5 (``csrc/stripe_rb_block.cu``), a band its band form
 (K4b, ``csrc/stripe_rb_band.cu``, each stripe visiting only the columns
-its rows' band reaches), the lean walk the tile-staged walk
-(``sw_walk_p_tiled``, ``csrc/walk_p.cu``), and the search's window scorer
-the warp-per-read K6 (``csrc/window_warp.cu``); the earlier K1-K6 and
-K4b, the stripe template's, and the one-thread walk ``sw_walk_p`` are
-held to their plain versions and timed in turns with the new ones in the
-same run (they launch on no path, bar K6 for reads longer than 512 rows),
-K4 and K4b into guarded buffers (no byte off P written), and K1-K5 and
-K4b are swept over their (T, R, C). K4b is also timed against the
-template's at 4 x the path's n, score-only. Each
+its rows' band reaches), the sanitizer its capture form (K9,
+``csrc/stripe_rb_debug.cu``, the tile score() runs), an unbanded batch
+its batch form (K8, ``csrc/stripe_rb_pairs.cu``), the lean walk the
+tile-staged walk (``sw_walk_p_tiled``, ``csrc/walk_p.cu``), and the
+search's window scorer the warp-per-read K6 (``csrc/window_warp.cu``);
+the earlier K1-K6, K4b, K8 and single-pair K9, the stripe template's, and
+the one-thread walk ``sw_walk_p`` are held to their plain versions and
+timed in turns with the new ones in the same run (they launch on no path,
+bar K6 for reads longer than 512 rows), K4 and K4b into guarded buffers
+(no byte off P written), and K1-K5, K4b and K8 are swept over their (T,
+R, C). K4b is also timed against the template's at 4 x the path's n,
+score-only. Each
 phase prints one line; any failure raises, so the exit code is not 0. The
 line before the last is a JSON object describing each kernel of the paths
 (launches in the paths' runs, exactness, kernel and plain times, and the
@@ -128,6 +131,10 @@ ORIGIN = {
                  "swtpu/kernels/pallas_fill.py:1466"),  # stripe_block_fn
     "rb_band": (CSRC + "stripe_rb_band.cu",
                 "swtpu/kernels/pallas_fill.py:358"),   # _kernel band mode
+    "rb_debug": (CSRC + "stripe_rb_debug.cu",
+                 "swtpu/kernels/pallas_fill.py:597"),  # _kernel's debug_h
+    "rb_pairs": (CSRC + "stripe_rb_pairs.cu",
+                 "swtpu/kernels/pallas_fill.py:1962"),  # pairs_score_fn
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -137,16 +144,30 @@ NO_FIT = (64, 1000)
 # (scripts/tpu_round4.py amortize_probe): random_pair(m, n, seed=s), twice
 MIXED = [(16000, 15000), (15000, 16000), (14500, 15500), (15500, 14500),
          (16300, 16300), (15000, 15000), (16000, 16000), (14500, 16300)]
-# (label, B, m, n, T, plant a motif twice) of the batch kernels' small
-# shapes: the JAX batch tests' own, plus m = 1 and B = 1
-PAIR_SHAPES = [("6x40x300", 6, 40, 300, None, False),
-               ("45x40x5 T=32", 45, 40, 5, 32, False),
-               ("45x40x5 T=256", 45, 40, 5, 256, False),
-               ("ties 8x64x96", 8, 64, 96, None, True),
-               ("7x52x33", 7, 52, 33, None, False),
-               ("5x30x44", 5, 30, 44, None, False),
-               ("m=1 3x1x70", 3, 1, 70, 64, False),
-               ("B=1 1x60x90", 1, 60, 90, 32, False)]
+# (label, B, m, n, T, kind) of the batch kernels' small shapes: the JAX
+# batch tests' own ("ties": a motif planted twice), plus m = 1, B = 1, a
+# ragged n (1100: the register-blocked K8's stripes of 1024 rows and 256
+# rows both cut), pairs with no positive cell ("dark": the odd pairs of two
+# disjoint letters) and sentinel codes in every pair
+PAIR_SHAPES = [("6x40x300", 6, 40, 300, None, ""),
+               ("45x40x5 T=32", 45, 40, 5, 32, ""),
+               ("45x40x5 T=256", 45, 40, 5, 256, ""),
+               ("ties 8x64x96", 8, 64, 96, None, "ties"),
+               ("7x52x33", 7, 52, 33, None, ""),
+               ("5x30x44", 5, 30, 44, None, ""),
+               ("m=1 3x1x70", 3, 1, 70, 64, ""),
+               ("B=1 1x60x90", 1, 60, 90, 32, ""),
+               ("ragged 3x70x1100", 3, 70, 1100, None, ""),
+               ("no positive cell 6x50x140", 6, 50, 140, 32, "dark"),
+               ("sentinels 4x70x300", 4, 70, 300, 32, "sentinels")]
+# the register-blocked K8's (T, R, C) at the small shapes beside the route's
+# (in every form's tiles), and its sweep at 64 x 1056^2 and 64 x 1000^2
+PAIRS_RB_SHAPES = [(32, 4, 4), (64, 8, 2), (256, 8, 4)]
+PAIRS_SWEEP = {mode: [(T, R, C) for T in (32, 64, 128, 256)
+                      for R, C in sf.RB_FORM_TILES[mode]]
+               for mode in sf.RB_FORM_TILES}
+# the stripe template's unbanded K8, the earlier design, on no path
+EARLIER_PAIRS = tuple(pf.PAIRS_KERNELS.values())
 
 # The least time the card could take (bound_ms): the larger of the int32
 # operations over the card's int32 rate and the bytes over its memory rate.
@@ -170,7 +191,9 @@ WALK_OPS = 6              # per move: the P load's address, decode, state
 
 
 def origin(name: str) -> tuple:
-    kind = ("sanitize" if name.startswith("sw_sanitize_")
+    kind = ("rb_debug" if name.startswith("sw_sanitize_rb_")
+            else "rb_pairs" if name.startswith("sw_pairs_rb_")
+            else "sanitize" if name.startswith("sw_sanitize_")
             else "warp" if name.startswith("sw_window_warp_")
             else "rb" if name == sf.RB_KERNEL
             else "rb_gotoh" if name in sf.RB_KERNELS.values()
@@ -352,22 +375,25 @@ def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
     kPacked, kWindow, kDebugH>, the two walks, the warp-per-read K6 <R,
-    kAffine, kSub> and the register-blocked K1-K5 and K4b <R, C, kAffine,
-    kSub, kP, kBlock, kBand> (rb_ K1-K3, rb_p_ K4, rb_block_ K5, rb_band_
-    and rb_p_band_ K4b)."""
+    kAffine, kSub> and the register-blocked K1-K5, K4b, K9 and K8 <R, C,
+    kAffine, kSub, kP, kBlock, kBand, kDebugH, kPairs> (rb_ K1-K3, rb_p_
+    K4, rb_block_ K5, rb_band_ and rb_p_band_ K4b, rb_debug_ K9, rb_pairs_
+    K8)."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
         warp = re.search(r"window_warp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
         rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E"
-                       r"Lb(\d)ELb(\d)ELb(\d)E", ln)
+                       r"Lb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", ln)
         if "Compiling entry function" in ln and warp:
             R, aff, sub = (int(v) for v in warp.groups())
             name = (f"warp_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}")
         elif "Compiling entry function" in ln and rb:
-            R, C, aff, sub, p, blk, band = (int(v) for v in rb.groups())
-            kind = (("p_" if p else "block_" if blk else "")
+            R, C, aff, sub, p, blk, band, debug, pairs = (
+                int(v) for v in rb.groups())
+            kind = (("p_" if p else "block_" if blk else "debug_" if debug
+                     else "pairs_" if pairs else "")
                     + ("band_" if band else ""))
             name = (f"rb_{kind}{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}_C{C}")
@@ -1381,20 +1407,29 @@ def hits_diff(x, y) -> int:
 
 
 def _pairs_batch(mode: str, B: int, m: int, n: int, seed: int,
-                 ties: bool = False) -> tuple:
+                 kind: str = "") -> tuple:
     """A small batch of the mode's alphabet with a planted shared prefix;
-    ``ties``: one motif planted twice in every pair (the JAX batch tests'
-    tie-rich batch)."""
+    ``kind`` 'ties': one motif planted twice in every pair (the JAX batch
+    tests' tie-rich batch); 'dark': the odd pairs of two disjoint letters,
+    no positive cell; 'sentinels': codes -1, -2, -3 in every pair's a and
+    b, and -1 against -1 inside the shared prefix."""
     rng = np.random.default_rng(seed)
     A = 20 if mode == "protein" else 4
     aa = rng.integers(0, A, (B, m)).astype(np.int8)
     bb = rng.integers(0, A, (B, n)).astype(np.int8)
     k = min(m, n) // 2
     bb[:, :k] = aa[:, :k]
-    if ties:
+    if kind == "ties":
         aa[:, 10:18] = aa[:, 40:48]
         bb[:, 5:13] = aa[:, 10:18]
         bb[:, 60:68] = aa[:, 10:18]
+    elif kind == "dark":
+        aa[1::2], bb[1::2] = 0, 1
+    elif kind == "sentinels":
+        for g in range(B):
+            aa[g, rng.choice(m, 3, replace=False)] = [-1, -2, -3]
+            bb[g, rng.choice(n, 3, replace=False)] = [-3, -2, -1]
+        aa[:, k // 2] = bb[:, k // 2] = -1
     return aa, bb
 
 
@@ -1415,9 +1450,11 @@ def mixed_set() -> tuple:
 
 
 def pairs_vs_plain(dev) -> dict:
-    """K8 (and banded at bands 0, 1, 8 and BAND) and K7 (the shape's T
-    and its own) against their plain version at the small shapes; returns
-    the max error per counter."""
+    """K8 (the register-blocked batch form, the route, three runs at the
+    shape's T and once at each of PAIRS_RB_SHAPES; the template's, the
+    earlier design; and banded at bands 0, 1, 8 and BAND) and K7 (the
+    shape's T and its own) against their plain version at the small
+    shapes; returns the max error per counter."""
     table = on_card(BLOSUM62, dev=dev)[0]
     err = dict.fromkeys(pf.launches, 0)
     for mode in MODES:
@@ -1425,13 +1462,18 @@ def pairs_vs_plain(dev) -> dict:
         sub = None if S is None else table
         k8, k7 = pf.pairs_kernel_name(sc, S), pf.packed_kernel_name(sc, S)
         k8b = pf.pairs_kernel_name(sc, S, True)
-        for label, B, m, n, T, ties in PAIR_SHAPES:
-            at, bt = on_card(*_pairs_batch(mode, B, m, n, B + m + n, ties),
+        k8t = pf.pairs_template_name(sc, S)
+        for label, B, m, n, T, kind in PAIR_SHAPES:
+            at, bt = on_card(*_pairs_batch(mode, B, m, n, B + m + n, kind),
                              dev=dev)
             p = pf.pairs_score_plain(at, bt, sc, sub)
-            runs = [(k8, pf.pairs_score(at, bt, sc, T, sub)),
-                    (k7, pf.pairs_packed_score(at, bt, sc, T, sub)),
-                    (k7, pf.pairs_packed_score(at, bt, sc, None, sub))]
+            runs = [(k8, pf.pairs_score(at, bt, sc, T, sub))
+                    for _ in range(3)]
+            runs += [(k8, pf._launch_pairs_rb(at, bt, sc, *shape, sub=sub))
+                     for shape in PAIRS_RB_SHAPES]
+            runs += [(k8t, pf._launch_pairs(at, bt, sc, T, sub, None)),
+                     (k7, pf.pairs_packed_score(at, bt, sc, T, sub)),
+                     (k7, pf.pairs_packed_score(at, bt, sc, None, sub))]
             runs += [(k8b, pf.pairs_score(at, bt, sc, T, sub, band),
                       pf.pairs_score_plain(at, bt, sc, sub, band))
                      for band in (0, 1, 8, BAND)]
@@ -1440,19 +1482,52 @@ def pairs_vs_plain(dev) -> dict:
                 e = hits_diff(k, plain[0] if plain else p)
                 err[name] = max(err[name], e)
                 require(e == 0, f"{name} {label} [{mode}]: kernel != plain")
-        phase("kernels", f"{k8}, {k8b} (bands "
-              f"0/1/8/{BAND}) and {k7} [{mode}] at {len(PAIR_SHAPES)} batch "
-              "shapes: equal")
+            if kind == "dark":
+                require(p.scores[1::2].abs().sum().item() == 0,
+                        f"{label} [{mode}]: a dark pair scored")
+        phase("kernels", f"{k8} (x3, and at {len(PAIRS_RB_SHAPES)} (T, R, "
+              f"C)), {k8t}, {k8b} (bands 0/1/8/{BAND}) and {k7} [{mode}] "
+              f"at {len(PAIR_SHAPES)} batch shapes: equal")
     return err
+
+
+def pairs_sweep(at, bt, p, sc: Scoring, sub, label: str) -> None:
+    """The register-blocked K8 of the scoring over its form's PAIRS_SWEEP,
+    each point equal to the plain result ``p`` and timed in
+    RB_SWEEP_ROUNDS rounds over every point, the min of its rounds kept."""
+    mode = sf._mode(sc, sub)
+    for shape in PAIRS_SWEEP[mode]:
+        k = pf._launch_pairs_rb(at, bt, sc, *shape, sub=sub)
+        require(hits_diff(k, p) == 0, f"{pf.PAIRS_RB_KERNELS[mode]} "
+                f"{shape} {label}: kernel != plain")
+    best = dict.fromkeys(PAIRS_SWEEP[mode], float("inf"))
+    for _ in range(RB_SWEEP_ROUNDS):
+        for shape in PAIRS_SWEEP[mode]:
+            ms, _ = timed_ms(lambda: pf._launch_pairs_rb(at, bt, sc, *shape,
+                                                         sub=sub), 1)
+            best[shape] = min(best[shape], ms)
+    fastest = min(best, key=best.get)
+    default = sf.rb_shape(bt.shape[1], mode=mode,
+                          A=0 if sub is None else sub.shape[0], kind="pairs")
+    phase("batch", f"{pf.PAIRS_RB_KERNELS[mode]} sweep at {label}, ms by "
+          f"(T, R, C), min of {RB_SWEEP_ROUNDS} rounds, all equal: "
+          + ", ".join(f"{T}/{R}/{C} {ms:.3f}" for (T, R, C), ms in
+                      best.items())
+          + f"; fastest {fastest} {best[fastest]:.3f} ms, default "
+          f"{default} {best[default]:.3f} ms "
+          f"({best[default] / best[fastest]:.3f} x the fastest)")
 
 
 def pairs_full(dev) -> tuple:
     """K8 and K7 at 64 x 1056^2 in each scoring, against the plain batched
     fill and the per-pair single-pair kernels (K1-K3), kernel min of 3
-    after a warm-up, plain once; K8 also at K7's stripe height, K7 also at
-    T=256 (its chain then crosses pairs); K8 banded at BAND likewise.
-    Returns (records, plain results per mode, banded plain results per
-    mode)."""
+    after a warm-up, plain once: the register-blocked K8 (the route) in
+    turns with the template's K8 (the earlier design) and with K7 (at the
+    T that cuts its chain), all three through their private launchers
+    (past the wrappers' checks), the template's K8 also at K7's height,
+    K7 also at T=256 (its chain then crosses pairs), the register-blocked
+    K8 swept over its tiles; K8 banded at BAND likewise. Returns (records,
+    plain results per mode, banded plain results per mode)."""
     table = on_card(BLOSUM62, dev=dev)[0]
     B, n = BATCH
     cells = B * n * n
@@ -1468,19 +1543,32 @@ def pairs_full(dev) -> tuple:
                               for g in range(B)]).T
         require(hits_diff(p, single) == 0,
                 f"{mode}: the plain batch != the per-pair kernels")
-        times = {}
         fit = pf.chain_cutting_rows(n, 0 if S is None else S.shape[0])
+
+        # the A/B through the private launchers, past the public
+        # wrappers' checks of the codes (a host sync with a table)
+        def new():
+            return pf._launch_pairs_rb(at, bt, sc, None, sub=sub)
+
+        times = {}
+        times["K8"], times["K8 template"], k, ko = ab_ms(
+            new, lambda: pf._launch_pairs(at, bt, sc, None, sub, None))
+        require(hits_diff(k, p) == 0 and hits_diff(ko, p) == 0,
+                f"K8 [{mode}] {B}x{n}^2: kernel != plain")
+        k8_vs_k7, times[f"K7 T={fit}"], _, k = ab_ms(
+            new, lambda: pf._launch_packed(at, bt, sc, None, sub))
+        times["K8"] = min(times["K8"], k8_vs_k7)
+        require(hits_diff(k, p) == 0, f"K7 [{mode}] {B}x{n}^2: kernel != "
+                "plain")
         for label, fn in (
-                ("K8", lambda: pf.pairs_score(at, bt, sc, substitution=sub)),
-                (f"K8 T={fit}", lambda: pf.pairs_score(
-                    at, bt, sc, T=fit, substitution=sub)),
-                (f"K7 T={fit}", lambda: pf.pairs_packed_score(
-                    at, bt, sc, substitution=sub)),
-                ("K7 T=256", lambda: pf.pairs_packed_score(
-                    at, bt, sc, T=256, substitution=sub))):
+                (f"K8 template T={fit}", lambda: pf._launch_pairs(
+                    at, bt, sc, fit, sub, None)),
+                ("K7 T=256", lambda: pf._launch_packed(
+                    at, bt, sc, 256, sub))):
             times[label], k = timed_ms(fn, 3)
             require(hits_diff(k, p) == 0,
                     f"{label} [{mode}] {B}x{n}^2: kernel != plain")
+        pairs_sweep(at, bt, p, sc, sub, f"{B}x{n}^2")
         pb_ms, pb = timed_ms(
             lambda: pf.pairs_score_plain(at, bt, sc, sub, BAND), 1)
         kb_ms, kb = timed_ms(
@@ -1490,10 +1578,11 @@ def pairs_full(dev) -> tuple:
         ops = OPS_PER_CELL[mode]
         k8, k7 = pf.pairs_kernel_name(sc, S), pf.packed_kernel_name(sc, S)
         k8b = pf.pairs_kernel_name(sc, S, True)
-        recs[k8] = dict(ms=times["K8"], plain_ms=p_ms, max_abs_err=0,
-                        **bound(cells, ops, io))
-        recs[k7] = dict(ms=times[f"K7 T={fit}"], plain_ms=p_ms,
-                        max_abs_err=0, **bound(cells, ops, io))
+        k8t = pf.pairs_template_name(sc, S)
+        for name, label in ((k8, "K8"), (k8t, "K8 template"),
+                            (k7, f"K7 T={fit}")):
+            recs[name] = dict(ms=times[label], plain_ms=p_ms, max_abs_err=0,
+                              **bound(cells, ops, io))
         recs[k8b] = dict(ms=kb_ms, plain_ms=pb_ms, max_abs_err=0,
                          **bound(B * band_cells(n, n, BAND), ops + BAND_OPS,
                                  io))
@@ -1502,37 +1591,54 @@ def pairs_full(dev) -> tuple:
         phase("batch", f"[{mode}] {B}x{n}^2: " + ", ".join(
             f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
             for k, v in times.items())
-            + f"; plain {p_ms:.1f} ms; equal to the plain version and to "
-            f"{B} x {sf.kernel_name(sc, S, False)}; {k8b} band {BAND} "
+            + f" (K8 = {k8}, in turns with the template's and with K7); "
+            f"plain {p_ms:.1f} ms; equal to the plain version and to "
+            f"{B} x {sf.score_kernel_name(sc, S)}; {k8b} band {BAND} "
             f"{kb_ms:.3f} ms (plain {pb_ms:.1f} ms), equal")
         del at, bt
     return recs, want, want_band
 
 
 def no_fit_batch(dev) -> tuple:
-    """K8 and K7 at NO_FIT, linear, where K7 runs at the default T=256 and
-    its chain crosses pairs: kernel min of 3 after a warm-up, plain once,
-    all equal. Returns (the plain result, the phase line)."""
+    """K8 and K7 at NO_FIT in each scoring, where K7 runs at the default
+    T=256 and its chain crosses pairs: the register-blocked K8 in turns
+    with the template's, K7 once, kernel min of 3 after a warm-up, plain
+    once, all equal; the register-blocked K8 swept over its tiles. Returns
+    (the linear plain result, the phase lines)."""
     B, n = NO_FIT
     cells = B * n * n
-    at, bt = on_card(*random_batch(B, n, n, seed=0), dev=dev)
-    p_ms, p = timed_ms(lambda: pf.pairs_score_plain(at, bt), 1)
-    times = {}
-    for label, fn in (("K8", lambda: pf.pairs_score(at, bt)),
-                      (f"K7 T={pf.packed_stripe_rows(n, B)}",
-                       lambda: pf.pairs_packed_score(at, bt))):
-        times[label], k = timed_ms(fn, 3)
-        require(hits_diff(k, p) == 0, f"{label} {B}x{n}^2: kernel != plain")
-    return ([x.tolist() for x in p],
-            f"[linear] {B}x{n}^2 (no stripe height cuts K7's chain): "
+    table = on_card(BLOSUM62, dev=dev)[0]
+    lines, want = [], None
+    for mode in MODES:
+        sc, S = MODELS[mode][:2]
+        sub = None if S is None else table
+        aa, bb = (random_batch(B, n, n, seed=0) if mode != "protein"
+                  else _pairs_batch(mode, B, n, n, 0))
+        at, bt = on_card(aa, bb, dev=dev)
+        p_ms, p = timed_ms(lambda: pf.pairs_score_plain(at, bt, sc, sub), 1)
+        times = {}
+        times["K8"], times["K8 template"], k, ko = ab_ms(
+            lambda: pf._launch_pairs_rb(at, bt, sc, None, sub=sub),
+            lambda: pf._launch_pairs(at, bt, sc, None, sub, None))
+        times[f"K7 T={pf.packed_stripe_rows(n, B)}"], k7 = timed_ms(
+            lambda: pf._launch_packed(at, bt, sc, None, sub), 3)
+        require(all(hits_diff(x, p) == 0 for x in (k, ko, k7)),
+                f"{B}x{n}^2 [{mode}]: kernel != plain")
+        pairs_sweep(at, bt, p, sc, sub, f"{B}x{n}^2")
+        if mode == "linear":
+            want = [x.tolist() for x in p]
+        lines.append(
+            f"[{mode}] {B}x{n}^2 (no stripe height cuts K7's chain): "
             + ", ".join(f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
                         for k, v in times.items())
             + f"; plain {p_ms:.1f} ms; equal")
+    return want, lines
 
 
 def bucket_kernels(dev) -> str:
-    """K8 and K7 at the score_many bucket of the mixed set (16 x 16384^2,
-    padded as score_many pads it), kernel min of 3 after a warm-up; both
+    """K8 (the register-blocked route and the template's) and K7 at the
+    score_many bucket of the mixed set (16 x 16384^2, padded as score_many
+    pads it), kernel min of 3 after a warm-up, the two K8 in turns; all
     equal. Returns the phase line."""
     a_list, b_list = mixed_set()
     nb = 1 << (max(max(s) for s in MIXED) - 1).bit_length()
@@ -1542,18 +1648,18 @@ def bucket_kernels(dev) -> str:
         aa[r, :len(a)], bb[r, :len(b)] = a, b
     at, bt = on_card(aa, bb, dev=dev)
     cells = sum(len(a) * len(b) for a, b in zip(a_list, b_list))
-    times, outs = {}, []
-    for label, fn in (
-            ("K8", lambda: pf.pairs_score(at, bt)),
-            ("K7", lambda: pf.pairs_packed_score(at, bt))):
-        times[label], k = timed_ms(fn, 3)
-        outs.append(k)
-    require(all(hits_diff(k, outs[0]) == 0 for k in outs),
+    times = {}
+    times["K8"], times["K8 template"], k, ko = ab_ms(
+        lambda: pf._launch_pairs_rb(at, bt, SCORING, None),
+        lambda: pf._launch_pairs(at, bt, SCORING, None, None, None))
+    times["K7"], k7 = timed_ms(
+        lambda: pf._launch_packed(at, bt, SCORING, None, None), 3)
+    require(all(hits_diff(x, k) == 0 for x in (ko, k7)),
             "the bucket's kernels disagree")
     return (f"score_many bucket {len(aa)}x{nb}^2 ({cells / 1e9:.2f} G real "
             "cells): " + ", ".join(
                 f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
-                for k, v in times.items()) + ", equal")
+                for k, v in times.items()) + " (the two K8 in turns), equal")
 
 
 def check_records(recs: list, scores: list, top: int, mode: str,
@@ -1582,8 +1688,8 @@ def drive_batch(want: dict, want_band: dict, want_no_fit: list,
         *random_batch(B, n, n, seed=0), device=dev)]
     wall = time.perf_counter() - t0
     require(got == want_no_fit, f"batch_score {B}x{n}^2 != the plain version")
-    require(pf.launches == {**k7, "sw_pairs_score_linear":
-                            k7["sw_pairs_score_linear"] + 1},
+    require(pf.launches == {**k7, "sw_pairs_rb_linear":
+                            k7["sw_pairs_rb_linear"] + 1},
             f"batch_score {B}x{n}^2 did not run K8 alone")
     lines.append(f"[linear] batch_score {B}x{n}^2 auto: K8, wall "
                  f"{wall * 1e3:.1f} ms, equal")
@@ -2020,10 +2126,14 @@ def drive_search(dev) -> tuple:
 
 SANITIZE_N = 4096                  # sanitize() at 4096^2: 16.8 M cells
 SANITIZE_B = 16                    # sanitize_pairs_packed on 16 x 1056^2
+# the template's single-pair K9, on no path: its record and plain
+# comparison at 1024^2
+TEMPLATE_DEBUG_N = 1024
 # K9's small shapes, each at T = 32 and 128 (the plain capture walks
 # anti-diagonals in tensor ops): (label, m, n) single pairs with ragged
 # stripes, m = 1 and m > n; (label, B, m, n) packed batches whose pairs
-# straddle stripes
+# straddle stripes. The register-blocked K9 runs the single pairs at both
+# its tiles (sf.RB_DEBUG_TILES)
 DEBUG_PAIRS = [("300x1290", 300, 1290), ("ragged 200x583", 200, 583),
                ("m=1 1x700", 1, 700), ("m>n 700x200", 700, 200)]
 DEBUG_BATCHES = [("5x300x45", 5, 300, 45), ("9x18x20", 9, 18, 20),
@@ -2031,39 +2141,85 @@ DEBUG_BATCHES = [("5x300x45", 5, 300, 45), ("9x18x20", 9, 18, 20),
 DEBUG_T = (32, 128)
 
 
-def capture_bytes(m: int, n: int, T: int) -> int:
-    """Bytes a K9 launch of n rows by m columns writes beyond its twin's:
-    H of every scheduled slot, and the progress seen at each boundary
-    column."""
-    stripes = -(-n // T)
-    slots = T * sum(m + min(T, n - s * T) - 1 for s in range(stripes))
-    return 4 * slots + 4 * stripes * (m + 1)
+def capture_bytes(cap) -> int:
+    """Bytes a K9 launch writes beyond its twin's: H of every slot of the
+    steps its stripes run, and the progress seen, a row of m + 1 a
+    stripe."""
+    return 4 * int((cap.h != df.UNSCHEDULED).sum()) + 4 * cap.seen.numel()
+
+
+def _held(cap, H, maxes, skew: int, what: str) -> None:
+    """A capture passes the checks, or under the test hook is rejected."""
+    try:
+        san.check_capture(cap, H, maxes)
+        caught = False
+    except san.SanitizeError:
+        caught = True
+    require(caught == (skew > 0),
+            f"{what} skew={skew}: checks {'missed' if skew else 'failed'}")
 
 
 def debug_vs_plain(dev) -> dict:
-    """K9 against its plain capture on the card at the small shapes, each
-    at T = 32 and 128, in each scoring (the table in both gap models): h
-    bit-equal and the captures passing the checks; then, at T = 128, the
-    same with the hand-off test hook (skew=1): h bit-equal again, and the
-    checks reject both captures (shapes with m > 1, where a shifted
-    column shows). Returns the max error per counter."""
+    """K9 against its plain capture on the card at the small shapes, in
+    each scoring (the table in both gap models): h bit-equal and the
+    captures passing the checks. The register-blocked K9 (the route) at
+    DEBUG_PAIRS x its tiles x DEBUG_T, with the hand-off test hook (skew=1)
+    at T = 32 where the pair spans stripes and m > 1: h bit-equal again,
+    and the checks reject both captures. The template's K9 at its shapes,
+    the hook at T = 128: packed pairs (K7's capture, on the sanitize path)
+    at DEBUG_T, single pairs (the earlier design, on no path) at T = 128
+    alone. Returns the max error per counter."""
     table = on_card(BLOSUM62, dev=dev)[0]
-    err = dict.fromkeys(df.launches, 0)
+    err = dict.fromkeys([*df.launches, *df.rb_launches], 0)
     for mode, (_, _, scorings, S) in MODES.items():
         sub = None if S is None else table
         for sc in scorings:
+            name = df.rb_debug_kernel_name(sc, S)
+            t0 = time.perf_counter()
+            hooked = 0
+            for label, m, n in DEBUG_PAIRS:
+                a, b = _small_pair(mode, m, n, m + n)
+                H, maxes = san.reference(a, b, sc, S)
+                at, bt = on_card(a, b, dev=dev)
+                for R, C in sf.RB_DEBUG_TILES:
+                    for T in DEBUG_T:
+                        shape = df.rb_capture_shape(bt, sc, sub, T, R, C)
+                        hook = (T == DEBUG_T[0] and m > 1
+                                and n > shape[0] * R)
+                        hooked += hook
+                        for skew in (0, 1) if hook else (0,):
+                            what = (f"{name} {label} {sc.mode} (T, R, C) = "
+                                    f"{shape}")
+                            k = df.stripe_rb_capture(at, bt, sc, T, R, C,
+                                                     sub, skew)
+                            p = df.stripe_rb_capture_plain(at, bt, sc, T, R,
+                                                           C, sub, skew)
+                            torch.cuda.synchronize()
+                            e = df.same_capture(k, p, skew > 0)
+                            err[name] = max(err[name], e)
+                            require(e == 0, f"{what} skew={skew}: kernel != "
+                                    "plain")
+                            for cap in (k, p):
+                                _held(cap, H, maxes, skew, what)
+            phase("kernels", f"{name} [{mode} {sc.mode}] {len(DEBUG_PAIRS)} "
+                  f"shapes x (R, C) {sf.RB_DEBUG_TILES} x T=32/128: h equal,"
+                  f" checks pass; skew=1 at T=32 ({hooked} shapes): h "
+                  f"equal, checks reject both; "
+                  f"{time.perf_counter() - t0:.1f} s")
             for packed, shapes in ((False, DEBUG_PAIRS),
                                    (True, DEBUG_BATCHES)):
+                t0 = time.perf_counter()
                 name = df.debug_kernel_name(sc, S, packed)
                 kfn = df.packed_capture if packed else df.stripe_capture
                 pfn = (df.packed_capture_plain if packed
                        else df.stripe_capture_plain)
+                Ts = DEBUG_T if packed else DEBUG_T[-1:]
                 for label, *shape in shapes:
                     a, b = (_pairs_batch(mode, *shape, sum(shape)) if packed
                             else _small_pair(mode, *shape, sum(shape)))
                     H, maxes = san.reference(a, b, sc, S)
                     at, bt = on_card(a, b, dev=dev)
-                    for T in DEBUG_T:
+                    for T in Ts:
                         hook = T == DEBUG_T[-1] and a.shape[-1] > 1
                         for skew in (0, 1) if hook else (0,):
                             k = kfn(at, bt, sc, T, sub, skew)
@@ -2074,18 +2230,13 @@ def debug_vs_plain(dev) -> dict:
                             require(e == 0, f"{name} {label} {sc.mode} T={T} "
                                     f"skew={skew}: kernel != plain")
                             for cap in (k, p):
-                                try:
-                                    san.check_capture(cap, H, maxes)
-                                    caught = False
-                                except san.SanitizeError:
-                                    caught = True
-                                require(caught == (skew > 0),
-                                        f"{name} {label} {sc.mode} T={T} "
-                                        f"skew={skew}: checks "
-                                        f"{'missed' if skew else 'failed'}")
+                                _held(cap, H, maxes, skew,
+                                      f"{name} {label} {sc.mode} T={T}")
                 phase("kernels", f"{name} [{mode} {sc.mode}] "
-                      f"{len(shapes)} shapes x T=32/128: h equal, checks "
-                      "pass; skew=1 at T=128: h equal, checks reject both")
+                      f"{len(shapes)} shapes x T={'/'.join(map(str, Ts))}: "
+                      "h equal, checks pass; skew=1 at T=128: h equal, "
+                      "checks reject both; "
+                      f"{time.perf_counter() - t0:.1f} s")
     return err
 
 
@@ -2096,44 +2247,69 @@ def sanitize_batch(mode: str) -> tuple:
 
 
 def debug_records(dev) -> dict:
-    """Each K9 entry at the sanitize path's shapes (4096^2 at the default
-    T; 16 x 1056^2 at K7's T): kernel min of 3 after a warm-up, every cell
-    of its capture checked against the numpy oracle (``check_capture``);
-    its plain capture timed once, h bit-equal. Returns the records."""
+    """Each K9 entry at its shapes: the register-blocked K9 at the sanitize
+    path's 4096^2 at score()'s tile, in turns with the template's K9 there
+    (kernel min of 3 after a warm-up), every cell of its capture checked
+    against the numpy oracle (``check_capture``), its plain capture timed
+    once, h bit-equal; the template's single-pair K9, on no path, likewise
+    at TEMPLATE_DEBUG_N^2; the packed K9 at 16 x 1056^2 at K7's T. Returns
+    the records."""
     table = on_card(BLOSUM62, dev=dev)[0]
     recs = {}
     for mode in MODES:
         sc, S, _, make = MODELS[mode]
         sub = None if S is None else table
-        for packed in (False, True):
-            if packed:
+        for kind in ("rb", "template", "packed"):
+            t0 = time.perf_counter()
+            if kind == "packed":
                 a, b = sanitize_batch(mode)
                 kfn, pfn = df.packed_capture, df.packed_capture_plain
-            else:
+                name = df.debug_kernel_name(sc, S, True)
+            elif kind == "rb":
                 a, b = make(SANITIZE_N, SANITIZE_N)
+                kfn, pfn = df.stripe_rb_capture, df.stripe_rb_capture_plain
+                name = df.rb_debug_kernel_name(sc, S)
+            else:
+                a, b = make(TEMPLATE_DEBUG_N, TEMPLATE_DEBUG_N)
                 kfn, pfn = df.stripe_capture, df.stripe_capture_plain
+                name = df.debug_kernel_name(sc, S, False)
             at, bt = on_card(a, b, dev=dev)
-            name = df.debug_kernel_name(sc, S, packed)
-            k_ms, k = timed_ms(lambda: kfn(at, bt, sc, None, sub), 3)
+            ab = ""
+            if kind == "rb":
+                k_ms, o_ms, k, ko = ab_ms(
+                    lambda: kfn(at, bt, sc, None, substitution=sub),
+                    lambda: df.stripe_capture(at, bt, sc, None, sub))
+                san.check_capture(ko, *san.reference(a, b, sc, S))
+                ab = (f"; in turns, {df.debug_kernel_name(sc, S, False)} "
+                      f"{o_ms:.3f} ms (T={ko.T}, its every cell equal to "
+                      f"the oracle's too), {o_ms / k_ms:.2f} x")
+                del ko
+            else:
+                k_ms, k = timed_ms(lambda: kfn(at, bt, sc, None, sub), 3)
             san.check_capture(k, *san.reference(a, b, sc, S))
-            p_ms, p = timed_ms(lambda: pfn(at, bt, sc, None, sub), 1)
+            p_ms, p = timed_ms(lambda: (pfn(at, bt, sc, None,
+                                            substitution=sub)
+                                        if kind == "rb"
+                                        else pfn(at, bt, sc, None, sub)), 1)
             e = df.same_capture(k, p)
             require(e == 0, f"{name} [{mode}] {tuple(b.shape)}: kernel != "
                     "plain")
             m, n = a.shape[-1], b.size
+            packed = kind == "packed"
             # in: codes (and table); out: the twin's bests (packed: one
             # per row) and right column, and the capture
             io = (a.size + b.size + (0 if S is None else 4 * S.size)
                   + 4 * (n + 1) + (8 * n if packed else 16)
-                  + capture_bytes(m, n, k.T))
+                  + capture_bytes(k))
             recs[name] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e,
                               **bound(m * n, OPS_PER_CELL[mode], io))
             phase("kernels", f"{name} [{mode}] {'x'.join(map(str, b.shape))}"
-                  f" x {m} T={k.T}: capture {k.h.numel() * 4 / 1e6:.1f} MB, "
-                  f"kernel {k_ms:.3f} ms, every cell equal to the oracle's; "
-                  f"plain {p_ms:.1f} ms, h equal; "
-                  f"bound {recs[name]['bound_ms']:.4f} ms "
-                  f"({recs[name]['bound_by']})")
+                  f" x {m} (T, R, C) = {(k.T, k.R, k.C)}: capture "
+                  f"{k.h.numel() * 4 / 1e6:.1f} MB, kernel {k_ms:.3f} ms, "
+                  f"every cell equal to the oracle's; plain {p_ms:.1f} ms, "
+                  f"h equal; bound {recs[name]['bound_ms']:.4f} ms "
+                  f"({recs[name]['bound_by']}){ab}; "
+                  f"{time.perf_counter() - t0:.1f} s")
             del at, bt, k, p
             torch.cuda.empty_cache()
     return recs
@@ -2151,7 +2327,11 @@ def drive_sanitize(dev) -> list:
         rep = swtpu_torch.sanitize(a, b, scoring=sc, substitution=S,
                                    device=dev)
         wall = time.perf_counter() - t0
-        require(rep.valid_cells == N * N and rep.config == (256, 16),
+        # score()'s tile for the pair: (128, 8, 4), stripes of 1024 rows
+        tile = sf.rb_shape(N, mode=sf._mode(sc, S),
+                           A=0 if S is None else S.shape[0])
+        require(rep.valid_cells == N * N
+                and rep.config == (*tile, -(-N // (tile[0] * tile[1]))),
                 f"{mode} sanitize {N}^2: {rep}")
         lines.append(f"[{mode}] sanitize {N}^2: {rep.valid_cells} cells "
                      f"bit-checked, {rep.prestart_cells} pre-start, "
@@ -2166,7 +2346,7 @@ def drive_sanitize(dev) -> list:
                                         device=dev)
         wall = time.perf_counter() - t0
         require(rep.valid_cells == SANITIZE_B * n * n
-                and rep.config == (352, 48),
+                and rep.config == (352, 1, 1, 48),
                 f"{mode} sanitize_pairs_packed {SANITIZE_B}x{n}^2: {rep}")
         lines.append(f"[{mode}] sanitize_pairs_packed {SANITIZE_B}x{n}^2: "
                      f"{rep.valid_cells} cells bit-checked, config "
@@ -2284,8 +2464,9 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     for entry, rec in batch_recs.items():
         rec["max_abs_err"] = max(rec["max_abs_err"], pair_err[entry])
     recs.update(batch_recs)
-    batch_want_no_fit, line = no_fit_batch(dev)
-    phase("batch", line)
+    batch_want_no_fit, lines = no_fit_batch(dev)
+    for line in lines:
+        phase("batch", line)
     phase("batch", bucket_kernels(dev))
     recs.update(window_vs_plain(dev))
     t0 = time.perf_counter()
@@ -2366,7 +2547,9 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # ---- end of the batch path ----
     for ln in lines:
         phase("batch", ln)
-    require(all(batch[k] > 0 for k in pf.launches), f"launches {batch}")
+    require(all(batch[k] > 0 for k in pf.launches if k not in EARLIER_PAIRS)
+            and not any(batch[k] for k in EARLIER_PAIRS),
+            f"launches {batch}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"batch path in {batch_s:.1f} s: kernel launches "
           f"{ {k: v for k, v in batch.items() if v} }, plain calls {plain}")
@@ -2409,13 +2592,20 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     t0 = time.perf_counter()
     lines = drive_sanitize(dev)
     sanitize_s = time.perf_counter() - t0
-    sanitize = {**sf.launches, **pf.launches, **wf.launches, **df.launches}
+    sanitize = {**sf.launches, **pf.launches, **wf.launches, **df.launches,
+                **df.rb_launches}
     plain = {**sf.plain_calls, **pf.plain_calls, **wf.plain_calls,
-             **df.plain_calls}
+             **df.plain_calls, **df.rb_plain_calls}
     # ---- end of the sanitize path ----
     for ln in lines:
         phase("sanitize", ln)
-    require(all(sanitize[k] > 0 for k in df.launches),
+    # sanitize() runs the register-blocked K9 alone, sanitize_pairs_packed
+    # the packed one; the template's single-pair K9 is on no path
+    single = [df.debug_kernel_name(*MODELS[mode][:2], False)
+              for mode in MODES]
+    require(all(sanitize[k] > 0 for k in (*df.rb_launches, *(
+        df.debug_kernel_name(*MODELS[mode][:2], True) for mode in MODES)))
+            and not any(sanitize[k] for k in single),
             f"launches {sanitize}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"sanitize path in {sanitize_s:.1f} s: kernel launches "
@@ -2425,8 +2615,8 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # launches: the five paths' runs; the K7/K8 counters run on the batch
     # path (K7 also on the sanitize path), the warp-per-read K6 counters on
     # the search path alone, the K9 counters on the sanitize path alone;
-    # the earlier unbanded K1-K4, K5 and K6 entries count 0 (their times
-    # are the A/B's)
+    # the earlier unbanded K1-K4, K5, K6, K8 and single-pair K9 entries
+    # count 0 (their times are the A/B's)
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)

@@ -6,7 +6,10 @@ package decodes bases in its native library, ``csrc/swtpu_native.cpp``
 with the same rules:
 
 * a case-insensitive lookup table from the alphabet (ACGT by default);
-  an unknown character encodes as -1, the always-mismatch sentinel;
+  an unknown character encodes as -1, a sentinel code: the kernels
+  compare raw codes (``csrc/sw_cell.cuh``), so under match/mismatch
+  scoring -1 matches -1 (N against N) and mismatches every base, and
+  with a substitution table it scores NEG_SUB against any code;
 * the file is read in chunks of at most 65535 bytes, each ending at a
   newline where one comes first, as the native reader's ``fgets`` reads
   it, and each chunk loses one trailing ``\\n`` and then one ``\\r``;

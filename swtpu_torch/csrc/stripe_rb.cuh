@@ -11,7 +11,13 @@
 //     E of column m and, on request, H and F of row n;
 //   * stripe_rb_band.cu  - the band form (K4b, kBand) of the score-only and
 //     P-capture fills: only the cells with |i - j| <= band, each stripe
-//     visiting only the columns its rows' band reaches.
+//     visiting only the columns its rows' band reaches;
+//   * stripe_rb_debug.cu - the sanitizer's capture (K9, kDebugH) of the
+//     score-only fill: every thread's R x C tile of H after every step and
+//     the progress each boundary read observed;
+//   * stripe_rb_pairs.cu - the batch form (K8, kPairs) of the score-only
+//     fill: B pairs of one shape in one launch, each cut into its own
+//     stripes, each pair's per-stripe firsts.
 // Three scorings, one template: linear match/mismatch (K1), affine
 // match/mismatch (K2, Gotoh E and F) and a substitution table with linear
 // or affine gaps (K3); K4, K5 and K4b take each of them.
@@ -136,11 +142,30 @@
 //     cleared by the caller: only the windows' tiles are stored. The launch
 //     runs about n / R + n / C steps whatever m, where unbanded it runs m /
 //     C + n / R.
+//   * The capture form (kDebugH, the sanitizer's K9): `tile` and
+//     `tile_gotoh`, the very cells K1-K3 run, also hand each cell's H to a
+//     register array; after every step each thread stages its R x C slots
+//     in shared memory (after the affine arrays and the profile), the
+//     cell's H where the cell lies in the matrix and 0 elsewhere (rows past
+//     n, which the tile computes and nothing in the matrix reads, columns
+//     past m, steps outside the thread's tiles, threads with no rows), and
+//     each warp stores its 32 threads' slots, contiguous in aux.h, with
+//     coalesced int4 stores. The lane of warp 0 that loads
+//     boundary column j stores the progress it waited for in aux.seen;
+//     aux.skew > 0, the checks' test hook, reads column j - skew instead
+//     (0 and NEG left of column 1): a broken hand-off on purpose.
+//   * The batch form (kPairs, K8): ticket t names pair t / S and its
+//     stripe t % S, pair-major, so a block waits only on its own pair's
+//     stripe above, which took an earlier ticket; the block then moves a,
+//     b, the progress counters, the boundary rows and the stripe bests to
+//     its pair's slice (the ring is staged once that is known) and runs
+//     the score-only body, with no right column.
 //   * The affine and table forms keep their extra arrays in dynamic shared
 //     memory and their extra parameters last, and the K4 and K5 forms
 //     their template parameters and their argument (Ext) last, and K4b its
-//     template parameter and its argument (band) after those, so the
-//     earlier forms' code is what it was before they were added
+//     template parameter and its argument (band) after those, and K9 and
+//     K8 theirs (kDebugH, kPairs; aux) after K4b's, so the earlier forms'
+//     code is what it was before they were added
 //     (scripts/torch_sass_diff.py).
 //
 // Each entry launches on the given stream, allocates nothing, and returns
@@ -221,12 +246,14 @@ __device__ __forceinline__ void ring_codes(const uint32_t* ring, int col0,
 // one tile: columns j0 .. j0 + nc - 1 of the thread's R rows. U: H of the
 // row above in those columns; diag0: H of the row above in column j0 - 1.
 // B gets the last row's H in each column computed.
-template <int R, int C, bool kPartial>
+// kCap (the capture form): each cell's H also into hc[r][c].
+template <int R, int C, bool kPartial, bool kCap = false>
 __device__ __forceinline__ void tile(int j0, int nc, const int (&ac)[C],
                                      const int (&code)[R], const int (&U)[C],
                                      int diag0, int match, int mismatch,
                                      int gap, int (&H)[R], int (&best)[R],
-                                     int (&best_j)[R], int (&B)[C]) {
+                                     int (&best_j)[R], int (&B)[C],
+                                     int (*hc)[C] = nullptr) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (kPartial && c >= nc) break;
@@ -239,6 +266,7 @@ __device__ __forceinline__ void tile(int j0, int nc, const int (&ac)[C],
           diag + swcell::compare(ac[c], code[r], match, mismatch), left, up,
           gap);
       swcell::track(h, j0 + c, best[r], best_j[r]);
+      if constexpr (kCap) hc[r][c] = h;
       diag = left;
       up = h;
       H[r] = h;
@@ -281,12 +309,13 @@ __device__ __forceinline__ void column_scores(int aj, const int (&code)[R],
 // one tile of the affine or table form, as `tile`; affine, E[r] is
 // E(row r, j0 - 1) in and E of the tile's last column out, UF F of the row
 // above in the tile's columns, and BF gets the last row's F
-template <int R, int C, bool kPartial, bool kAffine, bool kSub>
+template <int R, int C, bool kPartial, bool kAffine, bool kSub,
+          bool kCap = false>
 __device__ __forceinline__ void tile_gotoh(
     int j0, int nc, const int (&ac)[C], const int (&code)[R],
     const int (&U)[C], const int (&UF)[C], int diag0, const Gotoh& g,
     int (&H)[R], int (&E)[R], int (&best)[R], int (&best_j)[R],
-    int (&B)[C], int (&BF)[C]) {
+    int (&B)[C], int (&BF)[C], int (*hc)[C] = nullptr) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (kPartial && c >= nc) break;
@@ -308,6 +337,7 @@ __device__ __forceinline__ void tile_gotoh(
         h = swcell::linear(diag + s[r], left, up, g.gap);
       }
       swcell::track(h, j0 + c, best[r], best_j[r]);
+      if constexpr (kCap) hc[r][c] = h;
       diag = left;
       up = h;
       H[r] = h;
@@ -497,6 +527,42 @@ __device__ __forceinline__ void tile_ext(
   }
 }
 
+// The arguments of the capture (kDebugH, K9) and batch (kPairs, K8) forms,
+// one kernel parameter after band: a field added to Ext moved an earlier
+// instantiation's registers, a parameter after the others moves nothing.
+struct Aux {
+  int* h;               // kDebugH: (stripes, tiles + T - 1, T, R, C) int32,
+                        // slot (s, t, k, r, c) the cell (s T R + k R + r +
+                        // 1, (t - k) C + c + 1); steps a stripe never runs
+                        // keep the caller's fill
+  int* seen;            // kDebugH: (stripes, m + 1) int32, -1 filled by the
+                        // caller: the progress seen at each boundary read
+  int skew;             // kDebugH: the test hook, 0 in a sanitizer run
+  int pairs;            // kPairs: B
+  int stripes;          // kPairs: S, stripes a pair (set by `launch`)
+};
+
+// kDebugH: boundary column j (H and, affine, F of the row above) as the
+// lane of warp 0 loading it reads it: from column j - skew, 0 and NEG left
+// of column 1; the progress it waited for stored at seen[s, j]; nothing
+// past m
+template <bool kAffine>
+__device__ __forceinline__ void debug_read(const Aux& aux, int s, int m,
+                                           const int* up_row,
+                                           const int* bnd_f, int j, int seen,
+                                           int& h, int& f) {
+  h = 0;
+  f = kNeg;
+  if (j > m) return;
+  const size_t m1 = (size_t)m + 1;
+  aux.seen[(size_t)s * m1 + j] = seen;
+  const int jr = j - aux.skew;
+  if (jr >= 1) {
+    h = __ldcg(&up_row[jr]);
+    if constexpr (kAffine) f = __ldcg(&bnd_f[(s - 1) * m1 + jr]);
+  }
+}
+
 // The band form's window of stripe s (rows s * rows + 1 .. min(n, (s + 1) *
 // rows)): the columns col0 + 1 .. end, in `tiles` tiles of C from column
 // col0 + 1, where col0 rounds max(1, r0 - band) - 1 down to a chunk, so a
@@ -533,6 +599,10 @@ __device__ __forceinline__ void band_window(int s, int rows, int C, int m,
 // ext:   the K4 and K5 forms' arguments, after bnd_f for the same reason.
 // band:  kBand's half-width, -1 .. m + n, last: a field added to Ext
 //        changed an earlier instantiation's register allocation.
+// aux:   the K9 (kDebugH) and K8 (kPairs) forms' arguments, after band for
+//        the same reason. kPairs: sync holds the ticket, then B * S
+//        progress counters, pair by pair; bnd (and bnd_f) B * (S - 1) rows,
+//        best (B, S, 4); right is not written.
 // the launch bound of the source's instantiations: K1-K3's kMaxThreads
 // (stripe_rb.cu); stripe_rb_p.cu and stripe_rb_block.cu define it as the
 // tile's ext_threads(R) and one block an SM before including this header,
@@ -544,18 +614,23 @@ __device__ __forceinline__ void band_window(int s, int rows, int C, int m,
 #endif
 
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
-          bool kBlock = false, bool kBand = false>
+          bool kBlock = false, bool kBand = false, bool kDebugH = false,
+          bool kPairs = false>
 __global__ void __launch_bounds__(SW_RB_LAUNCH_BOUNDS)
 stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                  int m, int n, int match, int mismatch, int gap,
                  int* __restrict__ sync, int* __restrict__ bnd,
                  int* __restrict__ best_out, int* __restrict__ right,
                  int open, int extend, const int* __restrict__ sub, int A,
-                 int* __restrict__ bnd_f, Ext ext, int band) {
+                 int* __restrict__ bnd_f, Ext ext, int band, Aux aux) {
   static_assert(kPublish % C == 0 && C <= kMaxCols, "C divides a chunk");
   static_assert(!kSub || R % 4 == 0, "the profile holds 4 rows an int4");
   static_assert(!(kP && kBlock), "the block form captures no P");
   static_assert(!(kBand && kBlock), "the block form takes no band");
+  static_assert(!((kDebugH || kPairs) && (kP || kBlock || kBand)) &&
+                    !(kDebugH && kPairs),
+                "the capture and batch forms are score-only, unbanded");
+  static_assert(!kDebugH || C % 4 == 0, "the capture stores int4 words");
   constexpr int kSteps = kPublish / C;         // steps a chunk
   __shared__ int s_stripe, s_best, s_k;
   __shared__ int s_edge[2][kMaxThreads / 32][C];  // each warp's last lane
@@ -587,12 +662,26 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   if constexpr (kAffine) {
     for (int x = k; x < 2 * (kMaxThreads / 32) * C; x += T) s_f[x] = kNeg;
   }
-  if constexpr (!kBand) {
+  if constexpr (!kBand && !kPairs) {
     for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
   }
   __syncthreads();
 
-  const int s = s_stripe;
+  const int s = kPairs ? s_stripe % aux.stripes : s_stripe;
+  if constexpr (kPairs) {
+    // pair-major tickets: stripe s of pair g waits only on stripe s - 1 of
+    // pair g, which took the ticket before it
+    const int g = s_stripe / aux.stripes;
+    const size_t rows_above = (size_t)g * (aux.stripes - 1) * ((size_t)m + 1);
+    a += (size_t)g * m;
+    b += (size_t)g * n;
+    sync += (size_t)g * aux.stripes;
+    bnd += rows_above;
+    if constexpr (kAffine) bnd_f += rows_above;
+    best_out += (size_t)g * aux.stripes * 4;
+    for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
+    __syncthreads();
+  }
   const int first = s * T * R + k * R;     // rows first + 1 .. first + R
   const int kt = (min(T * R, n - s * T * R) + R - 1) / R;  // threads with rows
   // the columns col0 + 1 .. end the stripe visits, in `tiles` tiles; the
@@ -711,18 +800,30 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     }
   } else if (warp == 0 && s > 0) {
     while (seen < min(kPublish, m)) seen = load_acquire(wait_on);
-    cur = lane + 1 <= m ? __ldcg(&up_row[lane + 1]) : 0;
-    if constexpr (kAffine) {
-      cur_f = lane + 1 <= m ? __ldcg(&bnd_f[(s - 1) * m1 + lane + 1]) : kNeg;
+    if constexpr (kDebugH) {
+      debug_read<kAffine>(aux, s, m, up_row, bnd_f, lane + 1, seen, cur,
+                          cur_f);
+    } else {
+      cur = lane + 1 <= m ? __ldcg(&up_row[lane + 1]) : 0;
+      if constexpr (kAffine) {
+        cur_f =
+            lane + 1 <= m ? __ldcg(&bnd_f[(s - 1) * m1 + lane + 1]) : kNeg;
+      }
     }
     if (m > kPublish) {
       while (seen < min(2 * kPublish, m)) seen = load_acquire(wait_on);
-      nxt = kPublish + lane + 1 <= m ? __ldcg(&up_row[kPublish + lane + 1])
-                                     : 0;
-      if constexpr (kAffine) {
-        nxt_f = kPublish + lane + 1 <= m
-                    ? __ldcg(&bnd_f[(s - 1) * m1 + kPublish + lane + 1])
-                    : kNeg;
+      if constexpr (kDebugH) {
+        debug_read<kAffine>(aux, s, m, up_row, bnd_f, kPublish + lane + 1,
+                            seen, nxt, nxt_f);
+      } else {
+        nxt = kPublish + lane + 1 <= m
+                  ? __ldcg(&up_row[kPublish + lane + 1])
+                  : 0;
+        if constexpr (kAffine) {
+          nxt_f = kPublish + lane + 1 <= m
+                      ? __ldcg(&bnd_f[(s - 1) * m1 + kPublish + lane + 1])
+                      : kNeg;
+        }
       }
     }
   }
@@ -829,11 +930,16 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
               }
             } else {
               while (seen < want) seen = load_acquire(wait_on);
-              nxt = lo + lane <= m ? __ldcg(&up_row[lo + lane]) : 0;
-              if constexpr (kAffine) {
-                nxt_f = lo + lane <= m
-                            ? __ldcg(&bnd_f[(s - 1) * m1 + lo + lane])
-                            : kNeg;
+              if constexpr (kDebugH) {
+                debug_read<kAffine>(aux, s, m, up_row, bnd_f, lo + lane,
+                                    seen, nxt, nxt_f);
+              } else {
+                nxt = lo + lane <= m ? __ldcg(&up_row[lo + lane]) : 0;
+                if constexpr (kAffine) {
+                  nxt_f = lo + lane <= m
+                              ? __ldcg(&bnd_f[(s - 1) * m1 + lo + lane])
+                              : kNeg;
+                }
               }
             }
           }
@@ -884,6 +990,7 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     }
     const int q = col0 / C + t - k;            // the tile
     const int j0 = q * C + 1;
+    [[maybe_unused]] int hc[R][C];             // kDebugH: the tile's H
     if (kBand ? k < kt && t - k >= 0 && t - k < tiles
               : k < kt && q >= 0 && j0 <= m) {
       int ac[C];
@@ -907,6 +1014,13 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
           tile_ext<R, C, false, kAffine, kSub, kP, kBlock>(
               j0, C, ac, code, U, UF, u_last, g, cap, H, E, best, best_j, B,
               BF);
+        } else if constexpr (kDebugH && !kAffine && !kSub) {
+          tile<R, C, false, true>(j0, C, ac, code, U, u_last, match,
+                                  mismatch, gap, H, best, best_j, B, hc);
+        } else if constexpr (kDebugH) {
+          tile_gotoh<R, C, false, kAffine, kSub, true>(
+              j0, C, ac, code, U, UF, u_last, g, H, E, best, best_j, B, BF,
+              hc);
         } else if constexpr (!kAffine && !kSub) {
           tile<R, C, false>(j0, C, ac, code, U, u_last, match, mismatch, gap,
                             H, best, best_j, B);
@@ -935,6 +1049,13 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
           tile_ext<R, C, true, kAffine, kSub, kP, kBlock>(
               j0, nc, ac, code, U, UF, u_last, g, cap, H, E, best, best_j, B,
               BF);
+        } else if constexpr (kDebugH && !kAffine && !kSub) {
+          tile<R, C, true, true>(j0, nc, ac, code, U, u_last, match,
+                                 mismatch, gap, H, best, best_j, B, hc);
+        } else if constexpr (kDebugH) {
+          tile_gotoh<R, C, true, kAffine, kSub, true>(
+              j0, nc, ac, code, U, UF, u_last, g, H, E, best, best_j, B, BF,
+              hc);
         } else if constexpr (!kAffine && !kSub) {
           tile<R, C, true>(j0, nc, ac, code, U, u_last, match, mismatch, gap,
                            H, best, best_j, B);
@@ -943,9 +1064,11 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                                                 u_last, g, H, E, best,
                                                 best_j, B, BF);
         }
+        if constexpr (!kPairs) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (first + r < n) right[first + r + 1] = H[r];
+          for (int r = 0; r < R; ++r) {
+            if (first + r < n) right[first + r + 1] = H[r];
+          }
         }
         if constexpr (kBlock && kAffine) {
 #pragma unroll
@@ -964,6 +1087,44 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
             }
           }
         }
+      }
+    }
+    if constexpr (kDebugH) {
+      // the step's R x C slots of this thread, a row's C columns a word:
+      // the tile's H where the cell lies in the matrix, 0 elsewhere; staged
+      // in shared memory (a thread's kQ words a word apart, so a quarter
+      // warp's stores hit 8 distinct bank quads) and stored by the warp as
+      // 32 * kQ contiguous words, kQ fully coalesced stores a lane
+      constexpr int kQ = R * C / 4;
+      // after the affine arrays and the profile: T x (kQ + 1) int4
+      int4* const s_cap = s_dyn + (kAffine ? f_ints<C>() / 4 : 0) +
+                          (kSub ? (g.rows + 1) * (R / 4) * T : 0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int w = 0; w < C / 4; ++w) {
+          int v[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int c = 4 * w + x;
+            v[x] = k < kt && q >= 0 && j0 <= m && first + r < n &&
+                           j0 + c <= m
+                       ? hc[r][c]
+                       : 0;
+          }
+          s_cap[k * (kQ + 1) + r * (C / 4) + w] =
+              make_int4(v[0], v[1], v[2], v[3]);
+        }
+      }
+      __syncwarp();
+      int4* dst = reinterpret_cast<int4*>(aux.h) +
+                  ((size_t)s * (tiles + T - 1) + t) * T * kQ +
+                  (size_t)(warp * 32) * kQ;
+      const int4* src = s_cap + warp * 32 * (kQ + 1);
+#pragma unroll
+      for (int x = 0; x < kQ; ++x) {
+        const int i = x * 32 + lane;
+        dst[i] = src[i / kQ * (kQ + 1) + i % kQ];
       }
     }
     if (publish) {
@@ -1027,15 +1188,17 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
+// kPairs: n is one pair's rows and the grid aux.pairs x its stripes.
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
-          bool kBlock = false, bool kBand = false>
+          bool kBlock = false, bool kBand = false, bool kDebugH = false,
+          bool kPairs = false>
 int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
            int mismatch, int gap, int open, int extend, const int* sub,
            int A, int T, int* sync, int* bnd, int* bnd_f, int* best,
            int* right, cudaStream_t stream, const Ext& ext = Ext{},
-           int band = 0) {
+           int band = 0, const Aux& aux_in = Aux{}) {
   constexpr int kTop =
-      (kP || kBlock || kBand) ? ext_threads(R) : kMaxThreads;
+      (kP || kBlock || kBand || kDebugH) ? ext_threads(R) : kMaxThreads;
   if (m < 1 || n < 1 || T < 32 || T > kTop || T % 32 ||
       (long long)n + (long long)T * R > INT_MAX ||
       (long long)m + (long long)T * C > INT_MAX ||
@@ -1062,21 +1225,36 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
     return (int)cudaErrorInvalidValue;
   }
   const int stripes = (n + T * R - 1) / (T * R);
+  if (kDebugH && (aux_in.h == nullptr || aux_in.seen == nullptr ||
+                  aux_in.skew < 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kPairs && (aux_in.pairs < 1 ||
+                 (long long)aux_in.pairs * stripes > INT_MAX ||
+                 (long long)aux_in.pairs * n > INT_MAX ||
+                 (long long)aux_in.pairs * m > INT_MAX)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Aux aux = aux_in;
+  aux.stripes = stripes;
   const size_t smem =
       (kAffine ? f_ints<C>() * sizeof(int) : 0) +
       (kSub ? (size_t)((A < kMaxSym ? A : kMaxSym) + 1) * R * T * sizeof(int)
-            : 0);
-  auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock, kBand>;
-  if (kSub) {
+            : 0) +
+      (kDebugH ? (size_t)T * (R * C / 4 + 1) * sizeof(int4) : 0);
+  auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock, kBand,
+                                  kDebugH, kPairs>;
+  if (kSub || kDebugH) {
     // above 48 KB of static and dynamic shared memory a block needs an
     // opt-in; the profile alone may pass it
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<stripes, T, smem, stream>>>(a, b, m, n, match, mismatch, gap,
-                                       sync, bnd, best, right, open, extend,
-                                       sub, A, bnd_f, ext, band);
+  const int blocks = kPairs ? aux.pairs * stripes : stripes;
+  kernel<<<blocks, T, smem, stream>>>(a, b, m, n, match, mismatch, gap,
+                                      sync, bnd, best, right, open, extend,
+                                      sub, A, bnd_f, ext, band, aux);
   return (int)cudaGetLastError();
 }
 
@@ -1088,4 +1266,10 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
 #define SW_RB_GOTOH_TILES(...)                                               \
   SW_RB_TILE(8, 4, __VA_ARGS__)                                              \
   SW_RB_TILE(8, 2, __VA_ARGS__)                                              \
+  SW_RB_TILE(4, 4, __VA_ARGS__)
+// the capture form's tiles (stripe_fill.RB_DEBUG_TILES): what score() runs
+// in every form, (8, 4), and the small tile that gives many hand-offs at
+// small shapes
+#define SW_RB_DEBUG_TILES(...)                                               \
+  SW_RB_TILE(8, 4, __VA_ARGS__)                                              \
   SW_RB_TILE(4, 4, __VA_ARGS__)

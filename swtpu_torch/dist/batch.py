@@ -9,10 +9,10 @@ without a card; it never carries on on the CPU.
 
 Plans of ``batch_score``: 'stripe' (K8, the pair grid), 'packed' (K7,
 packed pairs), 'scan' (the plain batched sweep) and 'auto'. On a card
-'auto' runs K8 or K7 (``auto_plan``), and only the kernels: a scoring
-they do not take raises ValueError there, as the lean traceback does, and
-the plain sweep runs on a card only when asked for by ``plan='scan'``. On
-the CPU every plan runs the sweep. Not ported yet: the native host tier
+'auto' runs K8 (``auto_plan``), and only the kernels: a scoring they do
+not take raises ValueError there, as the lean traceback does, and the
+plain sweep runs on a card only when asked for by ``plan='scan'``. On the
+CPU every plan runs the sweep. Not ported yet: the native host tier
 (``plan='host-simd'``) and the multi-device pipeline (``mesh=``,
 ``plan='pipeline'``), which raise ValueError, and the sharded scorer and
 best-hit reducer.
@@ -28,9 +28,8 @@ import torch
 from ..core.config import EngineConfig, Scoring
 from ..core.substitution import check_table
 from ..engine.align import align, resolve_device
-from ..kernels.pairs_fill import (BatchHits, chain_cutting_rows,
-                                  pairs_packed_score, pairs_score,
-                                  pairs_score_plain)
+from ..kernels.pairs_fill import (BatchHits, pairs_packed_score,
+                                  pairs_score, pairs_score_plain)
 from ..kernels.stripe_fill import kernels_take
 
 PLANS = ("auto", "stripe", "packed", "scan")
@@ -40,17 +39,19 @@ __all__ = ["BatchHits", "batch_score", "score_many", "batch_align",
 
 
 def auto_plan(n: int, band: Optional[int], A: int = 0) -> str:
-    """The kernel 'auto' runs on a card for pairs of n target rows: K8
-    ('stripe') for a band; K7 ('packed') where a stripe height cuts its
-    chain at every pair's first row (``chain_cutting_rows``), else K8,
-    since K7's chain then runs across pairs. From chip_smoke.py's times on
-    an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): at 64 x 1056^2
-    K7 (T=352) took 0.958-0.963 ms against K8's 1.107-1.127 ms (linear);
-    at 64 x 1000^2, where no T cuts the chain, K7 took 18.3 ms against
-    K8's 0.98 ms. No threshold of the JAX package's TPU routing carries
-    over."""
-    if band is None and chain_cutting_rows(n, A) is not None:
-        return "packed"
+    """The kernel 'auto' runs on a card for pairs of n target rows (a band
+    of ``band``, an alphabet of A letters): K8 ('stripe') for every batch.
+    Unbanded, K8 is the register-blocked batch form, which beat K7 in
+    turns even where a stripe height cuts K7's chain at every pair's first
+    row (``chain_cutting_rows``), in every scoring; banded, K8 is the
+    template's banded instantiation, the only batch kernel with a band.
+    From chip_smoke.py's times on an NVIDIA H100 80GB HBM3 at 700 W
+    (PERF.md, section 6), in turns: at 64 x 1056^2 K8 took 0.344 / 0.385
+    / 0.369 ms (linear / DNA affine / BLOSUM62 affine) against K7's
+    (T=352) 0.963 / 1.021 / 1.080 ms; on the 16 x 16384^2 bucket of the
+    mixed pairs 5.941 ms against 24.600; at 64 x 1000^2, where no T cuts
+    K7's chain, 0.297 ms against K7's 18.142. No threshold of the JAX
+    package's TPU routing carries over."""
     return "stripe"
 
 

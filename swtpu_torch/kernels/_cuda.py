@@ -27,7 +27,7 @@ SOURCES = tuple(_PKG / "csrc" / f for f in (
     "stripe_fill.cu", "stripe_block.cu", "walk_p.cu", "pairs_fill.cu",
     "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
     "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
-    "stripe_rb_band.cu"))
+    "stripe_rb_band.cu", "stripe_rb_debug.cu", "stripe_rb_pairs.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("stripe_kernel.cuh",
                                             "sw_cell.cuh", "stripe_rb.cuh"))
 BUILD_DIR = _PKG / "build"
@@ -123,6 +123,17 @@ for _mode in ("linear", "affine", "sub"):
         ARGTYPES[f"sw_stripe_rb_{_mode}"][:-1] + [_int, _ptr])
     ARGTYPES[f"sw_stripe_rb_fill_p_band_{_mode}"] = (
         ARGTYPES[f"sw_stripe_rb_fill_p_{_mode}"][:-1] + [_int, _ptr])
+# K9 register-blocked (the capture form): the K1-K3 entry's arguments up
+# to right, then h, seen, skew, stream
+for _mode in ("linear", "affine", "sub"):
+    ARGTYPES[f"sw_sanitize_rb_{_mode}"] = (
+        ARGTYPES[f"sw_stripe_rb_{_mode}"][:-1] + [_ptr, _ptr, _int, _ptr])
+# K8 register-blocked (the batch form): a, b, B, m, n, the model, T, R, C,
+# sync, bnd, [bnd_f], best, stream
+ARGTYPES["sw_pairs_rb_linear"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 4
+ARGTYPES["sw_pairs_rb_affine"] = [_ptr, _ptr] + [_int] * 10 + [_ptr] * 5
+ARGTYPES["sw_pairs_rb_sub"] = ([_ptr, _ptr] + [_int] * 3 + [_ptr]
+                               + [_int] * 8 + [_ptr] * 5)
 # K5 register-blocked: the template's K5 entry's arguments with R, C after
 # T: a, b, m, n, the model, T, R, C, local, then as the template's
 ARGTYPES["sw_stripe_rb_block_linear"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 8

@@ -1,35 +1,54 @@
-"""The sanitizer's capture kernel, K9, and its plain version.
+"""The sanitizer's capture kernels, K9, and their plain versions.
 
 Counterpart of ``swtpu.kernels.pallas_fill``'s ``_stripe_call(debug_h=
 True)``: a score-only fill that also returns H of every thread slot at
 every step, for ``instrument.sanitize`` to check cell by cell.
 
-* ``stripe_capture``: one pair, a (m,) against b (n,) int8 codes, in the
-  K1-K3 scorings (C entries ``sw_sanitize_stripe_linear``, ``_affine``,
-  ``_sub``), at the stripe height ``stripe_fill`` launches.
+* ``stripe_rb_capture``: one pair, a (m,) against b (n,) int8 codes, on
+  the register-blocked stripe that ``stripe_score`` (``score()``) runs, in
+  its K1-K3 scorings (C entries ``sw_sanitize_rb_linear``, ``_affine``,
+  ``_sub``, ``csrc/stripe_rb_debug.cu``), at ``_launch_rb``'s geometry:
+  T threads of R rows and C columns a step (``rb_shape``'s 'debug' kind:
+  by default the (T, R, C) score() runs), the same stripes, ticket order,
+  query ring and chunked hand-off.
+* ``stripe_capture``: the same on the stripe template's K1-K3, one row a
+  thread (``sw_sanitize_stripe_linear``, ``_affine``, ``_sub``,
+  ``csrc/sanitize_fill.cu``), the earlier design, on no route.
 * ``packed_capture``: B pairs of one shape, a (B, m) against b (B, n),
   packed as K7 packs them (``sw_sanitize_packed_linear``, ``_affine``,
   ``_sub``), at the stripe height ``pairs_packed_score`` launches.
 
-Both return ``Capture``: ``h``, (stripes, m + T - 1, T) int32, slot
-(s, t, k) holding H of cell (s*T + k + 1, t - k + 1) after step t (0 for a
-slot outside the matrix, ``UNSCHEDULED`` for the last stripe's steps past
-its own m + rows - 1); ``seen``, (stripes, m + 1) int32, the progress of
-stripe s - 1 that stripe s had seen when it read column j of the boundary
-row (-1 where it read none); and each pair's max score.
+Each returns ``Capture``: ``h``, H of every slot after every step;
+``seen``, (stripes, m + 1) int32, the progress of stripe s - 1 that stripe
+s had seen when it read column j of the boundary row (-1 where it read
+none); each pair's max score; and the tile, T threads of R rows and C
+columns. The register-blocked ``h`` is (stripes, ceil(m / C) + T - 1, T,
+R, C), the template's (stripes, m + T - 1, T), its R = C = 1 case: slot
+(s, t, k, r, c) holds H of cell (s*T*R + k*R + r + 1, (t - k)*C + c + 1)
+after step t (``slot_cells``), 0 for a slot whose cell lies outside the
+matrix, and ``UNSCHEDULED`` for the last stripe's steps past its own
+ceil(m / C) + kt - 1 (kt its threads holding rows). The register-blocked
+kernel computes the cells of a thread's rows past n and discards them;
+the capture stores 0 there, as for every slot outside the matrix: those
+rows lie below row n, so no cell of the matrix reads them, and one rule,
+"exactly 0", holds every slot outside it.
 
 Each wrapper launches its kernel for tensors on a CUDA device and runs its
-plain version (``stripe_capture_plain``, ``packed_capture_plain``) for
-tensors on the CPU, and nowhere else; a failed build or launch raises. The
-plain version follows the kernel's stripe schedule: one ``scan_fill`` per
-stripe (per segment between a pair's first rows in the packed mode), each
-starting from the stripe above's last row, so that the test hook ``skew``
-(read boundary column j - skew: a broken hand-off) gives the same wrong
-cells on the card and off it. A sequential producer has always finished,
-so the plain ``seen`` is m wherever a stripe reads the boundary.
+plain version (``stripe_rb_capture_plain``, ``stripe_capture_plain``,
+``packed_capture_plain``) for tensors on the CPU, and nowhere else; a
+failed build or launch raises. The plain versions follow their kernel's
+stripe schedule: one ``scan_fill`` per stripe (per segment between a
+pair's first rows in the packed mode), each starting from the stripe
+above's last row, so that the test hook ``skew`` (read boundary column j -
+skew: a broken hand-off) gives the same wrong cells on the card and off
+it; the register-blocked one gathers each stripe's H into the tile layout
+through ``slot_cells``. A sequential producer has always finished, so the
+plain ``seen`` is m wherever a stripe reads the boundary.
 
-``launches`` and ``plain_calls`` count them; ``pairs_fill.reset_counts()``
-zeroes them with every other kernel's counters.
+``rb_launches`` and ``rb_plain_calls`` count the register-blocked entries
+and their plain version, ``launches`` and ``plain_calls`` the template's;
+``pairs_fill.reset_counts()`` zeroes them with every other kernel's
+counters.
 """
 
 from __future__ import annotations
@@ -41,13 +60,17 @@ import torch
 from ..core.config import Scoring
 from . import pairs_fill as pf
 from . import stripe_fill as sf
-from .scan_fill import NEG, scan_fill
+from .scan_fill import NEG, diag_to_rowmajor, scan_fill
 
 # the largest capture the sanitizer takes, in int32 slots (1 GiB)
 SANITIZE_MAX_SLOTS = 1 << 28
 # what a slot the kernel never schedules keeps
 UNSCHEDULED = -(1 << 31)
 
+# the register-blocked K9 entries by mode
+RB_DEBUG_KERNELS = {mode: f"sw_sanitize_rb_{mode}"
+                    for mode in ("linear", "affine", "sub")}
+# (packed, mode) -> the stripe template's K9 entry
 DEBUG_KERNELS = {
     (False, "linear"): "sw_sanitize_stripe_linear",
     (False, "affine"): "sw_sanitize_stripe_affine",
@@ -58,14 +81,38 @@ DEBUG_KERNELS = {
 }
 launches = dict.fromkeys(DEBUG_KERNELS.values(), 0)
 plain_calls = {"stripe_capture_plain": 0, "packed_capture_plain": 0}
+# the register-blocked K9's own counters
+rb_launches = dict.fromkeys(RB_DEBUG_KERNELS.values(), 0)
+rb_plain_calls = {"stripe_rb_capture_plain": 0}
 
 
 class Capture(NamedTuple):
     """A K9 capture, tensors on the input's device."""
-    h: torch.Tensor         # (stripes, m + T - 1, T) int32
+    h: torch.Tensor         # (stripes, steps, T, R, C) int32; the
+                            # template's (stripes, m + T - 1, T)
     seen: torch.Tensor      # (stripes, m + 1) int32
-    T: int                  # rows per stripe
+    T: int                  # threads a stripe
     scores: torch.Tensor    # (B,) int32: each pair's max (B = 1: one pair)
+    R: int = 1              # rows a thread
+    C: int = 1              # columns a step
+
+
+def slot_cells(stripes: int, steps: int, T: int, R: int = 1, C: int = 1,
+               device=None) -> tuple:
+    """(i, j): the cell of every slot (s, t, k, r, c) of a capture of
+    ``stripes`` stripes of T threads of R rows, C columns a step, as int64
+    tensors broadcasting to (stripes, steps, T, R, C): i = s*T*R + k*R +
+    r + 1, j = (t - k)*C + c + 1 (rows past n and columns outside 1..m
+    included). The one map the checks, the plain capture and the tests
+    read."""
+    def axis(size, dim):
+        shape = [1] * 5
+        shape[dim] = size
+        return torch.arange(size, device=device).view(shape)
+
+    s, t, k, r, c = (axis(x, d) for d, x in enumerate((stripes, steps, T,
+                                                        R, C)))
+    return s * T * R + k * R + r + 1, (t - k) * C + c + 1
 
 
 def same_capture(k: Capture, p: Capture, skewed: bool = False) -> int:
@@ -76,9 +123,9 @@ def same_capture(k: Capture, p: Capture, skewed: bool = False) -> int:
     read the boundary in the same stripes and, but under the test hook
     (``skewed``), each read must follow its column's release. Raises
     ValueError where they differ."""
-    if k.T != p.T or k.h.shape != p.h.shape:
-        raise ValueError(f"T {k.T} != {p.T} or h {tuple(k.h.shape)} != "
-                         f"{tuple(p.h.shape)}")
+    if (k.T, k.R, k.C) != (p.T, p.R, p.C) or k.h.shape != p.h.shape:
+        raise ValueError(f"(T, R, C) {(k.T, k.R, k.C)} != {(p.T, p.R, p.C)}"
+                         f" or h {tuple(k.h.shape)} != {tuple(p.h.shape)}")
     if not torch.equal(k.scores.cpu(), p.scores.cpu()):
         raise ValueError(f"scores {k.scores.tolist()} != "
                          f"{p.scores.tolist()}")
@@ -92,8 +139,83 @@ def same_capture(k: Capture, p: Capture, skewed: bool = False) -> int:
 
 
 def debug_kernel_name(scoring: Scoring, substitution, packed: bool) -> str:
-    """The K9 entry that serves this scoring."""
+    """The stripe template's K9 entry of this scoring (packed: what
+    ``packed_capture`` runs; else the earlier single-pair design)."""
     return DEBUG_KERNELS[packed, sf._mode(scoring, substitution)]
+
+
+def rb_debug_kernel_name(scoring: Scoring, substitution) -> str:
+    """The register-blocked K9 entry of this scoring, what
+    ``stripe_rb_capture`` (and so ``sanitize()``) runs on a card."""
+    return RB_DEBUG_KERNELS[sf._mode(scoring, substitution)]
+
+
+def rb_capture_shape(b: torch.Tensor, scoring: Scoring,
+                     substitution: Optional[torch.Tensor],
+                     T: Optional[int] = None, R: Optional[int] = None,
+                     C: Optional[int] = None) -> tuple:
+    """The (T, R, C) of ``stripe_rb_capture`` over b's rows: ``rb_shape``'s
+    'debug' kind, by default the (T, R, C) that ``stripe_score`` runs."""
+    return sf.rb_shape(b.numel(), T, R, C, sf._mode(scoring, substitution),
+                       _alphabet(substitution), "debug")
+
+
+def stripe_rb_capture(a: torch.Tensor, b: torch.Tensor,
+                      scoring: Scoring = Scoring(), T: Optional[int] = None,
+                      R: Optional[int] = None, C: Optional[int] = None,
+                      substitution: Optional[torch.Tensor] = None,
+                      skew: int = 0) -> Capture:
+    """K9 on one pair on the register-blocked stripe: ``stripe_score``'s
+    fill with the capture, at ``rb_capture_shape``'s (T, R, C) on both
+    devices; ``skew``: the hand-off test hook, 0 in a sanitizer run."""
+    if sf._route(a, b, scoring, substitution) == "cpu":
+        return stripe_rb_capture_plain(a, b, scoring, T, R, C, substitution,
+                                       skew)
+    T, R, C = rb_capture_shape(b, scoring, substitution, T, R, C)
+    return _launch_rb(a, b, scoring, substitution, skew, T, R, C)
+
+
+def stripe_rb_capture_plain(a: torch.Tensor, b: torch.Tensor,
+                            scoring: Scoring = Scoring(),
+                            T: Optional[int] = None, R: Optional[int] = None,
+                            C: Optional[int] = None,
+                            substitution: Optional[torch.Tensor] = None,
+                            skew: int = 0) -> Capture:
+    """Plain PyTorch version of the register-blocked K9 entries, on any
+    device: one ``scan_fill`` per stripe of T*R rows, each from the stripe
+    above's last row (shifted under ``skew``), its H gathered into the
+    tile layout through ``slot_cells``."""
+    rb_plain_calls["stripe_rb_capture_plain"] += 1
+    T, R, C = rb_capture_shape(b, scoring, substitution, T, R, C)
+    m, n = a.numel(), b.numel()
+    dev = a.device
+    h, seen = _buffers(n, m, T, skew, dev, R, C)
+    stripes, steps = h.shape[:2]
+    rows, tiles = T * R, -(-m // C)
+    i, j = slot_cells(1, steps, T, R, C, dev)       # i: the stripe's row
+    t = torch.arange(steps, device=dev).view(1, -1, 1, 1, 1)
+    table = sf._table(substitution)
+    best = torch.zeros((), dtype=torch.int32, device=dev)
+    bottom = bottom_f = None            # the stripe above's last row
+    for s in range(stripes):
+        lo, hi = s * rows, min(n, s * rows + rows)
+        kw = {}
+        if s:
+            kw["top_row"] = _shift(bottom, skew, 0)
+            if scoring.is_affine:
+                kw["top_f"] = _shift(bottom_f, skew, NEG)
+            seen[s, 1:] = m
+        out = scan_fill(a, b[lo:hi], scoring=scoring, return_h=True,
+                        sub_table=table, **kw)
+        H = diag_to_rowmajor(out.h_diag, hi - lo, m)
+        inside = (j >= 1) & (j <= m) & (i <= hi - lo)
+        cells = torch.where(inside, H[i.clamp(max=hi - lo), j.clamp(0, m)],
+                            0)
+        kt = -(-(hi - lo) // R)
+        h[s] = torch.where(t < tiles + kt - 1, cells, UNSCHEDULED)[0]
+        best = torch.maximum(best, out.max_score)
+        bottom, bottom_f = out.bottom_row, out.bottom_f
+    return Capture(h, seen, T, best.view(1), R, C)
 
 
 def stripe_capture(a: torch.Tensor, b: torch.Tensor,
@@ -156,22 +278,45 @@ def _packed_rows(b, T, sub) -> int:
     return pf.packed_stripe_rows(b.shape[1], b.shape[0], T, _alphabet(sub))
 
 
-def _buffers(n: int, m: int, T: int, skew: int, dev: torch.device) -> tuple:
-    """(h, seen) of a capture of n rows by m columns: h all UNSCHEDULED,
-    seen all -1. Raises ValueError above SANITIZE_MAX_SLOTS (which keeps
-    n far below int32's range) or for a negative skew."""
+def _buffers(n: int, m: int, T: int, skew: int, dev: torch.device,
+             R: int = 1, C: int = 1) -> tuple:
+    """(h, seen) of a capture of n rows by m columns at T threads of R rows
+    and C columns a step: h all UNSCHEDULED, (stripes, ceil(m / C) + T -
+    1, T, R, C); seen all -1. Raises ValueError above SANITIZE_MAX_SLOTS
+    (which keeps n far below int32's range) or for a negative skew."""
     if skew < 0:
         raise ValueError(f"skew must be >= 0, got {skew}")
-    stripes = -(-n // T)
-    if stripes * (m + T - 1) * T > SANITIZE_MAX_SLOTS:
+    stripes = -(-n // (T * R))
+    shape = (stripes, -(-m // C) + T - 1, T, R, C)
+    slots = stripes * shape[1] * T * R * C
+    if slots > SANITIZE_MAX_SLOTS:
         raise ValueError(
-            f"a capture of {stripes} stripes x {m + T - 1} steps x {T} rows "
-            f"exceeds {SANITIZE_MAX_SLOTS} slots: the sanitizer is sized "
-            "for debug shapes")
+            f"a capture of {' x '.join(map(str, shape))} slots exceeds "
+            f"{SANITIZE_MAX_SLOTS}: the sanitizer is sized for debug "
+            "shapes")
     i32 = torch.int32
-    return (torch.full((stripes, m + T - 1, T), UNSCHEDULED, dtype=i32,
-                       device=dev),
+    return (torch.full(shape, UNSCHEDULED, dtype=i32, device=dev),
             torch.full((stripes, m + 1), -1, dtype=i32, device=dev))
+
+
+def _launch_rb(a: torch.Tensor, b: torch.Tensor, scoring: Scoring,
+               sub: Optional[torch.Tensor], skew: int, T: int, R: int,
+               C: int) -> Capture:
+    """Launch the register-blocked K9 on one pair at (T, R, C): the
+    arguments of ``stripe_fill._launch_rb``'s entry, then h, seen, skew."""
+    m, n = a.numel(), b.numel()
+    h, seen = _buffers(n, m, T, skew, a.device, R, C)
+    a, b, sub, sync, bnd, bnd_f, best = sf._rb_scratch(a, b, scoring, sub, T,
+                                                       R)
+    mode = sf._mode(scoring, sub)
+    bnds = [bnd.data_ptr()] + ([sf._ptr(bnd_f)] if mode != "linear" else [])
+    right = torch.zeros(n + 1, dtype=torch.int32, device=a.device)
+    args = [a.data_ptr(), b.data_ptr(), m, n, *sf._model(scoring, sub), T, R,
+            C, sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr(),
+            h.data_ptr(), seen.data_ptr(), skew]
+    name = RB_DEBUG_KERNELS[mode]
+    sf._call(name, a.device, args, name, rb_launches)
+    return Capture(h, seen, T, sf._reduce(best, right, n)[:1], R, C)
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, rows: int, scoring: Scoring,
@@ -182,6 +327,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, rows: int, scoring: Scoring,
     (B, m), n = a.shape, b.numel()
     dev = a.device
     h, seen = _buffers(n, m, T, skew, dev)
+    h = h.flatten(2)                    # the template's (stripes, steps, T)
     i32 = torch.int32
     a, b = a.contiguous(), b.contiguous()
     sub = None if sub is None else sub.contiguous()
@@ -224,6 +370,7 @@ def _plain(a: torch.Tensor, b: torch.Tensor, rows: int, scoring: Scoring,
     (G, m), n = a.shape, b.numel()
     dev = a.device
     h, seen = _buffers(n, m, T, skew, dev)
+    h = h.flatten(2)
     table = sf._table(sub)
     affine = scoring.is_affine
     scores = torch.zeros(G, dtype=torch.int32, device=dev)

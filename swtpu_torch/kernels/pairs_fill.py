@@ -4,9 +4,14 @@ Counterpart of ``swtpu.kernels.pallas_fill``'s two batch scorers, for B
 independent pairs of one shape, a (B, m) against b (B, n) int8 codes:
 
 * ``pairs_score`` (K8, the ``pairs_score_fn`` counterpart): the pair grid,
-  one launch of B x S stripe blocks (C entries ``sw_pairs_score_linear``,
-  ``_affine``, ``_sub``); ``band=`` launches the banded instantiation,
-  counted as ``<entry>[band]``.
+  one launch of B x S stripe blocks. Unbanded it runs the batch form of
+  the register-blocked stripe (C entries ``sw_pairs_rb_linear``,
+  ``_affine``, ``_sub``, ``csrc/stripe_rb_pairs.cu``: T threads of R rows
+  and C columns a step, ``rb_shape``'s 'pairs' kind); ``band=`` launches
+  the stripe template's banded instantiation (``sw_pairs_score_linear``,
+  ``_affine``, ``_sub``, counted as ``<entry>[band]``, K8[band]). The
+  template's unbanded K8, one row a thread, is the earlier design, on no
+  route (``_launch_pairs`` with no band).
 * ``pairs_packed_score`` (K7, the ``pairs_packed_score_fn`` counterpart):
   the B*n target rows packed into one stripe chain, a reset row at each
   pair's start (``sw_packed_score_linear``, ``_affine``, ``_sub``).
@@ -36,11 +41,14 @@ from .scan_fill import batch_scan_fill
 PAIRS_KERNELS = {"linear": "sw_pairs_score_linear",
                  "affine": "sw_pairs_score_affine",
                  "sub": "sw_pairs_score_sub"}
+# the register-blocked K8 entries by mode
+PAIRS_RB_KERNELS = {mode: f"sw_pairs_rb_{mode}"
+                    for mode in ("linear", "affine", "sub")}
 PACKED_KERNELS = {"linear": "sw_packed_score_linear",
                   "affine": "sw_packed_score_affine",
                   "sub": "sw_packed_score_sub"}
 launches = dict.fromkeys(
-    [*PAIRS_KERNELS.values(),
+    [*PAIRS_RB_KERNELS.values(), *PAIRS_KERNELS.values(),
      *(k + sf.BAND_SUFFIX for k in PAIRS_KERNELS.values()),
      *PACKED_KERNELS.values()], 0)
 plain_calls = {"pairs_score_plain": 0}
@@ -60,16 +68,27 @@ def reset_counts() -> None:
     sf.reset_counts()
     for counts in (launches, plain_calls, window_fill.launches,
                    window_fill.plain_calls, debug_fill.launches,
-                   debug_fill.plain_calls):
+                   debug_fill.plain_calls, debug_fill.rb_launches,
+                   debug_fill.rb_plain_calls):
         for name in counts:
             counts[name] = 0
 
 
 def pairs_kernel_name(scoring: Scoring, substitution,
                       banded: bool = False) -> str:
-    """The launch counter of the K8 entry that serves this scoring."""
-    name = PAIRS_KERNELS[sf._mode(scoring, substitution)]
-    return name + sf.BAND_SUFFIX if banded else name
+    """The launch counter of the K8 entry that ``pairs_score`` runs for
+    this scoring on a card: the register-blocked entry, or with a band the
+    template's (its name plus ``BAND_SUFFIX``)."""
+    mode = sf._mode(scoring, substitution)
+    if banded:
+        return PAIRS_KERNELS[mode] + sf.BAND_SUFFIX
+    return PAIRS_RB_KERNELS[mode]
+
+
+def pairs_template_name(scoring: Scoring, substitution) -> str:
+    """The stripe template's unbanded K8 entry of this scoring, the
+    earlier design (``_launch_pairs`` with no band)."""
+    return PAIRS_KERNELS[sf._mode(scoring, substitution)]
 
 
 def packed_kernel_name(scoring: Scoring, substitution) -> str:
@@ -82,11 +101,15 @@ def pairs_score(a: torch.Tensor, b: torch.Tensor,
                 substitution: Optional[torch.Tensor] = None,
                 band: Optional[int] = None) -> BatchHits:
     """K8: score B pairs, a (B, m) against b (B, n) int8 codes on one
-    device. ``T``: rows per stripe (CUDA only). ``substitution``: an (A, A)
-    int32 table on the same device, or None for match/mismatch. ``band``:
-    keep only the cells with |i - j| <= band."""
+    device. ``T`` (CUDA only): threads per block of the register-blocked
+    form (each holding R rows, ``rb_shape``), or with a band rows per
+    stripe of the template's. ``substitution``: an (A, A) int32 table on
+    the same device, or None for match/mismatch. ``band``: keep only the
+    cells with |i - j| <= band."""
     if sf._route(a, b, scoring, substitution, batched=True) == "cpu":
         return pairs_score_plain(a, b, scoring, substitution, band)
+    if band is None:
+        return _launch_pairs_rb(a, b, scoring, T, sub=substitution)
     return _launch_pairs(a, b, scoring, T, substitution, band)
 
 
@@ -143,7 +166,36 @@ def _scratch(stripes: int, m: int, affine: bool, dev: torch.device):
     return bnd, (torch.empty_like(bnd) if affine else None)
 
 
+def _launch_pairs_rb(a, b, scoring, T, R=None, C=None, sub=None
+                     ) -> BatchHits:
+    """The register-blocked K8 (``PAIRS_RB_KERNELS``, by the scoring) at T
+    threads of R rows and C columns a step (``rb_shape``'s 'pairs' kind
+    over each pair's n rows)."""
+    (B, m), n = a.shape, b.shape[1]
+    mode = sf._mode(scoring, sub)
+    T, R, C = sf.rb_shape(n, T, R, C, mode,
+                          0 if sub is None else sub.shape[0], "pairs")
+    if n > (1 << 31) - 1 - T * R or B * max(m, n) > (1 << 31) - 1:
+        raise ValueError(f"{B} pairs of {m} x {n} overflow int32")
+    dev, i32 = a.device, torch.int32
+    a, b = a.contiguous(), b.contiguous()
+    sub = None if sub is None else sub.contiguous()
+    S = -(-n // (T * R))
+    sync = torch.zeros(1 + B * S, dtype=i32, device=dev)
+    bnd, bnd_f = _scratch(B * (S - 1), m, scoring.is_affine, dev)
+    best = torch.empty((B, S, 4), dtype=i32, device=dev)
+    # the F rows handed between stripes; the linear table entry takes null
+    bnds = [bnd.data_ptr()] + ([sf._ptr(bnd_f)] if mode != "linear" else [])
+    args = [a.data_ptr(), b.data_ptr(), B, m, n, *sf._model(scoring, sub), T,
+            R, C, sync.data_ptr(), *bnds, best.data_ptr()]
+    sf._call(PAIRS_RB_KERNELS[mode], dev, args, None, launches)
+    return _reduce_stripes(best)
+
+
 def _launch_pairs(a, b, scoring, T, sub, band) -> BatchHits:
+    """The stripe template's K8 at T rows a stripe: its banded
+    instantiation (K8[band], the route's) or, with no band, the earlier
+    design."""
     (B, m), n = a.shape, b.shape[1]
     dev = a.device
     i32 = torch.int32
@@ -161,8 +213,9 @@ def _launch_pairs(a, b, scoring, T, sub, band) -> BatchHits:
     args = [a.data_ptr(), b.data_ptr(), B, m, n, *sf._model(scoring, sub), T,
             sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr(),
             sf.NO_BAND if band is None else max(-1, min(int(band), m + n))]
-    sf._call(pairs_kernel_name(scoring, sub), dev, args,
-             pairs_kernel_name(scoring, sub, band is not None), launches)
+    name = pairs_template_name(scoring, sub)
+    sf._call(name, dev, args, name if band is None else name + sf.BAND_SUFFIX,
+             launches)
     return _reduce_stripes(best)
 
 

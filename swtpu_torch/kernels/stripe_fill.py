@@ -140,6 +140,16 @@ RB_BAND_P_DEFAULTS = dict.fromkeys(RB_BAND_P_KERNELS, (128, 4, 4))
 # tile
 RB_EXT_MAX_THREADS = 256
 RB_WIDE_TILE = (4, 4)
+# the capture form (K9, csrc/stripe_rb_debug.cu): what score() runs in
+# every form, (8, 4) at RB_DEFAULTS' T, and the small tile RB_WIDE_TILE,
+# which gives many hand-offs at small shapes, under the K4 and K5 forms'
+# launch bounds (its R x C capture registers sit on top of the tile's)
+RB_DEBUG_TILES = ((8, 4), RB_WIDE_TILE)
+# the batch form (K8, csrc/stripe_rb_pairs.cu) takes the form's
+# RB_FORM_TILES and RB_DEFAULTS: (128, 8, 4) was the fastest, or within
+# 4.5 % of the fastest, of chip_smoke.py's sweeps at 64 x 1056^2 and 64 x
+# 1000^2 in every form (24 points linear, 12 affine and table, min of 5
+# rounds, an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6)
 # K4 stores a row's codes of a tile at once, into rows of a pitch rounded
 # up to P_PITCH_ALIGN bytes and shifted so that column 1 is word-aligned
 P_PITCH_ALIGN = 16
@@ -221,30 +231,34 @@ def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
              C: Optional[int] = None, mode: str = "linear",
              A: int = 0, kind: str = "score") -> tuple:
     """(threads, rows per thread, columns per step) of a register-blocked
-    launch of ``kind`` ('score' K1-K3, 'fill_p' K4, 'block' K5, or the
-    band form K4b, 'band' and 'fill_p_band') in ``mode`` ('linear',
-    'affine' or 'sub', an alphabet of A symbols) over n rows: T threads
-    (default the form's, RB_DEFAULTS, RB_P_DEFAULTS, RB_BLOCK_DEFAULTS,
-    RB_BAND_DEFAULTS or RB_BAND_P_DEFAULTS; a multiple of 32 up to
-    RB_MAX_THREADS, each holding R rows; every form but K1-K3 in
-    RB_EXT_TILES, above RB_EXT_MAX_THREADS only in RB_WIDE_TILE, its
-    default there), no more than ceil(n / R) needs, rounded up to a warp,
-    and, for a table, no more than the profile's shared memory holds
-    (RB_PROFILE_BYTES)."""
-    if kind == "score":
+    launch of ``kind`` ('score' K1-K3, 'fill_p' K4, 'block' K5, the band
+    form K4b, 'band' and 'fill_p_band', the capture form K9, 'debug', or
+    the batch form K8, 'pairs', over each pair's n rows) in ``mode``
+    ('linear', 'affine' or 'sub', an alphabet of A symbols) over n rows: T
+    threads (default the form's, RB_DEFAULTS (K1-K3, K9 and K8),
+    RB_P_DEFAULTS, RB_BLOCK_DEFAULTS, RB_BAND_DEFAULTS or
+    RB_BAND_P_DEFAULTS; a multiple of 32 up to
+    RB_MAX_THREADS, each holding R rows; K1-K3 and K8 in the form's
+    RB_FORM_TILES, K9 in RB_DEBUG_TILES, the others in RB_EXT_TILES; every
+    form but K1-K3 and K8 above RB_EXT_MAX_THREADS only in RB_WIDE_TILE,
+    its default there), no more than ceil(n / R) needs, rounded up to a
+    warp, and, for a table, no more than the profile's shared memory holds
+    (RB_PROFILE_BYTES, with K9's capture staging beside it)."""
+    if kind in ("score", "pairs"):
         defaults, tiles = RB_DEFAULTS, RB_FORM_TILES[mode]
     else:
         defaults = {"fill_p": RB_P_DEFAULTS, "block": RB_BLOCK_DEFAULTS,
                     "band": RB_BAND_DEFAULTS,
-                    "fill_p_band": RB_BAND_P_DEFAULTS}[kind]
-        tiles = RB_EXT_TILES
+                    "fill_p_band": RB_BAND_P_DEFAULTS,
+                    "debug": RB_DEFAULTS}[kind]
+        tiles = RB_DEBUG_TILES if kind == "debug" else RB_EXT_TILES
     dT, dR, dC = defaults[mode]
     T = dT if T is None else T
     if T < 32 or T > RB_MAX_THREADS or T % 32:
         raise ValueError(f"threads T={T} of the register-blocked {kind} "
                          "kernels must be a multiple of 32 in [32, "
                          f"{RB_MAX_THREADS}]")
-    if kind != "score" and T > RB_EXT_MAX_THREADS:
+    if kind not in ("score", "pairs") and T > RB_EXT_MAX_THREADS:
         (dR, dC), tiles = RB_WIDE_TILE, (RB_WIDE_TILE,)
     R, C = dR if R is None else R, dC if C is None else C
     if (R, C) not in tiles:
@@ -253,8 +267,10 @@ def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
                          f" at T={T}")
     T = min(T, -(-(-(-n // R)) // 32) * 32)
     if mode == "sub":
+        # the profile, and K9's capture staging (R * C / 4 + 1 int4 a thread)
         rows = min(A, RB_MAX_SYMBOLS) + 1
-        T = min(T, RB_PROFILE_BYTES // (4 * rows * R) // 32 * 32)
+        per = 4 * rows * R + (16 * (R * C // 4 + 1) if kind == "debug" else 0)
+        T = min(T, RB_PROFILE_BYTES // per // 32 * 32)
     return T, R, C
 
 

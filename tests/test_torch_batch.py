@@ -325,6 +325,7 @@ def test_cpu_tensors_run_the_plain_version():
     assert pf.plain_calls == {"pairs_score_plain": 2}
     assert pf.launches == dict.fromkeys(pf.launches, 0)
     assert set(pf.launches) == {
+        "sw_pairs_rb_linear", "sw_pairs_rb_affine", "sw_pairs_rb_sub",
         "sw_pairs_score_linear", "sw_pairs_score_affine",
         "sw_pairs_score_sub", "sw_pairs_score_linear[band]",
         "sw_pairs_score_affine[band]", "sw_pairs_score_sub[band]",
@@ -390,20 +391,23 @@ def test_packed_stripe_rows_start_pairs_on_stripes(n, B, A, want):
     assert pf.packed_stripe_rows(n, B, 64, A) == 64
 
 
-@pytest.mark.parametrize("n, band, A, want", [
-    (1056, None, 0, "packed"),  # T = 352: a chain per pair
-    (16384, None, 0, "packed"),
-    (5, None, 0, "packed"),     # T = 320: 64 pairs a stripe
-    (96, None, 21, "packed"),
-    (1056, 8, 0, "stripe"),     # a band runs K8[band]
-    (1000, None, 0, "stripe"),  # no T cuts K7's chain
-    (300, None, 0, "stripe"),
-    (1500, None, 20, "stripe"),
+@pytest.mark.parametrize("n, band, A, cut", [
+    (1056, None, 0, True),      # T = 352: a chain per pair
+    (16384, None, 0, True),
+    (5, None, 0, True),         # T = 320: 64 pairs a stripe
+    (96, None, 21, True),
+    (1056, 8, 0, True),         # a band runs K8[band]
+    (1000, None, 0, False),     # no T cuts K7's chain
+    (300, None, 0, False),
+    (1500, None, 20, False),
 ])
-def test_auto_plan_runs_k7_only_where_its_chain_is_cut(n, band, A, want):
-    assert tbatch.auto_plan(n, band, A) == want
-    assert (pf.chain_cutting_rows(n, A) is not None) == (
-        want == "packed" or band is not None)
+def test_auto_plan_runs_k7_only_where_its_chain_is_cut(n, band, A, cut):
+    """K7 runs under 'auto' nowhere, even where a stripe height cuts its
+    chain: the register-blocked K8 beat it there in every scoring on the
+    card (auto_plan's docstring), and K8[band] is the only banded batch
+    kernel."""
+    assert tbatch.auto_plan(n, band, A) == "stripe"
+    assert (pf.chain_cutting_rows(n, A) is not None) == cut
 
 
 @pytest.mark.parametrize("scoring, table", [
@@ -471,7 +475,7 @@ def test_public_batch_calls_launch_the_kernels_on_card(cuda):
     pf.reset_counts()
     assert _triple(swtpu_torch.batch_score(aa, bb)) == want
     # no stripe height cuts K7's chain at n = 90, so 'auto' runs K8
-    assert pf.launches["sw_pairs_score_linear"] == 1
+    assert pf.launches["sw_pairs_rb_linear"] == 1
     assert pf.launches["sw_packed_score_linear"] == 0
     for plan in ("stripe", "packed"):
         assert _triple(swtpu_torch.batch_score(aa, bb, plan=plan)) == want
@@ -480,7 +484,8 @@ def test_public_batch_calls_launch_the_kernels_on_card(cuda):
     assert _triple(got) == want
     recs = swtpu_torch.batch_align(aa, bb, top=2)
     assert [r.max_score for _, r in recs] == sorted(want[0])[::-1][:2]
-    assert pf.launches["sw_pairs_score_linear"] >= 1
+    assert pf.launches["sw_pairs_rb_linear"] >= 1
+    assert pf.launches["sw_pairs_score_linear"] == 0
     assert pf.launches["sw_pairs_score_linear[band]"] == 1
     assert pf.launches["sw_packed_score_linear"] >= 1
     assert not any(pf.plain_calls.values())

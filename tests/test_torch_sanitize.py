@@ -102,8 +102,8 @@ def test_clean_pass_matches_jax(case):
                                substitution=_tab(jsub), device="cpu")
     assert got.valid_cells == want.valid_cells == len(a) * len(b)
     assert got.prestart_cells > 0 and got.garbage_cells > 0
-    T_, stripes = got.config
-    assert stripes == -(-len(b) // T_)
+    T_, R_, C_, stripes = got.config
+    assert stripes == -(-len(b) // (T_ * R_))
     cap = df.stripe_capture_plain(torch.from_numpy(a), torch.from_numpy(b),
                                   scoring_from_jax(jsc), T_,
                                   None if jsub is None
@@ -169,7 +169,7 @@ def test_skewed_hand_off_is_caught():
         tsan.sanitize_stripe(a, b, T=128, device="cpu", skew=1)
     aa, bb = random_batch(4, 40, 130, seed=7)       # 3 stripes at T=256
     rep = tsan.sanitize_pairs_packed(aa, bb, device="cpu")
-    assert rep.config == (256, 3)
+    assert rep.config == (256, 1, 1, 3)
     with pytest.raises(tsan.SanitizeError, match="!= oracle"):
         tsan.sanitize_pairs_packed(aa, bb, device="cpu", skew=1)
 
@@ -362,6 +362,8 @@ def test_sanitize_launches_k9_on_card(cuda):
     assert rep.valid_cells == 200 * 700
     aa, bb = random_batch(6, 60, 90, seed=6)
     assert tsan.sanitize_pairs_packed(aa, bb).valid_cells == 6 * 60 * 90
-    assert df.launches["sw_sanitize_stripe_linear"] == 1
+    assert df.rb_launches["sw_sanitize_rb_linear"] == 1
+    assert df.launches["sw_sanitize_stripe_linear"] == 0
     assert df.launches["sw_sanitize_packed_linear"] == 1
     assert not any(df.plain_calls.values())
+    assert not any(df.rb_plain_calls.values())

@@ -35,11 +35,13 @@ from swtpu.kernels.pallas_fill import stripe_score_fn
 import swtpu_torch
 from swtpu_torch import Scoring
 from swtpu_torch.core.substitution import BLOSUM62
+from swtpu_torch.kernels import pairs_fill as pf
 from swtpu_torch.kernels import stripe_fill as sf
 
 KPUBLISH, KAHEAD, KRING = 32, 64, 8192     # the kernel's constants
 KMAXSYM = 128
 NEG, NEG_SUB = -(1 << 30), -(1 << 20)
+UNSCHEDULED = -(1 << 31)    # what a capture slot no step writes keeps
 NONE, UP, LEFT, DIAGONAL, E_EXT, F_EXT = 0, 1, 2, 3, 4, 8   # P's codes
 GUARD = 0x5A                # a byte the model's P stores never write
 LINEAR = Scoring()
@@ -71,7 +73,8 @@ def rb_window(s: int, T: int, R: int, C: int, m: int, n: int,
 def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
              C: int, table: np.ndarray = None, capture_p: bool = False,
              block: dict = None, extra: dict = None,
-             band: int = None) -> tuple:
+             band: int = None, capture: dict = None,
+             pairs: bool = False) -> tuple:
     """The kernel's schedule in Python: ((4,) best, (n+1,) right) as the
     wrapper returns them. ``table``: the (A, A) S[a_code, b_code] of the
     substitution form. ``capture_p``: the K4 form, storing each cell's
@@ -86,7 +89,24 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
     only its ``rb_window``, cells with |i - j| > band masked to H = 0, E =
     F = NEG and P = NONE, the row above read only where the stripe above
     stored it (H = 0, F = NEG past its window), each stripe releasing m at
-    its end."""
+    its end. ``capture``: the K9 form, a dict taking ``skew`` (default 0;
+    boundary column j read from column j - skew, 0 and NEG left of column
+    1) and getting ``h``, (stripes, ceil(m / C) + T - 1, T, R, C), each
+    thread's R x C slots after every step it runs (the cell's H inside the
+    matrix, 0 outside it, rows past n included; steps the stripe never
+    runs keep UNSCHEDULED), and ``seen``, (stripes, m + 1), the progress a
+    boundary read saw (-1 where none). ``pairs``: the K8 batch form, a (B,
+    m) against b (B, n), each pair's stripes in ticket order (pair-major)
+    with its own counters and rows: returns ``pairs_fill._reduce_stripes``
+    of the (B, S, 4) stripe firsts as three lists, and no right column."""
+    if pairs:
+        firsts = []
+        for g in range(len(a)):
+            got = {}
+            rb_model(a[g], b[g], sc, T, R, C, table, extra=got)
+            firsts.append(got["stripe_best"])
+        return [x.tolist() for x in pf._reduce_stripes(
+            torch.tensor(firsts, dtype=torch.int32))]
     m, n = len(a), len(b)
     affine = sc.is_affine
     k_steps = KPUBLISH // C
@@ -109,6 +129,12 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
         right_e = [NEG] * (n + 1)
         bottom = [None] * (m + 1) if block["want_bottom"] else None
         bottom_f = [None] * (m + 1) if block["want_bottom"] else None
+    skew = capture.get("skew", 0) if capture is not None else 0
+    if capture is not None:
+        cap_h = np.full((S, -(-m // C) + T - 1, T, R, C), UNSCHEDULED,
+                        np.int64)
+        cap_seen = np.full((S, m + 1), -1, np.int64)
+
     def store(i, j, move):
         """One code into P: each cell of the windows once."""
         if band is None:
@@ -169,10 +195,17 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
             want = min(lo + KPUBLISH - 1, pend)
             assert want % KPUBLISH == 0 or want == pend
             assert want in released[s - 1]
-            return ([bnd[s - 1, lo + x] if lo + x <= pend else 0
-                     for x in range(32)],
-                    [bnd_f[s - 1, lo + x] if affine and lo + x <= pend
-                     else NEG for x in range(32)])
+            if capture is not None:       # the progress each lane saw
+                for x in range(32):
+                    if lo + x <= m:
+                        cap_seen[s, lo + x] = max(released[s - 1])
+                        assert cap_seen[s, lo + x] >= lo + x
+            cols = [lo + x - skew for x in range(32)]
+            return ([bnd[s - 1, j] if 1 <= j <= pend and lo + x <= pend
+                     else 0 for x, j in enumerate(cols)],
+                    [bnd_f[s - 1, j] if affine and 1 <= j <= pend
+                     and lo + x <= pend else NEG
+                     for x, j in enumerate(cols)])
 
         reads_row = s > 0 or block is not None
         cur = nxt = ([0] * 32, [NEG] * 32)
@@ -244,6 +277,8 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
             for k in range(T):
                 q = col0 // C + t - k
                 j0 = q * C + 1
+                if capture is not None:
+                    cap_h[s, t, k] = 0    # every slot a step, 0 unless set
                 if not (k < kt and 0 <= t - k < tiles):
                     continue
                 nc = min(C, m - j0 + 1)
@@ -305,6 +340,8 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
                                 elif inb:    # banded: NONE outside
                                     store(first[k] + r + 1, j0 + c, move)
                         fr.append(f)
+                        if capture is not None and first[k] + r < n:
+                            cap_h[s, t, k, r, c] = h
                         if h > best[k][r]:
                             best[k][r], best_j[k][r] = h, j0 + c
                         diag, up, H[k][r] = left_h, h, h
@@ -373,7 +410,10 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
         right_t[0] = right[0] = int(top[m])
     best_t = sf._reduce(torch.tensor(stripe_best, dtype=torch.int32),
                         right_t, n)
+    if capture is not None:
+        capture["h"], capture["seen"] = cap_h, cap_seen
     if extra is not None:
+        extra["stripe_best"] = stripe_best
         if capture_p:
             # every cell of rows 0..n, columns 0..m stored, and no other
             assert (P[:n + 1, :m + 1] != GUARD).all()
