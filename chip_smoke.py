@@ -8,7 +8,7 @@ plain PyTorch version on the card, then drives the public ``align()`` and
 ``score()`` at the benchmark sizes, in three scorings (DNA linear 3/-3/-2,
 DNA affine 3/-3 -4/-1, BLOSUM62 protein affine -11/-1), and checks the
 answers against independent numpy row scans and the known values for those
-seeded pairs. Four paths are driven, each with the launch counts set to 0
+seeded pairs. Five paths are driven, each with the launch counts set to 0
 just before it and read just after: the full-P path (score 25632^2, align
 16384^2), the lean and banded path (align 25632^2 through locate +
 windowed refill + the device walk, Hirschberg at 16384^2 linear and
@@ -19,11 +19,14 @@ on 64 pairs of 1000^2, ``batch_align`` on the first, ``score_many`` and
 (``search`` of 2048 reads of 152 against a 1 Mb reference in each scoring,
 ``align_hits`` of the best 512 hits, ``map_reads`` single-end on 2048
 reads of 150 and paired-end on 1024 pairs against the reference as two
-records, and ``python -m swtpu_torch map`` on 256 of those reads), and the
-sanitize path (``swtpu_torch.sanitize`` at 4096^2 and
-``sanitize_pairs_packed`` on 16 pairs of 1056^2, every cell of the K9
+records, and ``python -m swtpu_torch map`` on 256 of those reads; long
+reads, K6 above 512 rows: ``search`` of 64 reads of 5000 planted in the
+reference, linear and DNA affine, and of 256 protein queries of 600 at a
+cut, ``align_hits`` of the best 4), and the sanitize path
+(``swtpu_torch.sanitize`` at 4096^2 and ``sanitize_pairs_packed`` on 16
+pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Ten kernels have a second,
+4096 4096 --skip-backtrack --sanitize``). Twelve kernels have a second,
 earlier design beside them: unbanded score-only runs the register-blocked
 K1, K2 and K3 (``csrc/stripe_rb.cu``), unbanded P capture its K4
 (``csrc/stripe_rb_p.cu``, a row's codes of a tile stored as words), every
@@ -31,15 +34,18 @@ block fill its K5 (``csrc/stripe_rb_block.cu``), a band its band form
 (K4b, ``csrc/stripe_rb_band.cu``, each stripe visiting only the columns
 its rows' band reaches), the sanitizer its capture form (K9,
 ``csrc/stripe_rb_debug.cu``, the tile score() runs), an unbanded batch
-its batch form (K8, ``csrc/stripe_rb_pairs.cu``), the lean walk the
-tile-staged walk (``sw_walk_p_tiled``, ``csrc/walk_p.cu``), and the
-search's window scorer the warp-per-read K6 (``csrc/window_warp.cu``);
-the earlier K1-K6, K4b, K8 and single-pair K9, the stripe template's, and
+its batch form (K8, ``csrc/stripe_rb_pairs.cu``), a banded batch its
+batch form with the band (K8[band], ``csrc/stripe_rb_pairs_band.cu``),
+the lean walk the tile-staged walk (``sw_walk_p_tiled``,
+``csrc/walk_p.cu``), and the search's window scorer the warp-per-read K6
+(``csrc/window_warp.cu``) for reads of up to 512 rows and the batch form
+with one shared window (``csrc/stripe_rb_window.cu``) above; the earlier
+K1-K6, K4b, K8, K8[band] and single-pair K9, the stripe template's, and
 the one-thread walk ``sw_walk_p`` are held to their plain versions and
-timed in turns with the new ones in the same run (they launch on no path,
-bar K6 for reads longer than 512 rows), K4 and K4b into guarded buffers
-(no byte off P written), and K1-K5, K4b and K8 are swept over their (T,
-R, C). K4b is also timed against the template's at 4 x the path's n,
+timed in turns with the new ones in the same run (they launch on no
+path), K4 and K4b into guarded buffers (no byte off P written), and K1-K5,
+K4b, K8, K8[band] and K6 above 512 rows are swept over their (T, R, C).
+K4b is also timed against the template's at 4 x the path's n,
 score-only. Each
 phase prints one line; any failure raises, so the exit code is not 0. The
 line before the last is a JSON object describing each kernel of the paths
@@ -135,6 +141,12 @@ ORIGIN = {
                  "swtpu/kernels/pallas_fill.py:597"),  # _kernel's debug_h
     "rb_pairs": (CSRC + "stripe_rb_pairs.cu",
                  "swtpu/kernels/pallas_fill.py:1962"),  # pairs_score_fn
+    # the pair grid's band mode (_kernel :358); the JAX package scans
+    # banded batches
+    "rb_pairs_band": (CSRC + "stripe_rb_pairs_band.cu",
+                      "swtpu/kernels/pallas_fill.py:1962"),
+    "rb_window": (CSRC + "stripe_rb_window.cu",
+                  "swtpu/kernels/pallas_fill.py:1608"),  # batch_score_fn
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -161,13 +173,17 @@ PAIR_SHAPES = [("6x40x300", 6, 40, 300, None, ""),
                ("no positive cell 6x50x140", 6, 50, 140, 32, "dark"),
                ("sentinels 4x70x300", 4, 70, 300, 32, "sentinels")]
 # the register-blocked K8's (T, R, C) at the small shapes beside the route's
-# (in every form's tiles), and its sweep at 64 x 1056^2 and 64 x 1000^2
+# (in every form's tiles), and its sweep at 64 x 1056^2 and 64 x 1000^2,
+# banded (K8[band]) at BAND too
 PAIRS_RB_SHAPES = [(32, 4, 4), (64, 8, 2), (256, 8, 4)]
 PAIRS_SWEEP = {mode: [(T, R, C) for T in (32, 64, 128, 256)
                       for R, C in sf.RB_FORM_TILES[mode]]
                for mode in sf.RB_FORM_TILES}
-# the stripe template's unbanded K8, the earlier design, on no path
-EARLIER_PAIRS = tuple(pf.PAIRS_KERNELS.values())
+# K8[band]'s bands at the small shapes, and m + n + 5, past every cell
+PAIRS_BANDS = (-1, 0, 1, 31, 32, 33, BAND)
+# the stripe template's K8 and K8[band], the earlier designs, on no path
+EARLIER_PAIRS = (*pf.PAIRS_KERNELS.values(),
+                 *(k + sf.BAND_SUFFIX for k in pf.PAIRS_KERNELS.values()))
 
 # The least time the card could take (bound_ms): the larger of the int32
 # operations over the card's int32 rate and the bytes over its memory rate.
@@ -192,7 +208,9 @@ WALK_OPS = 6              # per move: the P load's address, decode, state
 
 def origin(name: str) -> tuple:
     kind = ("rb_debug" if name.startswith("sw_sanitize_rb_")
+            else "rb_pairs_band" if name.startswith("sw_pairs_rb_band_")
             else "rb_pairs" if name.startswith("sw_pairs_rb_")
+            else "rb_window" if name.startswith("sw_window_rb_")
             else "sanitize" if name.startswith("sw_sanitize_")
             else "warp" if name.startswith("sw_window_warp_")
             else "rb" if name == sf.RB_KERNEL
@@ -246,8 +264,12 @@ def fill_bytes(m: int, n: int, S=None, p: bool = False) -> int:
     return m + n + table + 4 * (n + 1) + 16 + ((n + 1) * (m + 1) if p else 0)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One phase line, ending with the seconds since the script started."""
+    print(f"[{name}] {msg} [{time.perf_counter() - _T0:.0f} s]", flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -375,25 +397,26 @@ def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
     kPacked, kWindow, kDebugH>, the two walks, the warp-per-read K6 <R,
-    kAffine, kSub> and the register-blocked K1-K5, K4b, K9 and K8 <R, C,
-    kAffine, kSub, kP, kBlock, kBand, kDebugH, kPairs> (rb_ K1-K3, rb_p_
-    K4, rb_block_ K5, rb_band_ and rb_p_band_ K4b, rb_debug_ K9, rb_pairs_
-    K8)."""
+    kAffine, kSub> and the register-blocked K1-K5, K4b, K9, K8, K8[band]
+    and K6 <R, C, kAffine, kSub, kP, kBlock, kBand, kDebugH, kPairs,
+    kShared> (rb_ K1-K3, rb_p_ K4, rb_block_ K5, rb_band_ and rb_p_band_
+    K4b, rb_debug_ K9, rb_pairs_ K8, rb_pairs_band_ K8[band], rb_window_
+    K6)."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
         warp = re.search(r"window_warp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
         rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E"
-                       r"Lb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", ln)
+                       r"Lb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", ln)
         if "Compiling entry function" in ln and warp:
             R, aff, sub = (int(v) for v in warp.groups())
             name = (f"warp_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}")
         elif "Compiling entry function" in ln and rb:
-            R, C, aff, sub, p, blk, band, debug, pairs = (
+            R, C, aff, sub, p, blk, band, debug, pairs, shared = (
                 int(v) for v in rb.groups())
             kind = (("p_" if p else "block_" if blk else "debug_" if debug
-                     else "pairs_" if pairs else "")
+                     else "window_" if shared else "pairs_" if pairs else "")
                     + ("band_" if band else ""))
             name = (f"rb_{kind}{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}_C{C}")
@@ -1452,9 +1475,11 @@ def mixed_set() -> tuple:
 def pairs_vs_plain(dev) -> dict:
     """K8 (the register-blocked batch form, the route, three runs at the
     shape's T and once at each of PAIRS_RB_SHAPES; the template's, the
-    earlier design; and banded at bands 0, 1, 8 and BAND) and K7 (the
-    shape's T and its own) against their plain version at the small
-    shapes; returns the max error per counter."""
+    earlier design), K8[band] (the register-blocked band form, the route,
+    at the shape's T and at each of PAIRS_RB_SHAPES; the template's) at
+    each of PAIRS_BANDS and m + n + 5, and K7 (the shape's T and its own)
+    against their plain version at the small shapes; returns the max error
+    per counter."""
     table = on_card(BLOSUM62, dev=dev)[0]
     err = dict.fromkeys(pf.launches, 0)
     for mode in MODES:
@@ -1463,6 +1488,7 @@ def pairs_vs_plain(dev) -> dict:
         k8, k7 = pf.pairs_kernel_name(sc, S), pf.packed_kernel_name(sc, S)
         k8b = pf.pairs_kernel_name(sc, S, True)
         k8t = pf.pairs_template_name(sc, S)
+        k8bt = pf.pairs_template_name(sc, S, True)
         for label, B, m, n, T, kind in PAIR_SHAPES:
             at, bt = on_card(*_pairs_batch(mode, B, m, n, B + m + n, kind),
                              dev=dev)
@@ -1474,9 +1500,14 @@ def pairs_vs_plain(dev) -> dict:
             runs += [(k8t, pf._launch_pairs(at, bt, sc, T, sub, None)),
                      (k7, pf.pairs_packed_score(at, bt, sc, T, sub)),
                      (k7, pf.pairs_packed_score(at, bt, sc, None, sub))]
-            runs += [(k8b, pf.pairs_score(at, bt, sc, T, sub, band),
-                      pf.pairs_score_plain(at, bt, sc, sub, band))
-                     for band in (0, 1, 8, BAND)]
+            for band in (*PAIRS_BANDS, m + n + 5):
+                pb = pf.pairs_score_plain(at, bt, sc, sub, band)
+                runs += [(k8b, pf.pairs_score(at, bt, sc, T, sub, band), pb),
+                         (k8bt, pf._launch_pairs(at, bt, sc, T, sub, band),
+                          pb)]
+                runs += [(k8b, pf._launch_pairs_rb(at, bt, sc, *shape,
+                                                   sub=sub, band=band), pb)
+                         for shape in PAIRS_RB_SHAPES]
             torch.cuda.synchronize()
             for name, k, *plain in runs:
                 e = hits_diff(k, plain[0] if plain else p)
@@ -1486,30 +1517,35 @@ def pairs_vs_plain(dev) -> dict:
                 require(p.scores[1::2].abs().sum().item() == 0,
                         f"{label} [{mode}]: a dark pair scored")
         phase("kernels", f"{k8} (x3, and at {len(PAIRS_RB_SHAPES)} (T, R, "
-              f"C)), {k8t}, {k8b} (bands 0/1/8/{BAND}) and {k7} [{mode}] "
-              f"at {len(PAIR_SHAPES)} batch shapes: equal")
+              f"C)), {k8t}, {k8b} (and at {len(PAIRS_RB_SHAPES)} (T, R, C)) "
+              f"and {k8bt} at bands {'/'.join(map(str, PAIRS_BANDS))}/m+n+5, "
+              f"and {k7} [{mode}] at {len(PAIR_SHAPES)} batch shapes: equal")
     return err
 
 
-def pairs_sweep(at, bt, p, sc: Scoring, sub, label: str) -> None:
-    """The register-blocked K8 of the scoring over its form's PAIRS_SWEEP,
-    each point equal to the plain result ``p`` and timed in
-    RB_SWEEP_ROUNDS rounds over every point, the min of its rounds kept."""
+def pairs_sweep(at, bt, p, sc: Scoring, sub, label: str,
+                band=None) -> None:
+    """The register-blocked K8 (with ``band`` K8[band]) of the scoring over
+    its form's PAIRS_SWEEP, each point equal to the plain result ``p`` and
+    timed in RB_SWEEP_ROUNDS rounds over every point, the min of its rounds
+    kept."""
     mode = sf._mode(sc, sub)
+    name = pf.pairs_kernel_name(sc, sub, band is not None)
     for shape in PAIRS_SWEEP[mode]:
-        k = pf._launch_pairs_rb(at, bt, sc, *shape, sub=sub)
-        require(hits_diff(k, p) == 0, f"{pf.PAIRS_RB_KERNELS[mode]} "
-                f"{shape} {label}: kernel != plain")
+        k = pf._launch_pairs_rb(at, bt, sc, *shape, sub=sub, band=band)
+        require(hits_diff(k, p) == 0, f"{name} {shape} {label}: kernel != "
+                "plain")
     best = dict.fromkeys(PAIRS_SWEEP[mode], float("inf"))
     for _ in range(RB_SWEEP_ROUNDS):
         for shape in PAIRS_SWEEP[mode]:
-            ms, _ = timed_ms(lambda: pf._launch_pairs_rb(at, bt, sc, *shape,
-                                                         sub=sub), 1)
+            ms, _ = timed_ms(lambda: pf._launch_pairs_rb(
+                at, bt, sc, *shape, sub=sub, band=band), 1)
             best[shape] = min(best[shape], ms)
     fastest = min(best, key=best.get)
     default = sf.rb_shape(bt.shape[1], mode=mode,
-                          A=0 if sub is None else sub.shape[0], kind="pairs")
-    phase("batch", f"{pf.PAIRS_RB_KERNELS[mode]} sweep at {label}, ms by "
+                          A=0 if sub is None else sub.shape[0],
+                          kind="pairs" if band is None else "pairs_band")
+    phase("batch", f"{name} sweep at {label}, ms by "
           f"(T, R, C), min of {RB_SWEEP_ROUNDS} rounds, all equal: "
           + ", ".join(f"{T}/{R}/{C} {ms:.3f}" for (T, R, C), ms in
                       best.items())
@@ -1526,8 +1562,9 @@ def pairs_full(dev) -> tuple:
     T that cuts its chain), all three through their private launchers
     (past the wrappers' checks), the template's K8 also at K7's height,
     K7 also at T=256 (its chain then crosses pairs), the register-blocked
-    K8 swept over its tiles; K8 banded at BAND likewise. Returns (records,
-    plain results per mode, banded plain results per mode)."""
+    K8 swept over its tiles; K8[band] at BAND likewise: its band form (the
+    route) in turns with the template's, swept over its tiles. Returns
+    (records, plain results per mode, banded plain results per mode)."""
     table = on_card(BLOSUM62, dev=dev)[0]
     B, n = BATCH
     cells = B * n * n
@@ -1571,21 +1608,28 @@ def pairs_full(dev) -> tuple:
         pairs_sweep(at, bt, p, sc, sub, f"{B}x{n}^2")
         pb_ms, pb = timed_ms(
             lambda: pf.pairs_score_plain(at, bt, sc, sub, BAND), 1)
-        kb_ms, kb = timed_ms(
-            lambda: pf.pairs_score(at, bt, sc, substitution=sub, band=BAND), 3)
-        require(hits_diff(kb, pb) == 0,
+        kb_ms, kbt_ms, kb, kbt = ab_ms(
+            lambda: pf._launch_pairs_rb(at, bt, sc, None, sub=sub, band=BAND),
+            lambda: pf._launch_pairs(at, bt, sc, None, sub, BAND))
+        require(hits_diff(kb, pb) == 0 and hits_diff(kbt, pb) == 0,
                 f"band {BAND} [{mode}] {B}x{n}^2: kernel != plain")
+        require(hits_diff(pf.pairs_score(at, bt, sc, substitution=sub,
+                                         band=BAND), pb) == 0,
+                f"pairs_score band {BAND} [{mode}] {B}x{n}^2 != plain")
+        pairs_sweep(at, bt, pb, sc, sub, f"{B}x{n}^2 band {BAND}", BAND)
         ops = OPS_PER_CELL[mode]
         k8, k7 = pf.pairs_kernel_name(sc, S), pf.packed_kernel_name(sc, S)
         k8b = pf.pairs_kernel_name(sc, S, True)
         k8t = pf.pairs_template_name(sc, S)
+        k8bt = pf.pairs_template_name(sc, S, True)
         for name, label in ((k8, "K8"), (k8t, "K8 template"),
                             (k7, f"K7 T={fit}")):
             recs[name] = dict(ms=times[label], plain_ms=p_ms, max_abs_err=0,
                               **bound(cells, ops, io))
-        recs[k8b] = dict(ms=kb_ms, plain_ms=pb_ms, max_abs_err=0,
-                         **bound(B * band_cells(n, n, BAND), ops + BAND_OPS,
-                                 io))
+        for name, ms in ((k8b, kb_ms), (k8bt, kbt_ms)):
+            recs[name] = dict(ms=ms, plain_ms=pb_ms, max_abs_err=0,
+                              **bound(B * band_cells(n, n, BAND),
+                                      ops + BAND_OPS, io))
         want[mode] = [x.tolist() for x in p]
         want_band[mode] = [x.tolist() for x in pb]
         phase("batch", f"[{mode}] {B}x{n}^2: " + ", ".join(
@@ -1593,8 +1637,10 @@ def pairs_full(dev) -> tuple:
             for k, v in times.items())
             + f" (K8 = {k8}, in turns with the template's and with K7); "
             f"plain {p_ms:.1f} ms; equal to the plain version and to "
-            f"{B} x {sf.score_kernel_name(sc, S)}; {k8b} band {BAND} "
-            f"{kb_ms:.3f} ms (plain {pb_ms:.1f} ms), equal")
+            f"{B} x {sf.score_kernel_name(sc, S)}; band {BAND}: {k8b} "
+            f"{kb_ms:.3f} ms against the template's {k8bt} {kbt_ms:.3f} ms "
+            f"in turns ({kbt_ms / kb_ms:.2f}x; plain {pb_ms:.1f} ms), "
+            "equal")
         del at, bt
     return recs, want, want_band
 
@@ -1603,8 +1649,9 @@ def no_fit_batch(dev) -> tuple:
     """K8 and K7 at NO_FIT in each scoring, where K7 runs at the default
     T=256 and its chain crosses pairs: the register-blocked K8 in turns
     with the template's, K7 once, kernel min of 3 after a warm-up, plain
-    once, all equal; the register-blocked K8 swept over its tiles. Returns
-    (the linear plain result, the phase lines)."""
+    once, all equal; the register-blocked K8 swept over its tiles; K8[band]
+    at BAND in turns with the template's, equal to the plain banded fill.
+    Returns (the linear plain result, the phase lines)."""
     B, n = NO_FIT
     cells = B * n * n
     table = on_card(BLOSUM62, dev=dev)[0]
@@ -1625,13 +1672,20 @@ def no_fit_batch(dev) -> tuple:
         require(all(hits_diff(x, p) == 0 for x in (k, ko, k7)),
                 f"{B}x{n}^2 [{mode}]: kernel != plain")
         pairs_sweep(at, bt, p, sc, sub, f"{B}x{n}^2")
+        pb = pf.pairs_score_plain(at, bt, sc, sub, BAND)
+        times[f"K8[band] {BAND}"], times[f"K8[band] {BAND} template"], kb, \
+            kbt = ab_ms(lambda: pf._launch_pairs_rb(at, bt, sc, None,
+                                                    sub=sub, band=BAND),
+                        lambda: pf._launch_pairs(at, bt, sc, None, sub, BAND))
+        require(hits_diff(kb, pb) == 0 and hits_diff(kbt, pb) == 0,
+                f"{B}x{n}^2 band {BAND} [{mode}]: kernel != plain")
         if mode == "linear":
             want = [x.tolist() for x in p]
         lines.append(
             f"[{mode}] {B}x{n}^2 (no stripe height cuts K7's chain): "
             + ", ".join(f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
                         for k, v in times.items())
-            + f"; plain {p_ms:.1f} ms; equal")
+            + f"; plain {p_ms:.1f} ms; equal (banded to the banded plain)")
     return want, lines
 
 
@@ -1773,6 +1827,32 @@ WARP_EDGES = [("rlen=1", 6, 1, 300, 21), ("rlen=31", 5, 31, 200, 22),
               ("W=7", 4, 40, 7, 26), ("sentinel reads", 4, 60, 300, 27)]
 
 
+# K6 above 512 rows (the register-blocked shared-window form): DNA reads of
+# 5000 (long reads) planted in the search's 1 Mb reference, and protein
+# queries of 600 residues (past the warp route's 512 rows) planted in its
+# protein reference at the cut
+LONG = (64, 5000)
+PROTEIN_LONG = (256, 600)
+LONG_TOP = 4                       # align_hits of the long-read search
+# (label, read lengths, W, seed, kind) of its small shapes: mixed lengths
+# padded with -3, W from 300 to 2048, ties, no positive cell, every read
+# -3 but one; at the route's (T, R, C) and at WINDOW_RB_TILES
+WINDOW_RB_SHAPES = [
+    ("600/513/560 W=300", (600, 513, 560), 300, 31, ""),
+    ("1100/700 W=2048", (1100, 700), 2048, 32, ""),
+    ("4x513 W=1000", (513,) * 4, 1000, 33, ""),
+    ("ties 540/600/513 W=700", (540, 600, 513), 700, 34, "ties"),
+    ("no positive cell 530/600 W=500", (530, 600), 500, 35, "dark"),
+    ("all -3 but one 600/520/1000 W=1500", (600, 520, 1000), 1500, 36,
+     "one_read"),
+]
+WINDOW_RB_TILES = [(32, (4, 4)), (64, (8, 2)), (256, (8, 4))]
+# its sweep at the full-width launches
+WINDOW_SWEEP = {mode: [(T, R, C) for T in (64, 128, 256, 512)
+                       for R, C in sf.RB_FORM_TILES[mode]]
+                for mode in sf.RB_FORM_TILES}
+
+
 def db_inputs(mode: str) -> tuple:
     """(reference, reads, {read: planted position}) of the search: the JAX
     bench's draws from default_rng(0), reference first, then reads, every
@@ -1793,6 +1873,65 @@ def db_inputs(mode: str) -> tuple:
         reads[i] = q
         planted[i] = p
     return ref, reads, planted
+
+
+def long_inputs(mode: str) -> tuple:
+    """(reference, reads, {read: planted position}) of the long-read search:
+    DNA, the search's reference (``db_inputs``) and LONG's reads from
+    default_rng(3), every fourth planted from the reference; protein,
+    PROTEIN_LONG's queries against the reference's first CUT[1] residues,
+    every fourth planted with 24 substitutions."""
+    ref = db_inputs(mode)[0]
+    B, qlen = PROTEIN_LONG if mode == "protein" else LONG
+    A = 20 if mode == "protein" else 4
+    if mode == "protein":
+        ref = ref[:CUT[1]]
+    rng = np.random.default_rng(3)
+    reads = rng.integers(0, A, (B, qlen)).astype(np.int8)
+    planted = {}
+    for i in range(0, B, 4):
+        p = int(rng.integers(0, len(ref) - qlen))
+        q = ref[p:p + qlen].copy()
+        if mode == "protein":
+            muts = rng.integers(0, qlen, 24)
+            q[muts] = (q[muts] + rng.integers(1, 20, 24)) % 20
+        reads[i] = q
+        planted[i] = p
+    return ref, reads, planted
+
+
+def long_window(mode: str, lengths: tuple, W: int, seed: int,
+                kind: str) -> tuple:
+    """(reads, window) of K6's small shapes above 512 rows: reads of the
+    given lengths padded with -3 to the longest, a planted segment of the
+    window in read 0, -1 in a read and the window, -2 at the window's end;
+    ``kind`` 'ties': a motif planted twice in the window and twice in every
+    read, the window and the reads of disjoint halves of the alphabet;
+    'dark': reads and window of two disjoint letters; 'one_read': every
+    read -3 but read 1."""
+    rng = np.random.default_rng(seed)
+    A = 20 if mode == "protein" else 4
+    lo, hi = ((0, A // 2), (A // 2, A)) if kind == "ties" else ((0, A),) * 2
+    win = rng.integers(*lo, W).astype(np.int8)
+    reads = np.full((len(lengths), max(lengths)), -3, np.int8)
+    for g, n in enumerate(lengths):
+        reads[g, :n] = rng.integers(*hi, n)
+    if kind == "ties":
+        motif = rng.integers(0, A, 24).astype(np.int8)
+        win[30:54] = win[W - 60:W - 36] = motif
+        for g, n in enumerate(lengths):
+            reads[g, 100:124] = reads[g, n - 80:n - 56] = motif
+    elif kind == "dark":
+        win[:] = 1
+        reads[reads >= 0] = 0
+    else:
+        k = min(lengths[0] - 202, W - 4, 400)
+        reads[0, 200:200 + k] = win[3:3 + k]
+        reads[0, 200 + k // 2] = -1
+        win[1], win[-1] = -1, -2
+        if kind == "one_read":
+            reads[[g for g in range(len(lengths)) if g != 1]] = -3
+    return reads, win
 
 
 def small_window(mode: str, B: int, rlen: int, W: int, seed: int,
@@ -1871,8 +2010,8 @@ def pair_inputs() -> tuple:
 def window_vs_plain(dev) -> dict:
     """K6 against its plain version on the card in each scoring: the
     warp-per-read route (``window_score``) and the stripe template's (the
-    private ``_warp=False`` scorer, at the shape's T and its own) at the
-    small shapes, the route at WARP_EDGES; the search's launch (2048 x 152
+    private ``_TemplateWindow``, at the shape's T and its own) at
+    the small shapes, the route at WARP_EDGES; the search's launch (2048 x 152
     against one 32768-column window) and one search's 31 windows, both
     designs timed in turns, plain once; linear, the map's launch (2048
     reads and their reverse complements, 150 rows, against 2048 columns)
@@ -1902,8 +2041,7 @@ def window_vs_plain(dev) -> dict:
             check(warp, wf.window_score(rt, wt, sc, substitution=sub), p,
                   label)
             for t in (T, None):
-                check(name, wf.WindowScorer(rt, w, sc, t, sub,
-                                            _warp=False)(wt), p,
+                check(name, wf._TemplateWindow(rt, w, sc, sub, t)(wt), p,
                       f"{label} T={t}")
         for label, b, rlen, w, seed in WARP_EDGES:
             reads, win = small_window(mode, b, rlen, w, seed, False)
@@ -1916,8 +2054,8 @@ def window_vs_plain(dev) -> dict:
         shard = on_card(db.shard_reference(ref, 1, qlen)[0][0], dev=dev)[0]
         rt = on_card(reads, dev=dev)[0]
         scorer = wf.WindowScorer(rt, W, sc, substitution=sub)
-        stripe = wf.WindowScorer(rt, W, sc, substitution=sub, _warp=False)
-        require(scorer.R == 5 and stripe.R is None, "K6 routes")
+        stripe = wf._TemplateWindow(rt, W, sc, sub)
+        require(scorer.form == "warp" and scorer.R == 5, "K6 routes")
         k_ms, o_ms, k, ko = ab_ms(lambda: scorer(shard[:W]),
                                   lambda: stripe(shard[:W]))
         p_ms, p = timed_ms(lambda: wf.window_score_plain(rt, shard[:W], sc,
@@ -1934,7 +2072,7 @@ def window_vs_plain(dev) -> dict:
             mt, mw = on_card(np.concatenate([q, db.revcomp_padded(q)]),
                              ref[:MAP_WINDOW], dev=dev)
             mnew = wf.WindowScorer(mt, MAP_WINDOW, sc)
-            mold = wf.WindowScorer(mt, MAP_WINDOW, sc, _warp=False)
+            mold = wf._TemplateWindow(mt, MAP_WINDOW, sc, None)
             m_ms, mo_ms, mk, mko = ab_ms(lambda: mnew(mw), lambda: mold(mw))
             mp = wf.window_score_plain(mt, mw, sc)
             check(warp, mk, mp, "map launch")
@@ -1986,6 +2124,108 @@ def window_vs_plain(dev) -> dict:
     return recs
 
 
+def window_rb_vs_plain(dev) -> tuple:
+    """K6 above 512 rows in each scoring: the register-blocked
+    shared-window form (the route, ``window_score``; ``_RbWindow`` at
+    WINDOW_RB_TILES, each called twice, its counters cleared between
+    windows) and the stripe template's (``_TemplateWindow``, the earlier
+    design) against the plain version at WINDOW_RB_SHAPES; the full-width
+    launch (LONG's reads, protein PROTEIN_LONG's, against one
+    SEARCH_WINDOW of the reference), new and template in turns, each
+    bit-equal to the plain version there, timed once; protein, the
+    search's own launch (against CUT[2] columns) against the plain version
+    too; the new swept over WINDOW_SWEEP, each point equal to the plain
+    version; linear, one search's windows through both in turns. Returns
+    (the new entries' records, phase lines)."""
+    table = on_card(BLOSUM62, dev=dev)[0]
+    W = SEARCH_WINDOW
+    recs, lines = {}, []
+    for mode in MODES:
+        sc, S = MODELS[mode][:2]
+        sub = None if S is None else table
+        name, tmpl = wf.window_rb_name(sc, S), wf.window_kernel_name(sc, S)
+        err = 0
+        for label, lengths, w, seed, kind in WINDOW_RB_SHAPES:
+            rt, wt = on_card(*long_window(mode, lengths, w, seed, kind),
+                             dev=dev)
+            p = wf.window_score_plain(rt, wt, sc, sub)
+            scorers = [wf._RbWindow(rt, w, sc, sub, T, *tile)
+                       for T, tile in WINDOW_RB_TILES]
+            runs = [(name, wf.window_score(rt, wt, sc, substitution=sub))]
+            runs += [(name, f(wt)) for f in scorers for _ in range(2)]
+            runs.append((tmpl, wf._TemplateWindow(rt, w, sc, sub)(wt)))
+            torch.cuda.synchronize()
+            for k_name, k in runs:
+                e = hits_diff(k, p)
+                if k_name == name:
+                    err = max(err, e)
+                require(e == 0, f"{k_name} {label} [{mode}]: kernel != plain")
+            if kind == "dark":
+                require(not p.scores.any(), f"{label} [{mode}]: scored")
+        B, qlen = PROTEIN_LONG if mode == "protein" else LONG
+        ref, reads, _ = long_inputs(mode)
+        shard = on_card(db.shard_reference(ref, 1, qlen)[0][0], dev=dev)[0]
+        rt = on_card(reads, dev=dev)[0]
+        new = wf.WindowScorer(rt, W, sc, substitution=sub)
+        old = wf._TemplateWindow(rt, W, sc, sub)
+        require(new.form == "rb" and new.name == name and old.name == tmpl,
+                f"K6 routes at {qlen} rows")
+        k_ms, o_ms, k, ko = ab_ms(lambda: new(shard[:W]),
+                                  lambda: old(shard[:W]))
+        p_ms, p = timed_ms(lambda: wf.window_score_plain(
+            rt, shard[:W], sc, sub), 1)
+        err = max(err, hits_diff(k, p))
+        require(err == 0, f"{name} {B}x{qlen} W={W} [{mode}] != plain")
+        require(hits_diff(ko, p) == 0,
+                f"{tmpl} {B}x{qlen} W={W} [{mode}] != plain")
+        at_cut = ""
+        if mode == "protein":
+            wc = CUT[2]
+            pc = wf.window_score_plain(rt, shard[:wc], sc, sub)
+            kc = wf.WindowScorer(rt, wc, sc, substitution=sub)(shard[:wc])
+            err = max(err, hits_diff(kc, pc))
+            require(err == 0, f"{name} {B}x{qlen} W={wc} [{mode}] != plain")
+            at_cut = f", and at the search's W={wc}"
+        best = {}
+        for T, R, C in WINDOW_SWEEP[sf._mode(sc, sub)]:
+            f = wf._RbWindow(rt, W, sc, sub, T, R, C)
+            require(hits_diff(f(shard[:W]), p) == 0,
+                    f"{name} ({T}, {R}, {C}) [{mode}] != plain")
+            best[f.T, R, C] = min(best.get((f.T, R, C), float("inf")),
+                                  timed_ms(lambda: f(shard[:W]), 3)[0])
+        fastest = min(best, key=best.get)
+        cells = B * qlen * W
+        rb = new._rb
+        stripes = -(-qlen // (rb.T * rb.R))
+        # in: the window, the reads (and table); out: the stripe firsts
+        recs[name] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err, **bound(
+            cells, OPS_PER_CELL[mode], W + B * qlen
+            + (0 if S is None else 4 * S.size) + 16 * B * stripes))
+        extra = ""
+        if mode == "linear":
+            s_ms, so_ms, _, _ = ab_ms(
+                lambda: window_sweep(new, shard, W, qlen),
+                lambda: window_sweep(old, shard, W, qlen), 1)
+            nwin = -(-(len(ref)) // (W - qlen))
+            extra = (f"; one search's {nwin} windows {s_ms:.1f} ms against "
+                     f"{so_ms:.1f} ms through the template, in turns")
+        lines.append(
+            f"K6 above 512 rows [{mode}] {len(WINDOW_RB_SHAPES)} small shapes "
+            f"x {1 + 2 * len(WINDOW_RB_TILES)} runs equal, the template's "
+            f"too; {B}x{qlen} W={W}: {name} (T={rb.T}, R={rb.R}, "
+            f"C={rb.C}) {k_ms:.3f} ms ({gcups(cells, k_ms / 1e3):.2f} "
+            f"GCUPS) against the template's {tmpl} (T={old.T}) "
+            f"{o_ms:.3f} ms in turns ({o_ms / k_ms:.2f}x); plain "
+            f"{p_ms:.1f} ms, both equal to it{at_cut}; bound "
+            f"{recs[name]['bound_ms']:.3f} ms; sweep (min of 3), all equal: "
+            + ", ".join(f"{T}/{R}/{C} {ms:.3f}" for (T, R, C), ms in
+                        sorted(best.items()))
+            + f"; fastest {fastest} {best[fastest]:.3f} ms" + extra)
+        del rt, shard, new, old, k, ko, p
+        torch.cuda.empty_cache()
+    return recs, lines
+
+
 def check_search(mode: str, hits, ref, reads, planted) -> str:
     """Every planted read found at its locus: DNA at its end p + 151 with
     score 3 x 152; protein, ending inside its locus with at least its
@@ -2005,6 +2245,55 @@ def check_search(mode: str, hits, ref, reads, planted) -> str:
         require(ok, f"{mode}: planted read {i} at {p}: score {scores[i]} "
                 f"at {pos[i]}")
     return f"{len(planted)} planted reads found at their loci"
+
+
+def drive_long_search(dev) -> tuple:
+    """Long reads, K6 above 512 rows, through the public calls on ``dev``:
+    ``search`` of LONG's reads against the 1 Mb reference (linear, DNA
+    affine) and of PROTEIN_LONG's queries against the protein reference at
+    the cut, every planted read found at its locus; ``align_hits`` of the
+    best LONG_TOP, whose strings re-score (DNA: the planted reads, whole
+    at their position). Returns (phase lines, walls)."""
+    lines, walls = [], {}
+    for mode in MODES:
+        sc, S, alphabet, _ = MODELS[mode]
+        ref, reads, planted = long_inputs(mode)
+        B, qlen = reads.shape
+        kw = dict(scoring=sc, substitution=S, device=dev)
+        if mode == "protein":
+            kw["window"] = CUT[2]
+        best = float("inf")
+        for _ in range(2 if mode != "protein" else 1):
+            t0 = time.perf_counter()
+            hits = swtpu_torch.search(reads, ref, **kw)
+            hits.scores.tolist()               # the fetch ends the search
+            best = min(best, time.perf_counter() - t0)
+        found = check_search(mode, hits, ref, reads, planted)
+        t0 = time.perf_counter()
+        recs = swtpu_torch.align_hits(hits, reads, ref, sc, top=LONG_TOP,
+                                      substitution=S, alphabet=alphabet,
+                                      device=dev)
+        aln_s = time.perf_counter() - t0
+        require(len(recs) == LONG_TOP, f"{mode}: {len(recs)} long records")
+        scores = hits.scores.tolist()
+        for r in recs:
+            require(rescore(r.aligned_ref, r.aligned_read, sc, S, alphabet)
+                    == r.score >= scores[r.read],
+                    f"{mode}: long read {r.read}'s record does not re-score")
+            if mode != "protein":
+                require(r.read in planted and r.cigar == f"{qlen}M"
+                        and r.ref_start == planted[r.read],
+                        f"{mode}: long read {r.read}: {r.cigar} at "
+                        f"{r.ref_start}")
+        walls[f"long {mode}"] = best
+        lines.append(
+            f"[{mode}] search {B}x{qlen} vs {len(ref) // 1000} kb"
+            + (f", window {CUT[2]}" if mode == "protein" else "")
+            + f" (K6 above 512 rows): wall {best:.3f} s"
+            + (" min of 2" if mode != "protein" else "") + f"; {found}; "
+            f"align_hits(top={LONG_TOP}) {aln_s:.3f} s, records re-score"
+            + ("" if mode == "protein" else f", {qlen}M at p"))
+    return lines, walls
 
 
 def drive_search(dev) -> tuple:
@@ -2047,6 +2336,9 @@ def drive_search(dev) -> tuple:
             f"{aln_s:.3f} s ({TOP_HITS / aln_s:.0f} alignments/s), records "
             "re-score"
             + ("" if mode == "protein" else ", planted reads 152M at p"))
+    long_lines, long_walls = drive_long_search(dev)
+    lines += long_lines
+    walls.update(long_walls)
     # map_reads, single-end: both strands, top-2, default window
     records, mreads, truth = map_inputs()
     t0 = time.perf_counter()
@@ -2469,6 +2761,10 @@ def run(dev, name: str, start: float, pool, scans) -> int:
         phase("batch", line)
     phase("batch", bucket_kernels(dev))
     recs.update(window_vs_plain(dev))
+    window_recs, lines = window_rb_vs_plain(dev)
+    recs.update(window_recs)
+    for line in lines:
+        phase("kernels", line)
     t0 = time.perf_counter()
     debug_err = debug_vs_plain(dev)
     for entry, rec in debug_records(dev).items():
@@ -2579,8 +2875,10 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # ---- end of the search path ----
     for ln in lines:
         phase("search", ln)
-    # reads of 150 and 152 rows take the warp-per-read K6 alone
-    require(all(search[k] > 0 for k in wf.WARP_KERNELS.values())
+    # reads of 150 and 152 rows take the warp-per-read K6, reads of 600 and
+    # 5000 rows the register-blocked one; the template's K6 is on no path
+    require(all(search[k] > 0 for k in (*wf.WARP_KERNELS.values(),
+                                        *wf.WINDOW_RB_KERNELS.values()))
             and not any(search[k] for k in wf.WINDOW_KERNELS.values()),
             f"launches {search}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
@@ -2612,11 +2910,12 @@ def run(dev, name: str, start: float, pool, scans) -> int:
           f"{ {k: v for k, v in sanitize.items() if v} }, plain calls "
           f"{plain}")
 
-    # launches: the five paths' runs; the K7/K8 counters run on the batch
-    # path (K7 also on the sanitize path), the warp-per-read K6 counters on
-    # the search path alone, the K9 counters on the sanitize path alone;
-    # the earlier unbanded K1-K4, K5, K6, K8 and single-pair K9 entries
-    # count 0 (their times are the A/B's)
+    # launches: the five paths' runs; the K7/K8/K8[band] counters run on
+    # the batch path (K7 also on the sanitize path), the K6 counters (warp
+    # per read, and above 512 rows the register-blocked) on the search path
+    # alone, the K9 counters on the sanitize path alone; the earlier
+    # unbanded K1-K4, K5, K6, K8, K8[band] and single-pair K9 entries count
+    # 0 (their times are the A/B's)
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)

@@ -9,7 +9,8 @@ template's ``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
 ``window_fill.cu``, ``sanitize_fill.cu``, and ``window_warp.cu``,
 ``stripe_rb.cu``, ``stripe_rb_p.cu``, ``stripe_rb_block.cu``,
 ``stripe_rb_band.cu``, ``stripe_rb_debug.cu``, ``stripe_rb_pairs.cu``,
-``walk_p.cu``) in both checkouts, where each has
+``stripe_rb_pairs_band.cu``, ``stripe_rb_window.cu``, ``walk_p.cu``) in
+both checkouts, where each has
 it, to cubins for sm_90a with the port's flags and disassembles them with
 ``cuobjdump -sass``. For every kernel the old checkout has, it prints its
 instruction count and the number of SASS lines that differ (in their
@@ -38,7 +39,7 @@ SOURCES = ("stripe_fill.cu", "stripe_block.cu", "pairs_fill.cu",
            "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
            "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
            "stripe_rb_band.cu", "stripe_rb_debug.cu", "stripe_rb_pairs.cu",
-           "walk_p.cu")
+           "stripe_rb_pairs_band.cu", "stripe_rb_window.cu", "walk_p.cu")
 FUNC = re.compile(r"Function : (\S+)")
 # a template's name and its integer and bool arguments (the mangled name
 # around them holds a hash of the source's path)

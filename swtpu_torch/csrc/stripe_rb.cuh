@@ -17,7 +17,13 @@
 //     the progress each boundary read observed;
 //   * stripe_rb_pairs.cu - the batch form (K8, kPairs) of the score-only
 //     fill: B pairs of one shape in one launch, each cut into its own
-//     stripes, each pair's per-stripe firsts.
+//     stripes, each pair's per-stripe firsts;
+//   * stripe_rb_pairs_band.cu - the batch form with the band (K8[band],
+//     kPairs and kBand): each pair's stripes visit only their band windows;
+//   * stripe_rb_window.cu - the batch form with one shared query (K6 for
+//     reads longer than 512 rows, kPairs and kShared): B reads (the rows)
+//     against one window of the reference (the columns), which every pair
+//     reads in place.
 // Three scorings, one template: linear match/mismatch (K1), affine
 // match/mismatch (K2, Gotoh E and F) and a substitution table with linear
 // or affine gaps (K3); K4, K5 and K4b take each of them.
@@ -159,14 +165,19 @@
 //     stripe above, which took an earlier ticket; the block then moves a,
 //     b, the progress counters, the boundary rows and the stripe bests to
 //     its pair's slice (the ring is staged once that is known) and runs
-//     the score-only body, with no right column.
+//     the score-only body, with no right column. With kBand (K8[band]) it
+//     runs the band form's body on the pair's own stripes, counters and
+//     rows, the ring staged once, from its window's first column; with
+//     kShared (K6) a stays at the one query every pair shares, which each
+//     block stages from global memory (from L2 after the first), so the
+//     window is never copied B times.
 //   * The affine and table forms keep their extra arrays in dynamic shared
 //     memory and their extra parameters last, and the K4 and K5 forms
 //     their template parameters and their argument (Ext) last, and K4b its
 //     template parameter and its argument (band) after those, and K9 and
-//     K8 theirs (kDebugH, kPairs; aux) after K4b's, so the earlier forms'
-//     code is what it was before they were added
-//     (scripts/torch_sass_diff.py).
+//     K8 theirs (kDebugH, kPairs; aux) after K4b's, and K6 its kShared
+//     after kPairs, so the earlier forms' code is what it was before they
+//     were added (scripts/torch_sass_diff.py).
 //
 // Each entry launches on the given stream, allocates nothing, and returns
 // cudaGetLastError() after its launch.
@@ -602,9 +613,12 @@ __device__ __forceinline__ void band_window(int s, int rows, int C, int m,
 // aux:   the K9 (kDebugH) and K8 (kPairs) forms' arguments, after band for
 //        the same reason. kPairs: sync holds the ticket, then B * S
 //        progress counters, pair by pair; bnd (and bnd_f) B * (S - 1) rows,
-//        best (B, S, 4); right is not written.
+//        best (B, S, 4); right is not written. kShared: a is one (m,)
+//        query for every pair, b (B, n).
 // the launch bound of the source's instantiations: K1-K3's kMaxThreads
-// (stripe_rb.cu); stripe_rb_p.cu and stripe_rb_block.cu define it as the
+// (stripe_rb.cu, and K8's stripe_rb_pairs.cu; K6's stripe_rb_window.cu
+// adds one block an SM); stripe_rb_p.cu, stripe_rb_block.cu and the band
+// forms' stripe_rb_band.cu and stripe_rb_pairs_band.cu define it as the
 // tile's ext_threads(R) and one block an SM before including this header,
 // which keeps ptxas from trading registers for occupancy these
 // one-block-an-SM launches never use (it spilled 4-12 bytes at 64-128
@@ -615,7 +629,7 @@ __device__ __forceinline__ void band_window(int s, int rows, int C, int m,
 
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
           bool kBlock = false, bool kBand = false, bool kDebugH = false,
-          bool kPairs = false>
+          bool kPairs = false, bool kShared = false>
 __global__ void __launch_bounds__(SW_RB_LAUNCH_BOUNDS)
 stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                  int m, int n, int match, int mismatch, int gap,
@@ -627,9 +641,12 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   static_assert(!kSub || R % 4 == 0, "the profile holds 4 rows an int4");
   static_assert(!(kP && kBlock), "the block form captures no P");
   static_assert(!(kBand && kBlock), "the block form takes no band");
-  static_assert(!((kDebugH || kPairs) && (kP || kBlock || kBand)) &&
-                    !(kDebugH && kPairs),
-                "the capture and batch forms are score-only, unbanded");
+  static_assert(!(kDebugH && (kP || kBlock || kBand || kPairs)) &&
+                    !(kPairs && (kP || kBlock)),
+                "the capture form is score-only and unbanded, the batch "
+                "form score-only");
+  static_assert(!kShared || (kPairs && !kBand),
+                "the shared query is the unbanded batch form's");
   static_assert(!kDebugH || C % 4 == 0, "the capture stores int4 words");
   constexpr int kSteps = kPublish / C;         // steps a chunk
   __shared__ int s_stripe, s_best, s_k;
@@ -673,14 +690,16 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     // pair g, which took the ticket before it
     const int g = s_stripe / aux.stripes;
     const size_t rows_above = (size_t)g * (aux.stripes - 1) * ((size_t)m + 1);
-    a += (size_t)g * m;
+    if constexpr (!kShared) a += (size_t)g * m;
     b += (size_t)g * n;
     sync += (size_t)g * aux.stripes;
     bnd += rows_above;
     if constexpr (kAffine) bnd_f += rows_above;
     best_out += (size_t)g * aux.stripes * 4;
-    for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
-    __syncthreads();
+    if constexpr (!kBand) {     // kBand stages it from its window's start
+      for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
+      __syncthreads();
+    }
   }
   const int first = s * T * R + k * R;     // rows first + 1 .. first + R
   const int kt = (min(T * R, n - s * T * R) + R - 1) / R;  // threads with rows
@@ -1188,10 +1207,11 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
-// kPairs: n is one pair's rows and the grid aux.pairs x its stripes.
+// kPairs: n is one pair's rows and the grid aux.pairs x its stripes;
+// kShared: a is the one (m,) query of every pair.
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
           bool kBlock = false, bool kBand = false, bool kDebugH = false,
-          bool kPairs = false>
+          bool kPairs = false, bool kShared = false>
 int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
            int mismatch, int gap, int open, int extend, const int* sub,
            int A, int T, int* sync, int* bnd, int* bnd_f, int* best,
@@ -1232,7 +1252,7 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
   if (kPairs && (aux_in.pairs < 1 ||
                  (long long)aux_in.pairs * stripes > INT_MAX ||
                  (long long)aux_in.pairs * n > INT_MAX ||
-                 (long long)aux_in.pairs * m > INT_MAX)) {
+                 (!kShared && (long long)aux_in.pairs * m > INT_MAX))) {
     return (int)cudaErrorInvalidValue;
   }
   Aux aux = aux_in;
@@ -1243,7 +1263,7 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
             : 0) +
       (kDebugH ? (size_t)T * (R * C / 4 + 1) * sizeof(int4) : 0);
   auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock, kBand,
-                                  kDebugH, kPairs>;
+                                  kDebugH, kPairs, kShared>;
   if (kSub || kDebugH) {
     // above 48 KB of static and dynamic shared memory a block needs an
     // opt-in; the profile alone may pass it

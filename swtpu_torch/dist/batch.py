@@ -43,9 +43,11 @@ def auto_plan(n: int, band: Optional[int], A: int = 0) -> str:
     of ``band``, an alphabet of A letters): K8 ('stripe') for every batch.
     Unbanded, K8 is the register-blocked batch form, which beat K7 in
     turns even where a stripe height cuts K7's chain at every pair's first
-    row (``chain_cutting_rows``), in every scoring; banded, K8 is the
-    template's banded instantiation, the only batch kernel with a band.
-    From chip_smoke.py's times on an NVIDIA H100 80GB HBM3 at 700 W
+    row (``chain_cutting_rows``), in every scoring; banded, K8 is its band
+    form (K8[band]), each pair's stripes visiting only the columns their
+    rows' band reaches, which beat the template's banded instantiation in
+    turns in every scoring (at 64 x 1056^2 band 64, about 0.5 ms against
+    1.2). From chip_smoke.py's times on an NVIDIA H100 80GB HBM3 at 700 W
     (PERF.md, section 6), in turns: at 64 x 1056^2 K8 took 0.344 / 0.385
     / 0.369 ms (linear / DNA affine / BLOSUM62 affine) against K7's
     (T=352) 0.963 / 1.021 / 1.080 ms; on the 16 x 16384^2 bucket of the

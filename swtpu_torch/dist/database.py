@@ -11,8 +11,10 @@ the highest score, ties to the lowest reference position; or, with
 
 The window scorer is K6 (``kernels.window_fill``): on a CUDA device a
 hand-written kernel, one launch per window (one warp a read for reads of
-up to 512 rows, else the stripe template with the reads padded and the
-launch's scratch allocated once per search); on the CPU its plain version,
+up to 512 rows, else the register-blocked stripe's shared-window batch
+form, each read its own chain of stripes, its scratch allocated once per
+search and its counters cleared on the stream before each window); on the
+CPU its plain version,
 the batched sweep. Plans of ``search``/``make_searcher``: 'auto' (K6 on a
 card, where a scoring the kernel refuses raises ValueError, and the plain
 sweep on the CPU), 'stripe' (K6) and 'scan' (the plain sweep, which the

@@ -27,7 +27,8 @@ SOURCES = tuple(_PKG / "csrc" / f for f in (
     "stripe_fill.cu", "stripe_block.cu", "walk_p.cu", "pairs_fill.cu",
     "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
     "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
-    "stripe_rb_band.cu", "stripe_rb_debug.cu", "stripe_rb_pairs.cu"))
+    "stripe_rb_band.cu", "stripe_rb_debug.cu", "stripe_rb_pairs.cu",
+    "stripe_rb_pairs_band.cu", "stripe_rb_window.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("stripe_kernel.cuh",
                                             "sw_cell.cuh", "stripe_rb.cuh"))
 BUILD_DIR = _PKG / "build"
@@ -134,6 +135,14 @@ ARGTYPES["sw_pairs_rb_linear"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 4
 ARGTYPES["sw_pairs_rb_affine"] = [_ptr, _ptr] + [_int] * 10 + [_ptr] * 5
 ARGTYPES["sw_pairs_rb_sub"] = ([_ptr, _ptr] + [_int] * 3 + [_ptr]
                                + [_int] * 8 + [_ptr] * 5)
+for _mode in ("linear", "affine", "sub"):
+    # K8[band] register-blocked (the batch form with the band): the K8
+    # entry's arguments up to the stream, then the band and the stream
+    ARGTYPES[f"sw_pairs_rb_band_{_mode}"] = (
+        ARGTYPES[f"sw_pairs_rb_{_mode}"][:-1] + [_int, _ptr])
+    # K6 register-blocked (the batch form with one shared window): window,
+    # reads, B, W, rlen, then as the K8 entry from the model on
+    ARGTYPES[f"sw_window_rb_{_mode}"] = ARGTYPES[f"sw_pairs_rb_{_mode}"]
 # K5 register-blocked: the template's K5 entry's arguments with R, C after
 # T: a, b, m, n, the model, T, R, C, local, then as the template's
 ARGTYPES["sw_stripe_rb_block_linear"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 8

@@ -7,11 +7,13 @@ independent pairs of one shape, a (B, m) against b (B, n) int8 codes:
   one launch of B x S stripe blocks. Unbanded it runs the batch form of
   the register-blocked stripe (C entries ``sw_pairs_rb_linear``,
   ``_affine``, ``_sub``, ``csrc/stripe_rb_pairs.cu``: T threads of R rows
-  and C columns a step, ``rb_shape``'s 'pairs' kind); ``band=`` launches
-  the stripe template's banded instantiation (``sw_pairs_score_linear``,
-  ``_affine``, ``_sub``, counted as ``<entry>[band]``, K8[band]). The
-  template's unbanded K8, one row a thread, is the earlier design, on no
-  route (``_launch_pairs`` with no band).
+  and C columns a step, ``rb_shape``'s 'pairs' kind); ``band=`` runs its
+  band form (K8[band], ``sw_pairs_rb_band_linear``, ``_affine``, ``_sub``,
+  ``csrc/stripe_rb_pairs_band.cu``, the 'pairs_band' kind: each pair's
+  stripes visit only the columns their rows' band reaches). The stripe
+  template's K8, one row a thread (``sw_pairs_score_linear``, ``_affine``,
+  ``_sub``, a banded launch counted as ``<entry>[band]``), is the earlier
+  design of both, on no route (``_launch_pairs``).
 * ``pairs_packed_score`` (K7, the ``pairs_packed_score_fn`` counterpart):
   the B*n target rows packed into one stripe chain, a reset row at each
   pair's start (``sw_packed_score_linear``, ``_affine``, ``_sub``).
@@ -41,14 +43,17 @@ from .scan_fill import batch_scan_fill
 PAIRS_KERNELS = {"linear": "sw_pairs_score_linear",
                  "affine": "sw_pairs_score_affine",
                  "sub": "sw_pairs_score_sub"}
-# the register-blocked K8 entries by mode
+# the register-blocked K8 entries by mode, and their band form's
 PAIRS_RB_KERNELS = {mode: f"sw_pairs_rb_{mode}"
                     for mode in ("linear", "affine", "sub")}
+PAIRS_RB_BAND_KERNELS = {mode: f"sw_pairs_rb_band_{mode}"
+                         for mode in ("linear", "affine", "sub")}
 PACKED_KERNELS = {"linear": "sw_packed_score_linear",
                   "affine": "sw_packed_score_affine",
                   "sub": "sw_packed_score_sub"}
 launches = dict.fromkeys(
-    [*PAIRS_RB_KERNELS.values(), *PAIRS_KERNELS.values(),
+    [*PAIRS_RB_KERNELS.values(), *PAIRS_RB_BAND_KERNELS.values(),
+     *PAIRS_KERNELS.values(),
      *(k + sf.BAND_SUFFIX for k in PAIRS_KERNELS.values()),
      *PACKED_KERNELS.values()], 0)
 plain_calls = {"pairs_score_plain": 0}
@@ -77,18 +82,19 @@ def reset_counts() -> None:
 def pairs_kernel_name(scoring: Scoring, substitution,
                       banded: bool = False) -> str:
     """The launch counter of the K8 entry that ``pairs_score`` runs for
-    this scoring on a card: the register-blocked entry, or with a band the
-    template's (its name plus ``BAND_SUFFIX``)."""
-    mode = sf._mode(scoring, substitution)
-    if banded:
-        return PAIRS_KERNELS[mode] + sf.BAND_SUFFIX
-    return PAIRS_RB_KERNELS[mode]
+    this scoring on a card: the register-blocked entry, its band form
+    with a band."""
+    return (PAIRS_RB_BAND_KERNELS if banded else PAIRS_RB_KERNELS)[
+        sf._mode(scoring, substitution)]
 
 
-def pairs_template_name(scoring: Scoring, substitution) -> str:
-    """The stripe template's unbanded K8 entry of this scoring, the
-    earlier design (``_launch_pairs`` with no band)."""
-    return PAIRS_KERNELS[sf._mode(scoring, substitution)]
+def pairs_template_name(scoring: Scoring, substitution,
+                        banded: bool = False) -> str:
+    """The launch counter of the stripe template's K8 entry of this
+    scoring, the earlier design (``_launch_pairs``): the entry's name,
+    plus ``BAND_SUFFIX`` when banded."""
+    name = PAIRS_KERNELS[sf._mode(scoring, substitution)]
+    return name + sf.BAND_SUFFIX if banded else name
 
 
 def packed_kernel_name(scoring: Scoring, substitution) -> str:
@@ -102,15 +108,12 @@ def pairs_score(a: torch.Tensor, b: torch.Tensor,
                 band: Optional[int] = None) -> BatchHits:
     """K8: score B pairs, a (B, m) against b (B, n) int8 codes on one
     device. ``T`` (CUDA only): threads per block of the register-blocked
-    form (each holding R rows, ``rb_shape``), or with a band rows per
-    stripe of the template's. ``substitution``: an (A, A) int32 table on
-    the same device, or None for match/mismatch. ``band``: keep only the
-    cells with |i - j| <= band."""
+    form (each holding R rows, ``rb_shape``). ``substitution``: an (A, A)
+    int32 table on the same device, or None for match/mismatch. ``band``:
+    keep only the cells with |i - j| <= band."""
     if sf._route(a, b, scoring, substitution, batched=True) == "cpu":
         return pairs_score_plain(a, b, scoring, substitution, band)
-    if band is None:
-        return _launch_pairs_rb(a, b, scoring, T, sub=substitution)
-    return _launch_pairs(a, b, scoring, T, substitution, band)
+    return _launch_pairs_rb(a, b, scoring, T, sub=substitution, band=band)
 
 
 def pairs_packed_score(a: torch.Tensor, b: torch.Tensor,
@@ -166,16 +169,20 @@ def _scratch(stripes: int, m: int, affine: bool, dev: torch.device):
     return bnd, (torch.empty_like(bnd) if affine else None)
 
 
-def _launch_pairs_rb(a, b, scoring, T, R=None, C=None, sub=None
-                     ) -> BatchHits:
-    """The register-blocked K8 (``PAIRS_RB_KERNELS``, by the scoring) at T
-    threads of R rows and C columns a step (``rb_shape``'s 'pairs' kind
-    over each pair's n rows)."""
+def _launch_pairs_rb(a, b, scoring, T, R=None, C=None, sub=None,
+                     band=None) -> BatchHits:
+    """The register-blocked K8 (``PAIRS_RB_KERNELS``, by the scoring), or
+    with a band its band form (``PAIRS_RB_BAND_KERNELS``), at T threads of
+    R rows and C columns a step (``rb_shape``'s 'pairs' or 'pairs_band'
+    kind over each pair's n rows)."""
     (B, m), n = a.shape, b.shape[1]
     mode = sf._mode(scoring, sub)
     T, R, C = sf.rb_shape(n, T, R, C, mode,
-                          0 if sub is None else sub.shape[0], "pairs")
-    if n > (1 << 31) - 1 - T * R or B * max(m, n) > (1 << 31) - 1:
+                          0 if sub is None else sub.shape[0],
+                          "pairs" if band is None else "pairs_band")
+    # the band form's sums (its windows' ends, the cell's band test) too
+    if n > (1 << 31) - 1 - T * R or B * max(m, n) > (1 << 31) - 1 or (
+            band is not None and 2 * (m + n) + T * R + 8 > (1 << 31) - 1):
         raise ValueError(f"{B} pairs of {m} x {n} overflow int32")
     dev, i32 = a.device, torch.int32
     a, b = a.contiguous(), b.contiguous()
@@ -188,14 +195,17 @@ def _launch_pairs_rb(a, b, scoring, T, R=None, C=None, sub=None
     bnds = [bnd.data_ptr()] + ([sf._ptr(bnd_f)] if mode != "linear" else [])
     args = [a.data_ptr(), b.data_ptr(), B, m, n, *sf._model(scoring, sub), T,
             R, C, sync.data_ptr(), *bnds, best.data_ptr()]
-    sf._call(PAIRS_RB_KERNELS[mode], dev, args, None, launches)
+    if band is None:
+        sf._call(PAIRS_RB_KERNELS[mode], dev, args, None, launches)
+    else:
+        sf._call(PAIRS_RB_BAND_KERNELS[mode], dev,
+                 args + [sf._clamp_band(band, m, n)], None, launches)
     return _reduce_stripes(best)
 
 
 def _launch_pairs(a, b, scoring, T, sub, band) -> BatchHits:
-    """The stripe template's K8 at T rows a stripe: its banded
-    instantiation (K8[band], the route's) or, with no band, the earlier
-    design."""
+    """The stripe template's K8 at T rows a stripe, or with a band its
+    banded instantiation, the earlier designs of K8 and K8[band]."""
     (B, m), n = a.shape, b.shape[1]
     dev = a.device
     i32 = torch.int32
@@ -212,10 +222,9 @@ def _launch_pairs(a, b, scoring, T, sub, band) -> BatchHits:
         bnds.append(sf._ptr(bnd_f))
     args = [a.data_ptr(), b.data_ptr(), B, m, n, *sf._model(scoring, sub), T,
             sync.data_ptr(), *bnds, best.data_ptr(), right.data_ptr(),
-            sf.NO_BAND if band is None else max(-1, min(int(band), m + n))]
-    name = pairs_template_name(scoring, sub)
-    sf._call(name, dev, args, name if band is None else name + sf.BAND_SUFFIX,
-             launches)
+            sf.NO_BAND if band is None else sf._clamp_band(band, m, n)]
+    sf._call(pairs_template_name(scoring, sub), dev, args,
+             pairs_template_name(scoring, sub, band is not None), launches)
     return _reduce_stripes(best)
 
 

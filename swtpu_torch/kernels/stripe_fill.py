@@ -150,6 +150,14 @@ RB_DEBUG_TILES = ((8, 4), RB_WIDE_TILE)
 # 4.5 % of the fastest, of chip_smoke.py's sweeps at 64 x 1056^2 and 64 x
 # 1000^2 in every form (24 points linear, 12 affine and table, min of 5
 # rounds, an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6)
+# the batch form with the band (K8[band], csrc/stripe_rb_pairs_band.cu,
+# under K4b's launch bounds) and with one shared window (K6 for reads
+# longer than 512 rows, csrc/stripe_rb_window.cu) take the batch form's
+# RB_FORM_TILES and RB_DEFAULTS too: in chip_smoke.py's sweeps, at one
+# shape each (K8[band] at 64 x 1056^2 band 64; K6 at one 32768-column
+# window against 64 DNA reads of 5000 rows and 256 protein queries of
+# 600 residues, where T clamps to 96), (128, 8, 4) came within 1 % of
+# the fastest point for K8[band] and within 7 % for K6 (PERF.md section 6)
 # K4 stores a row's codes of a tile at once, into rows of a pitch rounded
 # up to P_PITCH_ALIGN bytes and shifted so that column 1 is word-aligned
 P_PITCH_ALIGN = 16
@@ -232,19 +240,21 @@ def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
              A: int = 0, kind: str = "score") -> tuple:
     """(threads, rows per thread, columns per step) of a register-blocked
     launch of ``kind`` ('score' K1-K3, 'fill_p' K4, 'block' K5, the band
-    form K4b, 'band' and 'fill_p_band', the capture form K9, 'debug', or
-    the batch form K8, 'pairs', over each pair's n rows) in ``mode``
-    ('linear', 'affine' or 'sub', an alphabet of A symbols) over n rows: T
-    threads (default the form's, RB_DEFAULTS (K1-K3, K9 and K8),
-    RB_P_DEFAULTS, RB_BLOCK_DEFAULTS, RB_BAND_DEFAULTS or
-    RB_BAND_P_DEFAULTS; a multiple of 32 up to
-    RB_MAX_THREADS, each holding R rows; K1-K3 and K8 in the form's
-    RB_FORM_TILES, K9 in RB_DEBUG_TILES, the others in RB_EXT_TILES; every
-    form but K1-K3 and K8 above RB_EXT_MAX_THREADS only in RB_WIDE_TILE,
-    its default there), no more than ceil(n / R) needs, rounded up to a
-    warp, and, for a table, no more than the profile's shared memory holds
-    (RB_PROFILE_BYTES, with K9's capture staging beside it)."""
-    if kind in ("score", "pairs"):
+    form K4b, 'band' and 'fill_p_band', the capture form K9, 'debug', the
+    batch form K8, 'pairs', over each pair's n rows, its band form
+    K8[band], 'pairs_band', or its shared-window form K6, 'window', over
+    each read's n rows) in ``mode`` ('linear', 'affine' or 'sub', an
+    alphabet of A symbols) over n rows: T threads (default the form's,
+    RB_DEFAULTS (K1-K3, K9, K8, K8[band] and K6), RB_P_DEFAULTS,
+    RB_BLOCK_DEFAULTS, RB_BAND_DEFAULTS or RB_BAND_P_DEFAULTS; a multiple
+    of 32 up to RB_MAX_THREADS, each holding R rows; K1-K3, K8, K8[band]
+    and K6 in the form's RB_FORM_TILES, K9 in RB_DEBUG_TILES, the others
+    in RB_EXT_TILES; every form but K1-K3, K8 and K6 above
+    RB_EXT_MAX_THREADS only in RB_WIDE_TILE, its default there), no more
+    than ceil(n / R) needs, rounded up to a warp, and, for a table, no
+    more than the profile's shared memory holds (RB_PROFILE_BYTES, with
+    K9's capture staging beside it)."""
+    if kind in ("score", "pairs", "pairs_band", "window"):
         defaults, tiles = RB_DEFAULTS, RB_FORM_TILES[mode]
     else:
         defaults = {"fill_p": RB_P_DEFAULTS, "block": RB_BLOCK_DEFAULTS,
@@ -258,7 +268,7 @@ def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
         raise ValueError(f"threads T={T} of the register-blocked {kind} "
                          "kernels must be a multiple of 32 in [32, "
                          f"{RB_MAX_THREADS}]")
-    if kind not in ("score", "pairs") and T > RB_EXT_MAX_THREADS:
+    if kind not in ("score", "pairs", "window") and T > RB_EXT_MAX_THREADS:
         (dR, dC), tiles = RB_WIDE_TILE, (RB_WIDE_TILE,)
     R, C = dR if R is None else R, dC if C is None else C
     if (R, C) not in tiles:

@@ -16,7 +16,8 @@ as (B,) int32 tensors on the input's device.
 * ``WindowScorer`` is the same for one batch of reads against many
   windows of one width, as the search sweeps them: it prepares the reads
   and any scratch once; each window then costs one launch (and, on the
-  stripe route, a reduce) on the device, with no host sync.
+  register-blocked route, a clear of the counters and a reduce) on the
+  device, with no host sync.
 
 Two kernels, routed by shape in ``WindowScorer.__init__``:
 
@@ -25,12 +26,21 @@ Two kernels, routed by shape in ``WindowScorer.__init__``:
   ``sw_window_warp_linear``, ``_affine``, ``_sub``
   (``csrc/window_warp.cu``): one warp a read, R = ceil(rlen / 32) rows a
   lane, the read's answer reduced in the warp;
-* longer reads take the stripe template's ``sw_window_score_linear``,
-  ``_affine``, ``_sub`` (``csrc/window_fill.cu``). There the reads are
-  padded with -3 rows to the next length that a stripe height cuts
-  (``window_rows``), so that no stripe chain crosses a read's first row:
-  such rows never match and only decay, so they never hold or tie a
-  read's max.
+* longer reads take the shared-window batch form of the register-blocked
+  stripe, ``sw_window_rb_linear``, ``_affine``, ``_sub``
+  (``csrc/stripe_rb_window.cu``): each read a pair of its own, cut into
+  stripes of T threads of R rows and C columns a step (``rb_shape``'s
+  'window' kind), every pair reading the one window in place; the reads
+  as they are, each read's stripe firsts reduced by
+  ``pairs_fill._reduce_stripes``.
+
+The stripe template's ``sw_window_score_linear``, ``_affine``, ``_sub``
+(``csrc/window_fill.cu``) is the earlier design of both, on no route:
+the private ``_TemplateWindow`` builds it as their yardstick. It packs
+the reads into one stripe chain, padded with -3 rows to the next length
+that a stripe height cuts (``window_rows``), so that no stripe chain
+crosses a read's first row: such rows never match and only decay, so they
+never hold or tie a read's max.
 
 ``launches`` counts each entry's launches and ``plain_calls`` the plain
 version's calls; ``pairs_fill.reset_counts()`` zeroes them with the other
@@ -45,7 +55,8 @@ import torch
 
 from ..core.config import Scoring
 from . import stripe_fill as sf
-from .pairs_fill import BatchHits, _reduce_rows, chain_cutting_rows
+from .pairs_fill import (BatchHits, _reduce_rows, _reduce_stripes,
+                         _scratch, chain_cutting_rows)
 from .scan_fill import batch_scan_fill, check_codes
 
 WINDOW_KERNELS = {"linear": "sw_window_score_linear",
@@ -54,17 +65,27 @@ WINDOW_KERNELS = {"linear": "sw_window_score_linear",
 WARP_KERNELS = {"linear": "sw_window_warp_linear",
                 "affine": "sw_window_warp_affine",
                 "sub": "sw_window_warp_sub"}
+# the register-blocked K6 by mode, for reads longer than warp_rows takes
+WINDOW_RB_KERNELS = {mode: f"sw_window_rb_{mode}"
+                     for mode in ("linear", "affine", "sub")}
 WARP_MAX_ROWS = 16      # R_max: rows a lane, kMaxRows in window_warp.cu
 WARPS_PER_BLOCK = 4     # reads a block, kWarps there
-launches = dict.fromkeys([*WINDOW_KERNELS.values(), *WARP_KERNELS.values()],
+launches = dict.fromkeys([*WINDOW_RB_KERNELS.values(),
+                          *WINDOW_KERNELS.values(), *WARP_KERNELS.values()],
                          0)
 plain_calls = {"window_score_plain": 0}
 
 
 def window_kernel_name(scoring: Scoring, substitution) -> str:
-    """The stripe template's K6 entry that serves this scoring (the route
-    of reads longer than ``warp_rows`` takes)."""
+    """The stripe template's K6 entry of this scoring, the earlier design,
+    on no route (``_TemplateWindow``)."""
     return WINDOW_KERNELS[sf._mode(scoring, substitution)]
+
+
+def window_rb_name(scoring: Scoring, substitution) -> str:
+    """The register-blocked K6 entry of this scoring, which a card runs for
+    reads that ``warp_rows`` refuses."""
+    return WINDOW_RB_KERNELS[sf._mode(scoring, substitution)]
 
 
 def warp_kernel_name(scoring: Scoring, substitution) -> str:
@@ -77,7 +98,7 @@ def warp_rows(rlen: int, A: int = 0) -> Optional[int]:
     for reads of rlen rows, or None where that scorer does not take them:
     R above WARP_MAX_ROWS, or, for an alphabet of A letters, a block's
     profile (WARPS_PER_BLOCK x (A + 1) x R x 32 int32) beyond the opt-in
-    shared memory. None routes the reads to the stripe template's K6."""
+    shared memory. None routes the reads to the register-blocked K6."""
     R = -(-rlen // 32)
     if R > WARP_MAX_ROWS:
         return None
@@ -91,16 +112,16 @@ def window_route_name(rlen: int, scoring: Scoring, substitution) -> str:
     rlen rows under this scoring."""
     A = 0 if substitution is None else substitution.shape[0]
     if warp_rows(rlen, A) is None:
-        return window_kernel_name(scoring, substitution)
+        return window_rb_name(scoring, substitution)
     return warp_kernel_name(scoring, substitution)
 
 
 def window_rows(rlen: int, B: int, T: Optional[int] = None,
                 A: int = 0) -> tuple:
-    """(padded read length, stripe height) of a K6 launch for B reads of
-    rlen rows: the smallest length from rlen on that a stripe height cuts
-    (``chain_cutting_rows``: 150 -> 152 at T = 608, 152 -> 152), at that
-    height unless ``T`` names one."""
+    """(padded read length, stripe height) of the stripe template's K6
+    for B reads of rlen rows: the smallest length from rlen on that a
+    stripe height cuts (``chain_cutting_rows``: 150 -> 152 at T = 608, 152
+    -> 152), at that height unless ``T`` names one."""
     rpad = rlen
     while chain_cutting_rows(rpad, A) is None:
         rpad += 1
@@ -129,8 +150,9 @@ def window_score(reads: torch.Tensor, window: torch.Tensor,
                  scoring: Scoring = Scoring(), T: Optional[int] = None,
                  substitution: Optional[torch.Tensor] = None) -> BatchHits:
     """K6: score B reads (B, rlen) against one window (W,), int8 codes on
-    one device. ``T``: rows per stripe of the stripe route (CUDA, reads
-    longer than ``warp_rows`` takes; unused on the warp route).
+    one device. ``T``: threads per block of the register-blocked route
+    (CUDA, reads longer than ``warp_rows`` takes; each holding R rows,
+    ``rb_shape``; unused on the warp route).
     ``substitution``: an (A, A) int32 table S[window code, read code] on
     the same device, or None for match/mismatch."""
     dev = check_window(reads, window, scoring, substitution)
@@ -161,16 +183,14 @@ class WindowScorer:
     checks the codes of the reads and of every window (``check_window``);
     each window is a (W,) int8 tensor on the reads' device. On a CUDA
     device the route is fixed here by the read length (``warp_rows``):
-    the warp-per-read scorer takes the reads as they are; the stripe
-    route pads them (``window_rows``) and allocates its scratch once. On
-    the CPU each call runs the plain version. ``_warp=False`` takes the
-    stripe route at any length: the yardstick of the warp route, not a
-    route of the package."""
+    ``form`` 'warp', the warp-per-read scorer, or 'rb', the
+    register-blocked one (``_RbWindow``, ``T`` its threads per block),
+    which allocates its scratch once; both take the reads as they are. On
+    the CPU each call runs the plain version."""
 
     def __init__(self, reads: torch.Tensor, W: int,
                  scoring: Scoring = Scoring(), T: Optional[int] = None,
-                 substitution: Optional[torch.Tensor] = None,
-                 _warp: bool = True):
+                 substitution: Optional[torch.Tensor] = None):
         self.reads, self.W = reads, W
         self.scoring = scoring
         self.sub = None if substitution is None else substitution.contiguous()
@@ -179,13 +199,102 @@ class WindowScorer:
             return
         B, rlen = reads.shape
         A = 0 if self.sub is None else self.sub.shape[0]
-        self.R = warp_rows(rlen, A) if _warp else None
-        if self.R is not None:
-            if B * rlen > (1 << 31) - 1:
-                raise ValueError(f"{B} x {rlen} read rows overflow int32")
-            self.reads = reads.contiguous()
-            self.name = warp_kernel_name(scoring, self.sub)
+        self.R = warp_rows(rlen, A)            # rows a lane of the warp route
+        if self.R is None:
+            self.form = "rb"
+            self._rb = _RbWindow(reads, W, scoring, self.sub, T)
+            self.name = self._rb.name
             return
+        if B * rlen > (1 << 31) - 1:
+            raise ValueError(f"{B} x {rlen} read rows overflow int32")
+        self.form = "warp"
+        self.reads = reads.contiguous()
+        self.name = warp_kernel_name(scoring, self.sub)
+
+    def __call__(self, window: torch.Tensor) -> BatchHits:
+        if window.shape != (self.W,):
+            raise ValueError(f"window of shape {tuple(window.shape)}, the "
+                             f"scorer takes ({self.W},)")
+        if self.cpu:
+            return window_score_plain(self.reads, window, self.scoring,
+                                      self.sub)
+        if self.form == "rb":
+            return self._rb(window)
+        window = window.contiguous()
+        B, rlen = self.reads.shape
+        # a new output each call: the caller may hold the last one
+        out = torch.empty((3, B), dtype=torch.int32, device=window.device)
+        args = [window.data_ptr(), self.reads.data_ptr(), B, self.W, rlen,
+                *sf._model(self.scoring, self.sub), out.data_ptr()]
+        sf._call(self.name, window.device, args, self.name, launches)
+        return BatchHits(*out)
+
+
+class _RbWindow:
+    """The register-blocked K6 (``sw_window_rb_*``) for one batch of reads
+    (B, rlen) on a CUDA device against windows of width W, at
+    ``rb_shape``'s 'window' (T, R, C), None taking its defaults: the
+    scratch allocated once, each call a clear of the counters, one launch
+    and ``_reduce_stripes`` on the stream. ``WindowScorer``'s route for
+    reads that ``warp_rows`` refuses; chip_smoke.py sweeps (T, R, C)
+    through it."""
+
+    def __init__(self, reads: torch.Tensor, W: int, scoring: Scoring,
+                 sub: Optional[torch.Tensor], T: Optional[int] = None,
+                 R: Optional[int] = None, C: Optional[int] = None):
+        B, rlen = reads.shape
+        A = 0 if sub is None else sub.shape[0]
+        self.W, self.scoring, self.sub = W, scoring, sub
+        self.mode = sf._mode(scoring, sub)
+        self.T, self.R, self.C = sf.rb_shape(rlen, T, R, C, self.mode, A,
+                                             "window")
+        S = -(-rlen // (self.T * self.R))
+        # the kernel's int sums: rows, columns, blocks and read rows (the
+        # boundary rows' size_t index, under B * S * (W + 1), then stays
+        # below 2^52)
+        if (rlen > (1 << 31) - 1 - self.T * self.R
+                or W > min(sf.MAX_WIDTH, (1 << 31) - 1 - self.T * self.C)
+                or B * S > (1 << 31) - 1 or B * rlen > (1 << 31) - 1):
+            raise ValueError(
+                f"{B} reads of {rlen} rows ({S} stripes of "
+                f"{self.T * self.R} rows each) against {W} columns "
+                "overflow the kernel's int32 indices")
+        dev, i32 = reads.device, torch.int32
+        self.reads = reads.contiguous()
+        self.sync = torch.zeros(1 + B * S, dtype=i32, device=dev)
+        self.bnd, self.bnd_f = _scratch(B * (S - 1), W, scoring.is_affine,
+                                        dev)
+        self.best = torch.empty((B, S, 4), dtype=i32, device=dev)
+        self.name = window_rb_name(scoring, sub)
+
+    def __call__(self, window: torch.Tensor) -> BatchHits:
+        window = window.contiguous()
+        B, rlen = self.reads.shape
+        # the ticket and progress counters, cleared on the stream
+        self.sync.zero_()
+        # the F rows handed between stripes; the linear table entry takes
+        # null
+        bnds = [self.bnd.data_ptr()] + (
+            [sf._ptr(self.bnd_f)] if self.mode != "linear" else [])
+        args = [window.data_ptr(), self.reads.data_ptr(), B, self.W, rlen,
+                *sf._model(self.scoring, self.sub), self.T, self.R, self.C,
+                self.sync.data_ptr(), *bnds, self.best.data_ptr()]
+        sf._call(self.name, window.device, args, self.name, launches)
+        return _reduce_stripes(self.best)
+
+
+class _TemplateWindow:
+    """The stripe template's K6 (``sw_window_score_*``), the earlier design
+    of both routes and on none, for one batch of reads (B, rlen) on a CUDA
+    device against windows of width W: the reads packed into one stripe
+    chain of ``T`` rows a stripe (``window_rows``), the scratch allocated
+    once. chip_smoke.py's and the card tests' yardstick."""
+
+    def __init__(self, reads: torch.Tensor, W: int, scoring: Scoring,
+                 sub: Optional[torch.Tensor], T: Optional[int] = None):
+        B, rlen = reads.shape
+        A = 0 if sub is None else sub.shape[0]
+        self.W, self.scoring, self.sub = W, scoring, sub
         rpad, self.T = window_rows(rlen, B, T, A)
         if B * rpad > (1 << 31) - 1 - 1024:
             raise ValueError(f"{B} x {rpad} packed read rows overflow int32")
@@ -200,24 +309,10 @@ class WindowScorer:
                       else None)
         self.row_best = torch.empty((B, rpad, 2), dtype=i32, device=dev)
         self.right = torch.empty(B * rpad + 1, dtype=i32, device=dev)
-        self.name = window_kernel_name(scoring, self.sub)
+        self.name = window_kernel_name(scoring, sub)
 
     def __call__(self, window: torch.Tensor) -> BatchHits:
-        if window.shape != (self.W,):
-            raise ValueError(f"window of shape {tuple(window.shape)}, the "
-                             f"scorer takes ({self.W},)")
-        if self.cpu:
-            return window_score_plain(self.reads, window, self.scoring,
-                                      self.sub)
         window = window.contiguous()
-        if self.R is not None:
-            B, rlen = self.reads.shape
-            # a new output each call: the caller may hold the last one
-            out = torch.empty((3, B), dtype=torch.int32, device=window.device)
-            args = [window.data_ptr(), self.reads.data_ptr(), B, self.W, rlen,
-                    *sf._model(self.scoring, self.sub), out.data_ptr()]
-            sf._call(self.name, window.device, args, self.name, launches)
-            return BatchHits(*out)
         B, rpad = self.padded.shape
         self.sync.zero_()
         bnds = [self.bnd.data_ptr()]

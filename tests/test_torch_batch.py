@@ -326,7 +326,8 @@ def test_cpu_tensors_run_the_plain_version():
     assert pf.launches == dict.fromkeys(pf.launches, 0)
     assert set(pf.launches) == {
         "sw_pairs_rb_linear", "sw_pairs_rb_affine", "sw_pairs_rb_sub",
-        "sw_pairs_score_linear", "sw_pairs_score_affine",
+        "sw_pairs_rb_band_linear", "sw_pairs_rb_band_affine",
+        "sw_pairs_rb_band_sub", "sw_pairs_score_linear", "sw_pairs_score_affine",
         "sw_pairs_score_sub", "sw_pairs_score_linear[band]",
         "sw_pairs_score_affine[band]", "sw_pairs_score_sub[band]",
         "sw_packed_score_linear", "sw_packed_score_affine",
@@ -486,7 +487,8 @@ def test_public_batch_calls_launch_the_kernels_on_card(cuda):
     assert [r.max_score for _, r in recs] == sorted(want[0])[::-1][:2]
     assert pf.launches["sw_pairs_rb_linear"] >= 1
     assert pf.launches["sw_pairs_score_linear"] == 0
-    assert pf.launches["sw_pairs_score_linear[band]"] == 1
+    assert pf.launches["sw_pairs_rb_band_linear"] == 1
+    assert pf.launches["sw_pairs_score_linear[band]"] == 0
     assert pf.launches["sw_packed_score_linear"] >= 1
     assert not any(pf.plain_calls.values())
     assert not any(sf.plain_calls.values())

@@ -621,7 +621,7 @@ def test_window_kernel_matches_plain_on_card(card, name, case):
     for T in (None, 32, 256):
         assert _fields(wf.window_score(rt, wt, sc, T, subt)) == want, T
         # the stripe template's K6 at this T, whatever the read length
-        stripe = wf.WindowScorer(rt, wt.numel(), sc, T, subt, _warp=False)
+        stripe = wf._TemplateWindow(rt, wt.numel(), sc, subt, T)
         assert _fields(stripe(wt)) == want, T
     # these reads take the warp-per-read route; each entry launched 3 times
     name_k = wf.window_route_name(rlen, sc, sub)

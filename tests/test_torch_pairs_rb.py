@@ -181,8 +181,9 @@ def test_pairs_model_matches_the_pallas_grid(name):
 def test_pairs_score_launches_the_rb_entry(name, monkeypatch):
     """pairs_score on a card (the launch recorded instead of run): unbanded
     the register-blocked entry of the form, with the arguments its ctypes
-    signature declares, at rb_shape's 'pairs' (T, R, C); banded the
-    template's entry, counted under its name plus [band]."""
+    signature declares, at rb_shape's 'pairs' (T, R, C); banded its band
+    form's entry (the template's, counted under its name plus [band], on
+    no route)."""
     sc, sub = _port(name.replace("_linear", ""))
     if name == "blosum62_linear":
         sc = swtpu_torch.Scoring(gap=-6)
@@ -209,8 +210,10 @@ def test_pairs_score_launches_the_rb_entry(name, monkeypatch):
     assert args[2] == 3                                           # B
     if mode != "linear":
         assert (args[-2] is not None) == sc.is_affine             # bnd_f
-    assert name_b == pf.pairs_template_name(sc, St)
-    assert counter_b == pf.pairs_kernel_name(sc, St, True)
+    assert name_b == pf.PAIRS_RB_BAND_KERNELS[mode] == \
+        pf.pairs_kernel_name(sc, St, True)
+    assert counter_b in (None, name_b)
+    assert name_b != pf.pairs_template_name(sc, St, True)
 
 
 def test_rb_shape_of_the_pairs_form():
@@ -236,8 +239,10 @@ def test_counters_and_names():
     assert pf.pairs_kernel_name(sc, None) == "sw_pairs_rb_linear"
     assert pf.pairs_kernel_name(aff, S) == "sw_pairs_rb_sub"
     assert pf.pairs_kernel_name(aff, None, True) == \
-        "sw_pairs_score_affine[band]"
+        "sw_pairs_rb_band_affine"
     assert pf.pairs_template_name(aff, None) == "sw_pairs_score_affine"
+    assert pf.pairs_template_name(aff, None, True) == \
+        "sw_pairs_score_affine[band]"
     assert set(pf.PAIRS_RB_KERNELS.values()) <= set(pf.launches)
     for name in pf.PAIRS_RB_KERNELS.values():
         assert name in _cuda.ARGTYPES

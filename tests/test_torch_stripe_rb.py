@@ -98,12 +98,16 @@ def rb_model(a: np.ndarray, b: np.ndarray, sc: Scoring, T: int, R: int,
     boundary read saw (-1 where none). ``pairs``: the K8 batch form, a (B,
     m) against b (B, n), each pair's stripes in ticket order (pair-major)
     with its own counters and rows: returns ``pairs_fill._reduce_stripes``
-    of the (B, S, 4) stripe firsts as three lists, and no right column."""
+    of the (B, S, 4) stripe firsts as three lists, and no right column;
+    with ``band`` the K8[band] form, each pair's stripes in their band
+    windows; with a 1-D ``a`` of m codes the K6 form, every pair's columns
+    that one shared query (a search window) and its rows b[g] (a read)."""
     if pairs:
         firsts = []
-        for g in range(len(a)):
+        for g in range(len(b)):
             got = {}
-            rb_model(a[g], b[g], sc, T, R, C, table, extra=got)
+            rb_model(a if a.ndim == 1 else a[g], b[g], sc, T, R, C, table,
+                     extra=got, band=band)
             firsts.append(got["stripe_best"])
         return [x.tolist() for x in pf._reduce_stripes(
             torch.tensor(firsts, dtype=torch.int32))]

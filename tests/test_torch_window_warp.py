@@ -228,7 +228,7 @@ def test_route_names_by_length_and_scoring():
         for rlen in (1, 150, 512):
             assert wf.window_route_name(rlen, sc, S) == \
                 f"sw_window_warp_{mode}"
-        assert wf.window_route_name(513, sc, S) == f"sw_window_score_{mode}"
+        assert wf.window_route_name(513, sc, S) == f"sw_window_rb_{mode}"
 
 
 def test_warp_counters_reset_with_the_others():
@@ -282,5 +282,6 @@ def test_long_reads_take_the_stripe_route_on_card(card):
     pairs_fill.reset_counts()
     got = wf.window_score(rt, wt, sc)
     assert _fields(got) == _fields(wf.window_score_plain(rt, wt, sc))
-    assert wf.launches["sw_window_score_linear"] == 1
+    assert wf.launches["sw_window_rb_linear"] == 1
+    assert wf.launches["sw_window_score_linear"] == 0
     assert wf.launches["sw_window_warp_linear"] == 0
