@@ -26,7 +26,7 @@ cut, ``align_hits`` of the best 4), and the sanitize path
 (``swtpu_torch.sanitize`` at 4096^2 and ``sanitize_pairs_packed`` on 16
 pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Twelve kernels have a second,
+4096 4096 --skip-backtrack --sanitize``). Fourteen kernels have a second,
 earlier design beside them: unbanded score-only runs the register-blocked
 K1, K2 and K3 (``csrc/stripe_rb.cu``), unbanded P capture its K4
 (``csrc/stripe_rb_p.cu``, a row's codes of a tile stored as words), every
@@ -39,12 +39,17 @@ batch form with the band (K8[band], ``csrc/stripe_rb_pairs_band.cu``),
 the lean walk the tile-staged walk (``sw_walk_p_tiled``,
 ``csrc/walk_p.cu``), and the search's window scorer the warp-per-read K6
 (``csrc/window_warp.cu``) for reads of up to 512 rows and the batch form
-with one shared window (``csrc/stripe_rb_window.cu``) above; the earlier
-K1-K6, K4b, K8, K8[band] and single-pair K9, the stripe template's, and
-the one-thread walk ``sw_walk_p`` are held to their plain versions and
-timed in turns with the new ones in the same run (they launch on no
-path), K4 and K4b into guarded buffers (no byte off P written), and K1-K5,
-K4b, K8, K8[band] and K6 above 512 rows are swept over their (T, R, C).
+with one shared window (``csrc/stripe_rb_window.cu``) above,
+``plan='packed'`` its packed form (K7, ``csrc/stripe_rb_packed.cu``,
+every stripe starting at a pair's first row) and
+``sanitize_pairs_packed`` that form's capture (the packed K9,
+``csrc/stripe_rb_packed_debug.cu``); the earlier K1-K8, K4b, K8[band] and
+K9 (single-pair and packed), the stripe template's, and the one-thread
+walk ``sw_walk_p`` are held to their plain versions and timed in turns
+with the new ones in the same run (they launch on no path; the template's
+packed K9 held to its plain version on 4 of the 16 pairs), K4 and K4b
+into guarded buffers (no byte off P written), and K1-K5, K4b, K7, K8,
+K8[band] and K6 above 512 rows are swept over their (T, R, C).
 K4b is also timed against the template's at 4 x the path's n,
 score-only. Each
 phase prints one line; any failure raises, so the exit code is not 0. The
@@ -147,6 +152,11 @@ ORIGIN = {
                       "swtpu/kernels/pallas_fill.py:1962"),
     "rb_window": (CSRC + "stripe_rb_window.cu",
                   "swtpu/kernels/pallas_fill.py:1608"),  # batch_score_fn
+    "rb_packed": (CSRC + "stripe_rb_packed.cu",
+                  "swtpu/kernels/pallas_fill.py:1730"),  # pairs_packed_score_fn
+    # _kernel's debug_h on pairs_packed_score_fn's packing
+    "rb_packed_debug": (CSRC + "stripe_rb_packed_debug.cu",
+                        "swtpu/kernels/pallas_fill.py:597"),
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -181,9 +191,16 @@ PAIRS_SWEEP = {mode: [(T, R, C) for T in (32, 64, 128, 256)
                for mode in sf.RB_FORM_TILES}
 # K8[band]'s bands at the small shapes, and m + n + 5, past every cell
 PAIRS_BANDS = (-1, 0, 1, 31, 32, 33, BAND)
-# the stripe template's K8 and K8[band], the earlier designs, on no path
+# the stripe template's K8, K8[band] and K7, the earlier designs, on no path
 EARLIER_PAIRS = (*pf.PAIRS_KERNELS.values(),
-                 *(k + sf.BAND_SUFFIX for k in pf.PAIRS_KERNELS.values()))
+                 *(k + sf.BAND_SUFFIX for k in pf.PAIRS_KERNELS.values()),
+                 *pf.PACKED_KERNELS.values())
+# the packed K7's sweep at 64 x 1056^2: T x the form's tiles; T of 320 and
+# 512 at R = 8 hold 2 and 3 pairs a stripe (q), the rest 1 or a pair
+# across stripes
+PACKED_SWEEP = {mode: [(T, R, C) for T in (64, 128, 160, 256, 320, 512)
+                       for R, C in sf.RB_FORM_TILES[mode]]
+                for mode in sf.RB_FORM_TILES}
 
 # The least time the card could take (bound_ms): the larger of the int32
 # operations over the card's int32 rate and the bytes over its memory rate.
@@ -208,6 +225,8 @@ WALK_OPS = 6              # per move: the P load's address, decode, state
 
 def origin(name: str) -> tuple:
     kind = ("rb_debug" if name.startswith("sw_sanitize_rb_")
+            else "rb_packed_debug" if name.startswith("sw_sanitize_packed_rb_")
+            else "rb_packed" if name.startswith("sw_packed_rb_")
             else "rb_pairs_band" if name.startswith("sw_pairs_rb_band_")
             else "rb_pairs" if name.startswith("sw_pairs_rb_")
             else "rb_window" if name.startswith("sw_window_rb_")
@@ -397,27 +416,29 @@ def build_line() -> str:
     """ptxas's registers and spills for each kernel: every instantiation of
     the stripe template <kCaptureP, kAffine, kSub, kBand, kBlock, kPairs,
     kPacked, kWindow, kDebugH>, the two walks, the warp-per-read K6 <R,
-    kAffine, kSub> and the register-blocked K1-K5, K4b, K9, K8, K8[band]
-    and K6 <R, C, kAffine, kSub, kP, kBlock, kBand, kDebugH, kPairs,
-    kShared> (rb_ K1-K3, rb_p_ K4, rb_block_ K5, rb_band_ and rb_p_band_
-    K4b, rb_debug_ K9, rb_pairs_ K8, rb_pairs_band_ K8[band], rb_window_
-    K6)."""
+    kAffine, kSub> and the register-blocked K1-K5, K4b, K9, K8, K8[band],
+    K6, K7 and the packed K9 <R, C, kAffine, kSub, kP, kBlock, kBand,
+    kDebugH, kPairs, kShared, kPacked> (rb_ K1-K3, rb_p_ K4, rb_block_ K5,
+    rb_band_ and rb_p_band_ K4b, rb_debug_ K9, rb_pairs_ K8,
+    rb_pairs_band_ K8[band], rb_window_ K6, rb_packed_ K7,
+    rb_debug_packed_ the packed K9)."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
         warp = re.search(r"window_warp_kernelILi(\d+)ELb(\d)ELb(\d)E", ln)
-        rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E"
-                       r"Lb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", ln)
+        rb = re.search(r"stripe_rb_kernelILi(\d+)ELi(\d+)E" + r"Lb(\d)E" * 9,
+                       ln)
         if "Compiling entry function" in ln and warp:
             R, aff, sub = (int(v) for v in warp.groups())
             name = (f"warp_{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}")
         elif "Compiling entry function" in ln and rb:
-            R, C, aff, sub, p, blk, band, debug, pairs, shared = (
+            R, C, aff, sub, p, blk, band, debug, pairs, shared, packed = (
                 int(v) for v in rb.groups())
             kind = (("p_" if p else "block_" if blk else "debug_" if debug
                      else "window_" if shared else "pairs_" if pairs else "")
-                    + ("band_" if band else ""))
+                    + ("band_" if band else "")
+                    + ("packed_" if packed else ""))
             name = (f"rb_{kind}{'sub_' if sub else ''}"
                     f"{'affine' if aff else 'linear'}_R{R}_C{C}")
         elif "Compiling entry function" in ln and got:
@@ -1477,9 +1498,11 @@ def pairs_vs_plain(dev) -> dict:
     shape's T and once at each of PAIRS_RB_SHAPES; the template's, the
     earlier design), K8[band] (the register-blocked band form, the route,
     at the shape's T and at each of PAIRS_RB_SHAPES; the template's) at
-    each of PAIRS_BANDS and m + n + 5, and K7 (the shape's T and its own)
-    against their plain version at the small shapes; returns the max error
-    per counter."""
+    each of PAIRS_BANDS and m + n + 5, and K7 (the register-blocked packed
+    form, the route, three runs at the shape's T and once at each of
+    PAIRS_RB_SHAPES; the template's, the earlier design, at the shape's T
+    and its own) against their plain version at the small shapes; returns
+    the max error per counter."""
     table = on_card(BLOSUM62, dev=dev)[0]
     err = dict.fromkeys(pf.launches, 0)
     for mode in MODES:
@@ -1489,6 +1512,7 @@ def pairs_vs_plain(dev) -> dict:
         k8b = pf.pairs_kernel_name(sc, S, True)
         k8t = pf.pairs_template_name(sc, S)
         k8bt = pf.pairs_template_name(sc, S, True)
+        k7t = pf.packed_template_name(sc, S)
         for label, B, m, n, T, kind in PAIR_SHAPES:
             at, bt = on_card(*_pairs_batch(mode, B, m, n, B + m + n, kind),
                              dev=dev)
@@ -1497,9 +1521,13 @@ def pairs_vs_plain(dev) -> dict:
                     for _ in range(3)]
             runs += [(k8, pf._launch_pairs_rb(at, bt, sc, *shape, sub=sub))
                      for shape in PAIRS_RB_SHAPES]
+            runs += [(k7, pf.pairs_packed_score(at, bt, sc, T, sub))
+                     for _ in range(3)]
+            runs += [(k7, pf._launch_packed_rb(at, bt, sc, *shape, sub=sub))
+                     for shape in PAIRS_RB_SHAPES]
             runs += [(k8t, pf._launch_pairs(at, bt, sc, T, sub, None)),
-                     (k7, pf.pairs_packed_score(at, bt, sc, T, sub)),
-                     (k7, pf.pairs_packed_score(at, bt, sc, None, sub))]
+                     (k7t, pf._launch_packed(at, bt, sc, T, sub)),
+                     (k7t, pf._launch_packed(at, bt, sc, None, sub))]
             for band in (*PAIRS_BANDS, m + n + 5):
                 pb = pf.pairs_score_plain(at, bt, sc, sub, band)
                 runs += [(k8b, pf.pairs_score(at, bt, sc, T, sub, band), pb),
@@ -1519,7 +1547,8 @@ def pairs_vs_plain(dev) -> dict:
         phase("kernels", f"{k8} (x3, and at {len(PAIRS_RB_SHAPES)} (T, R, "
               f"C)), {k8t}, {k8b} (and at {len(PAIRS_RB_SHAPES)} (T, R, C)) "
               f"and {k8bt} at bands {'/'.join(map(str, PAIRS_BANDS))}/m+n+5, "
-              f"and {k7} [{mode}] at {len(PAIR_SHAPES)} batch shapes: equal")
+              f"{k7} (x3, and at {len(PAIRS_RB_SHAPES)} (T, R, C)) and {k7t} "
+              f"[{mode}] at {len(PAIR_SHAPES)} batch shapes: equal")
     return err
 
 
@@ -1554,17 +1583,55 @@ def pairs_sweep(at, bt, p, sc: Scoring, sub, label: str,
           f"({best[default] / best[fastest]:.3f} x the fastest)")
 
 
+def packed_sweep(at, bt, p, sc: Scoring, sub, label: str) -> None:
+    """The register-blocked K7 of the scoring over its form's PACKED_SWEEP
+    (q, the pairs a stripe holds, by packed_rb_geometry), each point equal
+    to the plain result ``p`` and timed in RB_SWEEP_ROUNDS rounds over
+    every point, the min of its rounds kept."""
+    mode = sf._mode(sc, sub)
+    name = pf.packed_kernel_name(sc, sub)
+    A = 0 if sub is None else sub.shape[0]
+    B, n = bt.shape
+    shapes = {}
+    for shape in PACKED_SWEEP[mode]:
+        T, R, C = sf.rb_shape(n, *shape, mode, A, "packed")
+        geo = pf.packed_rb_geometry(B, n, T, R)
+        shapes[shape] = (geo.T, geo.per if geo.spp == 1 else f"1/{geo.spp}")
+        k = pf._launch_packed_rb(at, bt, sc, *shape, sub=sub)
+        require(hits_diff(k, p) == 0, f"{name} {shape} {label}: kernel != "
+                "plain")
+    best = dict.fromkeys(shapes, float("inf"))
+    for _ in range(RB_SWEEP_ROUNDS):
+        for shape in shapes:
+            ms, _ = timed_ms(lambda: pf._launch_packed_rb(at, bt, sc, *shape,
+                                                          sub=sub), 1)
+            best[shape] = min(best[shape], ms)
+    fastest = min(best, key=best.get)
+    default = sf.rb_shape(n, mode=mode, A=A, kind="packed")
+    phase("batch", f"{name} sweep at {label}, ms by (T, R, C) [launch T, "
+          f"pairs a stripe q or 1/stripes a pair], min of {RB_SWEEP_ROUNDS} "
+          "rounds, all equal: "
+          + ", ".join(f"{T}/{R}/{C} [{shapes[T, R, C][0]}, q="
+                      f"{shapes[T, R, C][1]}] {ms:.3f}"
+                      for (T, R, C), ms in best.items())
+          + f"; fastest {fastest} {best[fastest]:.3f} ms, default "
+          f"{default} {best[default]:.3f} ms "
+          f"({best[default] / best[fastest]:.3f} x the fastest)")
+
+
 def pairs_full(dev) -> tuple:
     """K8 and K7 at 64 x 1056^2 in each scoring, against the plain batched
     fill and the per-pair single-pair kernels (K1-K3), kernel min of 3
     after a warm-up, plain once: the register-blocked K8 (the route) in
-    turns with the template's K8 (the earlier design) and with K7 (at the
-    T that cuts its chain), all three through their private launchers
-    (past the wrappers' checks), the template's K8 also at K7's height,
-    K7 also at T=256 (its chain then crosses pairs), the register-blocked
-    K8 swept over its tiles; K8[band] at BAND likewise: its band form (the
-    route) in turns with the template's, swept over its tiles. Returns
-    (records, plain results per mode, banded plain results per mode)."""
+    turns with the template's K8 (the earlier design); the register-blocked
+    K7 (the route of plan='packed') in turns with the template's K7 (at
+    the T that cuts its chain) and with K8; all through their private
+    launchers (past the wrappers' checks), the template's K8 also at the
+    template K7's height, the template's K7 also at T=256 (its chain then
+    crosses pairs), the register-blocked K8 and K7 swept over their tiles;
+    K8[band] at BAND likewise: its band form (the route) in turns with the
+    template's, swept over its tiles. Returns (records, plain results per
+    mode, banded plain results per mode)."""
     table = on_card(BLOSUM62, dev=dev)[0]
     B, n = BATCH
     cells = B * n * n
@@ -1587,25 +1654,33 @@ def pairs_full(dev) -> tuple:
         def new():
             return pf._launch_pairs_rb(at, bt, sc, None, sub=sub)
 
+        def k7():
+            return pf._launch_packed_rb(at, bt, sc, None, sub=sub)
+
         times = {}
         times["K8"], times["K8 template"], k, ko = ab_ms(
             new, lambda: pf._launch_pairs(at, bt, sc, None, sub, None))
         require(hits_diff(k, p) == 0 and hits_diff(ko, p) == 0,
                 f"K8 [{mode}] {B}x{n}^2: kernel != plain")
-        k8_vs_k7, times[f"K7 T={fit}"], _, k = ab_ms(
-            new, lambda: pf._launch_packed(at, bt, sc, None, sub))
+        times["K7"], times[f"K7 template T={fit}"], k, ko = ab_ms(
+            k7, lambda: pf._launch_packed(at, bt, sc, None, sub))
+        require(hits_diff(k, p) == 0 and hits_diff(ko, p) == 0,
+                f"K7 [{mode}] {B}x{n}^2: kernel != plain")
+        k7_vs_k8, k8_vs_k7, k, _ = ab_ms(k7, new)
+        require(hits_diff(k, single) == 0,
+                f"K7 [{mode}] {B}x{n}^2: kernel != the per-pair kernels")
+        times["K7"] = min(times["K7"], k7_vs_k8)
         times["K8"] = min(times["K8"], k8_vs_k7)
-        require(hits_diff(k, p) == 0, f"K7 [{mode}] {B}x{n}^2: kernel != "
-                "plain")
         for label, fn in (
                 (f"K8 template T={fit}", lambda: pf._launch_pairs(
                     at, bt, sc, fit, sub, None)),
-                ("K7 T=256", lambda: pf._launch_packed(
+                ("K7 template T=256", lambda: pf._launch_packed(
                     at, bt, sc, 256, sub))):
             times[label], k = timed_ms(fn, 3)
             require(hits_diff(k, p) == 0,
                     f"{label} [{mode}] {B}x{n}^2: kernel != plain")
         pairs_sweep(at, bt, p, sc, sub, f"{B}x{n}^2")
+        packed_sweep(at, bt, p, sc, sub, f"{B}x{n}^2")
         pb_ms, pb = timed_ms(
             lambda: pf.pairs_score_plain(at, bt, sc, sub, BAND), 1)
         kb_ms, kbt_ms, kb, kbt = ab_ms(
@@ -1622,8 +1697,11 @@ def pairs_full(dev) -> tuple:
         k8b = pf.pairs_kernel_name(sc, S, True)
         k8t = pf.pairs_template_name(sc, S)
         k8bt = pf.pairs_template_name(sc, S, True)
-        for name, label in ((k8, "K8"), (k8t, "K8 template"),
-                            (k7, f"K7 T={fit}")):
+        k7t = pf.packed_template_name(sc, S)
+        # K7's bound is K8's: the same cells and the same answer (its pad
+        # rows are not cells, its per-row bests not the function's output)
+        for name, label in ((k8, "K8"), (k8t, "K8 template"), (k7, "K7"),
+                            (k7t, f"K7 template T={fit}")):
             recs[name] = dict(ms=times[label], plain_ms=p_ms, max_abs_err=0,
                               **bound(cells, ops, io))
         for name, ms in ((k8b, kb_ms), (k8bt, kbt_ms)):
@@ -1635,7 +1713,9 @@ def pairs_full(dev) -> tuple:
         phase("batch", f"[{mode}] {B}x{n}^2: " + ", ".join(
             f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
             for k, v in times.items())
-            + f" (K8 = {k8}, in turns with the template's and with K7); "
+            + f" (K8 = {k8} in turns with the template's, K7 = {k7} in turns "
+            f"with the template's and with K8: {k7_vs_k8:.3f} against "
+            f"{k8_vs_k7:.3f} ms); "
             f"plain {p_ms:.1f} ms; equal to the plain version and to "
             f"{B} x {sf.score_kernel_name(sc, S)}; band {BAND}: {k8b} "
             f"{kb_ms:.3f} ms against the template's {k8bt} {kbt_ms:.3f} ms "
@@ -1646,9 +1726,10 @@ def pairs_full(dev) -> tuple:
 
 
 def no_fit_batch(dev) -> tuple:
-    """K8 and K7 at NO_FIT in each scoring, where K7 runs at the default
-    T=256 and its chain crosses pairs: the register-blocked K8 in turns
-    with the template's, K7 once, kernel min of 3 after a warm-up, plain
+    """K8 and K7 at NO_FIT in each scoring, where the template's K7 runs at
+    the default T=256 and its chain crosses pairs: the register-blocked K8
+    in turns with the template's, the register-blocked K7 in turns with
+    the template's K7 and with K8, kernel min of 3 after a warm-up, plain
     once, all equal; the register-blocked K8 swept over its tiles; K8[band]
     at BAND in turns with the template's, equal to the plain banded fill.
     Returns (the linear plain result, the phase lines)."""
@@ -1667,9 +1748,16 @@ def no_fit_batch(dev) -> tuple:
         times["K8"], times["K8 template"], k, ko = ab_ms(
             lambda: pf._launch_pairs_rb(at, bt, sc, None, sub=sub),
             lambda: pf._launch_pairs(at, bt, sc, None, sub, None))
-        times[f"K7 T={pf.packed_stripe_rows(n, B)}"], k7 = timed_ms(
-            lambda: pf._launch_packed(at, bt, sc, None, sub), 3)
-        require(all(hits_diff(x, p) == 0 for x in (k, ko, k7)),
+        times["K7"], times[f"K7 template T={pf.packed_stripe_rows(n, B)}"], \
+            k7, k7t = ab_ms(
+                lambda: pf._launch_packed_rb(at, bt, sc, None, sub=sub),
+                lambda: pf._launch_packed(at, bt, sc, None, sub))
+        k7_vs_k8, k8_vs_k7, _, _ = ab_ms(
+            lambda: pf._launch_packed_rb(at, bt, sc, None, sub=sub),
+            lambda: pf._launch_pairs_rb(at, bt, sc, None, sub=sub))
+        times["K7"] = min(times["K7"], k7_vs_k8)
+        times["K8"] = min(times["K8"], k8_vs_k7)
+        require(all(hits_diff(x, p) == 0 for x in (k, ko, k7, k7t)),
                 f"{B}x{n}^2 [{mode}]: kernel != plain")
         pairs_sweep(at, bt, p, sc, sub, f"{B}x{n}^2")
         pb = pf.pairs_score_plain(at, bt, sc, sub, BAND)
@@ -1682,18 +1770,23 @@ def no_fit_batch(dev) -> tuple:
         if mode == "linear":
             want = [x.tolist() for x in p]
         lines.append(
-            f"[{mode}] {B}x{n}^2 (no stripe height cuts K7's chain): "
+            f"[{mode}] {B}x{n}^2 (no stripe height cuts the template K7's "
+            "chain): "
             + ", ".join(f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
                         for k, v in times.items())
-            + f"; plain {p_ms:.1f} ms; equal (banded to the banded plain)")
+            + f" (K7 in turns with K8: {k7_vs_k8:.3f} against "
+            f"{k8_vs_k7:.3f} ms); plain {p_ms:.1f} ms; equal (banded to the "
+            "banded plain)")
     return want, lines
 
 
 def bucket_kernels(dev) -> str:
-    """K8 (the register-blocked route and the template's) and K7 at the
-    score_many bucket of the mixed set (16 x 16384^2, padded as score_many
-    pads it), kernel min of 3 after a warm-up, the two K8 in turns; all
-    equal. Returns the phase line."""
+    """K8 (the register-blocked route and the template's) and K7 (the
+    register-blocked packed form and the template's) at the score_many
+    bucket of the mixed set (16 x 16384^2, padded as score_many pads it),
+    kernel min of 3 after a warm-up, the two K8 in turns, the two K7 in
+    turns, the register-blocked K7 in turns with K8; all equal. Returns
+    the phase line."""
     a_list, b_list = mixed_set()
     nb = 1 << (max(max(s) for s in MIXED) - 1).bit_length()
     aa = np.full((len(a_list), nb), -3, np.int8)
@@ -1706,14 +1799,20 @@ def bucket_kernels(dev) -> str:
     times["K8"], times["K8 template"], k, ko = ab_ms(
         lambda: pf._launch_pairs_rb(at, bt, SCORING, None),
         lambda: pf._launch_pairs(at, bt, SCORING, None, None, None))
-    times["K7"], k7 = timed_ms(
-        lambda: pf._launch_packed(at, bt, SCORING, None, None), 3)
-    require(all(hits_diff(x, k) == 0 for x in (ko, k7)),
+    times["K7"], times["K7 template"], k7, k7t = ab_ms(
+        lambda: pf._launch_packed_rb(at, bt, SCORING, None),
+        lambda: pf._launch_packed(at, bt, SCORING, None, None))
+    k7_vs_k8, k8_vs_k7, _, _ = ab_ms(
+        lambda: pf._launch_packed_rb(at, bt, SCORING, None),
+        lambda: pf._launch_pairs_rb(at, bt, SCORING, None))
+    require(all(hits_diff(x, k) == 0 for x in (ko, k7, k7t)),
             "the bucket's kernels disagree")
     return (f"score_many bucket {len(aa)}x{nb}^2 ({cells / 1e9:.2f} G real "
             "cells): " + ", ".join(
                 f"{k} {v:.3f} ms ({gcups(cells, v / 1e3):.2f} GCUPS)"
-                for k, v in times.items()) + " (the two K8 in turns), equal")
+                for k, v in times.items()) + " (the two K8 in turns, the two "
+            f"K7 in turns; K7 in turns with K8: {k7_vs_k8:.3f} against "
+            f"{k8_vs_k7:.3f} ms), equal")
 
 
 def check_records(recs: list, scores: list, top: int, mode: str,
@@ -2421,6 +2520,9 @@ SANITIZE_B = 16                    # sanitize_pairs_packed on 16 x 1056^2
 # the template's single-pair K9, on no path: its record and plain
 # comparison at 1024^2
 TEMPLATE_DEBUG_N = 1024
+# the template's packed K9, on no path since the packed form's capture:
+# its record and plain comparison on the first 4 pairs of the 16
+TEMPLATE_PACKED_B = 4
 # K9's small shapes, each at T = 32 and 128 (the plain capture walks
 # anti-diagonals in tensor ops): (label, m, n) single pairs with ragged
 # stripes, m = 1 and m > n; (label, B, m, n) packed batches whose pairs
@@ -2430,6 +2532,10 @@ DEBUG_PAIRS = [("300x1290", 300, 1290), ("ragged 200x583", 200, 583),
                ("m=1 1x700", 1, 700), ("m>n 700x200", 700, 200)]
 DEBUG_BATCHES = [("5x300x45", 5, 300, 45), ("9x18x20", 9, 18, 20),
                  ("3x1x70", 3, 1, 70), ("4x40x130", 4, 40, 130)]
+# the register-blocked packed K9's: those, and pairs across stripes at T =
+# 32 in both tiles (and at 128 in the 4 x 4 tile)
+PACKED_DEBUG_BATCHES = [*DEBUG_BATCHES, ("3x40x300", 3, 40, 300),
+                        ("2x25x1100", 2, 25, 1100)]
 DEBUG_T = (32, 128)
 
 
@@ -2457,12 +2563,15 @@ def debug_vs_plain(dev) -> dict:
     captures passing the checks. The register-blocked K9 (the route) at
     DEBUG_PAIRS x its tiles x DEBUG_T, with the hand-off test hook (skew=1)
     at T = 32 where the pair spans stripes and m > 1: h bit-equal again,
-    and the checks reject both captures. The template's K9 at its shapes,
-    the hook at T = 128: packed pairs (K7's capture, on the sanitize path)
-    at DEBUG_T, single pairs (the earlier design, on no path) at T = 128
-    alone. Returns the max error per counter."""
+    and the checks reject both captures. The register-blocked packed K9
+    (sanitize_pairs_packed's route) at PACKED_DEBUG_BATCHES x its tiles x
+    DEBUG_T, the hook wherever a pair spans stripes and m > 1. The
+    template's K9 at its shapes, the hook at T = 128: packed pairs and
+    single pairs (the earlier designs, on no path), single pairs at T =
+    128 alone. Returns the max error per counter."""
     table = on_card(BLOSUM62, dev=dev)[0]
-    err = dict.fromkeys([*df.launches, *df.rb_launches], 0)
+    err = dict.fromkeys([*df.launches, *df.rb_launches,
+                         *df.packed_rb_launches], 0)
     for mode, (_, _, scorings, S) in MODES.items():
         sub = None if S is None else table
         for sc in scorings:
@@ -2496,6 +2605,39 @@ def debug_vs_plain(dev) -> dict:
             phase("kernels", f"{name} [{mode} {sc.mode}] {len(DEBUG_PAIRS)} "
                   f"shapes x (R, C) {sf.RB_DEBUG_TILES} x T=32/128: h equal,"
                   f" checks pass; skew=1 at T=32 ({hooked} shapes): h "
+                  f"equal, checks reject both; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            name = df.packed_rb_debug_kernel_name(sc, S)
+            t0 = time.perf_counter()
+            hooked = 0
+            for label, B, m, n in PACKED_DEBUG_BATCHES:
+                a, b = _pairs_batch(mode, B, m, n, B + m + n)
+                H, maxes = san.reference(a, b, sc, S)
+                at, bt = on_card(a, b, dev=dev)
+                for R, C in sf.RB_DEBUG_TILES:
+                    for T in DEBUG_T:
+                        _, geo = df.packed_rb_capture_geometry(bt, sc, sub,
+                                                               T, R, C)
+                        hook = geo.spp > 1 and m > 1
+                        hooked += hook
+                        for skew in (0, 1) if hook else (0,):
+                            what = (f"{name} {label} {sc.mode} (T, R, C) = "
+                                    f"{(geo.T, R, C)}")
+                            k = df.packed_rb_capture(at, bt, sc, T, R, C,
+                                                     sub, skew)
+                            p = df.packed_rb_capture_plain(at, bt, sc, T, R,
+                                                           C, sub, skew)
+                            torch.cuda.synchronize()
+                            e = df.same_capture(k, p, skew > 0)
+                            err[name] = max(err[name], e)
+                            require(e == 0, f"{what} skew={skew}: kernel != "
+                                    "plain")
+                            for cap in (k, p):
+                                _held(cap, H, maxes, skew, what)
+            phase("kernels", f"{name} [{mode} {sc.mode}] "
+                  f"{len(PACKED_DEBUG_BATCHES)} batches x (R, C) "
+                  f"{sf.RB_DEBUG_TILES} x T=32/128: h equal, checks pass; "
+                  f"skew=1 where a pair spans stripes ({hooked} points): h "
                   f"equal, checks reject both; "
                   f"{time.perf_counter() - t0:.1f} s")
             for packed, shapes in ((False, DEBUG_PAIRS),
@@ -2544,17 +2686,24 @@ def debug_records(dev) -> dict:
     (kernel min of 3 after a warm-up), every cell of its capture checked
     against the numpy oracle (``check_capture``), its plain capture timed
     once, h bit-equal; the template's single-pair K9, on no path, likewise
-    at TEMPLATE_DEBUG_N^2; the packed K9 at 16 x 1056^2 at K7's T. Returns
-    the records."""
+    at TEMPLATE_DEBUG_N^2; the register-blocked packed K9 at the sanitize
+    path's 16 x 1056^2 at K7's (T, R, C) and geometry, in turns with the
+    template's packed K9 there, checked and held to its plain capture
+    likewise; the template's packed K9, on no path, likewise on the first
+    TEMPLATE_PACKED_B pairs. Returns the records."""
     table = on_card(BLOSUM62, dev=dev)[0]
     recs = {}
     for mode in MODES:
         sc, S, _, make = MODELS[mode]
         sub = None if S is None else table
-        for kind in ("rb", "template", "packed"):
+        for kind in ("rb", "template", "packed", "packed template"):
             t0 = time.perf_counter()
             if kind == "packed":
                 a, b = sanitize_batch(mode)
+                kfn, pfn = df.packed_rb_capture, df.packed_rb_capture_plain
+                name = df.packed_rb_debug_kernel_name(sc, S)
+            elif kind == "packed template":
+                a, b = (x[:TEMPLATE_PACKED_B] for x in sanitize_batch(mode))
                 kfn, pfn = df.packed_capture, df.packed_capture_plain
                 name = df.debug_kernel_name(sc, S, True)
             elif kind == "rb":
@@ -2565,41 +2714,48 @@ def debug_records(dev) -> dict:
                 a, b = make(TEMPLATE_DEBUG_N, TEMPLATE_DEBUG_N)
                 kfn, pfn = df.stripe_capture, df.stripe_capture_plain
                 name = df.debug_kernel_name(sc, S, False)
+            rb = kind in ("rb", "packed")
             at, bt = on_card(a, b, dev=dev)
             ab = ""
-            if kind == "rb":
+            if rb:
+                old = df.stripe_capture if kind == "rb" else df.packed_capture
                 k_ms, o_ms, k, ko = ab_ms(
                     lambda: kfn(at, bt, sc, None, substitution=sub),
-                    lambda: df.stripe_capture(at, bt, sc, None, sub))
-                san.check_capture(ko, *san.reference(a, b, sc, S))
-                ab = (f"; in turns, {df.debug_kernel_name(sc, S, False)} "
-                      f"{o_ms:.3f} ms (T={ko.T}, its every cell equal to "
-                      f"the oracle's too), {o_ms / k_ms:.2f} x")
+                    lambda: old(at, bt, sc, None, sub))
+                if kind == "rb":
+                    san.check_capture(ko, *san.reference(a, b, sc, S))
+                ab = (f"; in turns, {df.debug_kernel_name(sc, S, kind != 'rb')}"
+                      f" {o_ms:.3f} ms (T={ko.T}"
+                      + (", its every cell equal to the oracle's too"
+                         if kind == "rb" else "")
+                      + f"), {o_ms / k_ms:.2f} x")
                 del ko
             else:
                 k_ms, k = timed_ms(lambda: kfn(at, bt, sc, None, sub), 3)
             san.check_capture(k, *san.reference(a, b, sc, S))
             p_ms, p = timed_ms(lambda: (pfn(at, bt, sc, None,
                                             substitution=sub)
-                                        if kind == "rb"
-                                        else pfn(at, bt, sc, None, sub)), 1)
+                                        if rb else pfn(at, bt, sc, None,
+                                                       sub)), 1)
             e = df.same_capture(k, p)
             require(e == 0, f"{name} [{mode}] {tuple(b.shape)}: kernel != "
                     "plain")
             m, n = a.shape[-1], b.size
-            packed = kind == "packed"
-            # in: codes (and table); out: the twin's bests (packed: one
-            # per row) and right column, and the capture
+            packed = kind.startswith("packed")
+            # in: codes (and table); out: the twin's bests (packed: one per
+            # row) and right column (not the packed form's), and the capture
             io = (a.size + b.size + (0 if S is None else 4 * S.size)
-                  + 4 * (n + 1) + (8 * n if packed else 16)
-                  + capture_bytes(k))
+                  + (0 if kind == "packed" else 4 * (n + 1))
+                  + (8 * n if packed else 16) + capture_bytes(k))
             recs[name] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=e,
                               **bound(m * n, OPS_PER_CELL[mode], io))
             phase("kernels", f"{name} [{mode}] {'x'.join(map(str, b.shape))}"
-                  f" x {m} (T, R, C) = {(k.T, k.R, k.C)}: capture "
-                  f"{k.h.numel() * 4 / 1e6:.1f} MB, kernel {k_ms:.3f} ms, "
-                  f"every cell equal to the oracle's; plain {p_ms:.1f} ms, "
-                  f"h equal; bound {recs[name]['bound_ms']:.4f} ms "
+                  f" x {m} (T, R, C) = {(k.T, k.R, k.C)}"
+                  + (f", {k.geometry}" if k.geometry is not None else "")
+                  + f": capture {k.h.numel() * 4 / 1e6:.1f} MB, kernel "
+                  f"{k_ms:.3f} ms, every cell equal to the oracle's; plain "
+                  f"{p_ms:.1f} ms, h equal; bound "
+                  f"{recs[name]['bound_ms']:.4f} ms "
                   f"({recs[name]['bound_by']}){ab}; "
                   f"{time.perf_counter() - t0:.1f} s")
             del at, bt, k, p
@@ -2637,8 +2793,13 @@ def drive_sanitize(dev) -> list:
         rep = san.sanitize_pairs_packed(aa, bb, sc, substitution=S,
                                         device=dev)
         wall = time.perf_counter() - t0
+        # K7's tile and geometry: (128, 8, 4), 2 stripes a pair
+        T, R, C = sf.rb_shape(n, mode=sf._mode(sc, S),
+                              A=0 if S is None else S.shape[0],
+                              kind="packed")
+        geo = pf.packed_rb_geometry(SANITIZE_B, n, T, R)
         require(rep.valid_cells == SANITIZE_B * n * n
-                and rep.config == (352, 1, 1, 48),
+                and rep.config == (geo.T, R, C, geo.stripes),
                 f"{mode} sanitize_pairs_packed {SANITIZE_B}x{n}^2: {rep}")
         lines.append(f"[{mode}] sanitize_pairs_packed {SANITIZE_B}x{n}^2: "
                      f"{rep.valid_cells} cells bit-checked, config "
@@ -2891,19 +3052,21 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     lines = drive_sanitize(dev)
     sanitize_s = time.perf_counter() - t0
     sanitize = {**sf.launches, **pf.launches, **wf.launches, **df.launches,
-                **df.rb_launches}
+                **df.rb_launches, **df.packed_rb_launches}
     plain = {**sf.plain_calls, **pf.plain_calls, **wf.plain_calls,
-             **df.plain_calls, **df.rb_plain_calls}
+             **df.plain_calls, **df.rb_plain_calls,
+             **df.packed_rb_plain_calls}
     # ---- end of the sanitize path ----
     for ln in lines:
         phase("sanitize", ln)
     # sanitize() runs the register-blocked K9 alone, sanitize_pairs_packed
-    # the packed one; the template's single-pair K9 is on no path
-    single = [df.debug_kernel_name(*MODELS[mode][:2], False)
-              for mode in MODES]
-    require(all(sanitize[k] > 0 for k in (*df.rb_launches, *(
-        df.debug_kernel_name(*MODELS[mode][:2], True) for mode in MODES)))
-            and not any(sanitize[k] for k in single),
+    # the register-blocked packed one and K7's packed form; the template's
+    # K9 (single-pair and packed) and K7 are on no path
+    require(all(sanitize[k] > 0 for k in (
+        *df.rb_launches, *df.packed_rb_launches,
+        *(pf.packed_kernel_name(*MODELS[mode][:2]) for mode in MODES)))
+            and not any(sanitize[k] for k in (*df.launches,
+                                              *pf.PACKED_KERNELS.values())),
             f"launches {sanitize}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     phase("path", f"sanitize path in {sanitize_s:.1f} s: kernel launches "
@@ -2914,8 +3077,8 @@ def run(dev, name: str, start: float, pool, scans) -> int:
     # the batch path (K7 also on the sanitize path), the K6 counters (warp
     # per read, and above 512 rows the register-blocked) on the search path
     # alone, the K9 counters on the sanitize path alone; the earlier
-    # unbanded K1-K4, K5, K6, K8, K8[band] and single-pair K9 entries count
-    # 0 (their times are the A/B's)
+    # unbanded K1-K4, K5, K6, K7, K8, K8[band] and K9 (single-pair and
+    # packed) entries count 0 (their times are the A/B's)
     kernels = [dict(name=k, route="cuda", source=origin(k)[0],
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)

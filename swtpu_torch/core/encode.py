@@ -23,10 +23,17 @@ def encode(seq: str, alphabet: str = DNA_ALPHABET) -> np.ndarray:
         raise ValueError(f"character {e} not in alphabet {alphabet!r}") from None
 
 
+def unknown_letter(alphabet: str = DNA_ALPHABET) -> str:
+    """The letter of a negative code (the unknown-base and padding
+    sentinels): 'X' for an alphabet that carries one, else 'N'."""
+    return "X" if "X" in alphabet else "N"
+
+
 def decode(codes: np.ndarray, alphabet: str = DNA_ALPHABET) -> str:
     """Codes -> text. Negative codes (unknown-base and padding sentinels)
-    render as 'N' ('X' for protein alphabets that carry one)."""
-    unk = "X" if "X" in alphabet else "N"
+    render as ``unknown_letter`` ('N', or 'X' for protein alphabets that
+    carry one)."""
+    unk = unknown_letter(alphabet)
     return "".join(alphabet[int(c)] if c >= 0 else unk for c in codes)
 
 

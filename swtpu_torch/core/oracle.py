@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 
 from .config import DIAGONAL, E_EXT, F_EXT, LEFT, NONE, UP, Scoring
+from .encode import unknown_letter
 
 
 @dataclasses.dataclass
@@ -269,13 +270,21 @@ def alignment_strings(
     a: np.ndarray, b: np.ndarray, P: np.ndarray, max_pos: int,
     alphabet: str = "ACGT",
 ) -> tuple[str, str]:
-    """Reconstruct the aligned subsequences (with '-' gaps) from the path.
+    """Reconstruct the aligned subsequences (with '-' gaps) from the path;
+    a negative code (an unknown base) renders as 'N', or 'X' for an
+    alphabet that carries one.
 
     The reference only marks the path for printing (printPredecessorMatrix,
     serial_smithW.c:298-328); emitting the actual alignment strings is a
     usability extension.
     """
     m1 = P.shape[1]
+    unk = unknown_letter(alphabet)
+
+    def letter(code) -> str:
+        # a negative code renders as ``encode.decode`` renders it
+        return alphabet[code] if code >= 0 else unk
+
     out_a, out_b = [], []
     flat = P.reshape(-1)
     pos = max_pos
@@ -286,16 +295,16 @@ def alignment_strings(
         base = code & 3
         move = state if state else base
         if move == DIAGONAL:
-            out_a.append(alphabet[a[j - 1]])
-            out_b.append(alphabet[b[i - 1]])
+            out_a.append(letter(a[j - 1]))
+            out_b.append(letter(b[i - 1]))
             pred = pos - m1 - 1
         elif move == UP:
             out_a.append("-")
-            out_b.append(alphabet[b[i - 1]])
+            out_b.append(letter(b[i - 1]))
             pred = pos - m1
             state = UP if (code & F_EXT) else 0
         elif move == LEFT:
-            out_a.append(alphabet[a[j - 1]])
+            out_a.append(letter(a[j - 1]))
             out_b.append("-")
             pred = pos - 1
             state = LEFT if (code & E_EXT) else 0

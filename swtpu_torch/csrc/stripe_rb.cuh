@@ -23,7 +23,13 @@
 //   * stripe_rb_window.cu - the batch form with one shared query (K6 for
 //     reads longer than 512 rows, kPairs and kShared): B reads (the rows)
 //     against one window of the reference (the columns), which every pair
-//     reads in place.
+//     reads in place;
+//   * stripe_rb_packed.cu - the packed form (K7, kPacked) of the score-only
+//     fill: B pairs of one shape, each pair's rows at a pitch of whole
+//     threads, every stripe starting at a pair's row 1, each row's (best,
+//     first j) stored;
+//   * stripe_rb_packed_debug.cu - the capture of the packed form (the
+//     packed K9, kPacked and kDebugH).
 // Three scorings, one template: linear match/mismatch (K1), affine
 // match/mismatch (K2, Gotoh E and F) and a substitution table with linear
 // or affine gaps (K3); K4, K5 and K4b take each of them.
@@ -171,13 +177,35 @@
 //     kShared (K6) a stays at the one query every pair shares, which each
 //     block stages from global memory (from L2 after the first), so the
 //     window is never copied B times.
+//   * The packed form (kPacked, K7): a pair's rows sit at a pitch of
+//     rlen = ceil(n / R) R, so all R rows of a thread are one pair's, and
+//     every stripe starts at a pair's row 1. Where rlen <= T R a stripe
+//     holds T / tpp whole pairs of tpp = rlen / R threads each (the
+//     wrapper rounds T to the warps they need; threads past the last pair
+//     idle), and no stripe reads a boundary row; above, each pair takes
+//     aux.stripes stripes of its own, chained as K8's under pair-major
+//     tickets. The skew restarts at each pair: the thread kk of a pair's
+//     threads in the stripe visits the tile t - kk at step t, so a stripe
+//     runs ceil(m / C) + tpp - 1 steps whatever its number of pairs, and
+//     the thread kk = 0 of a pair starts from the pair's row 0 (H = 0, F =
+//     NEG), not from the thread above, the JAX package's reset row. Each
+//     thread reads its own pair's query: it loads its next tile's C codes
+//     from global memory (L2 holds the B m codes) one step ahead into
+//     registers, so no load is on the step's chain and no ring is shared
+//     by threads of several pairs. The rows past n of a pair's last
+//     thread are computed and discarded, as rows past n are; each thread
+//     stores its rows' (best, first j) into row_best (B, n, 2), read by
+//     the caller's per-pair reduce. With kDebugH the capture is of that
+//     schedule: slot (s, t, k, r, c) the cell of pair gk, row kk R + r + 1
+//     of the stripe's rows of it, column (t - kk) C + c + 1.
 //   * The affine and table forms keep their extra arrays in dynamic shared
 //     memory and their extra parameters last, and the K4 and K5 forms
 //     their template parameters and their argument (Ext) last, and K4b its
 //     template parameter and its argument (band) after those, and K9 and
 //     K8 theirs (kDebugH, kPairs; aux) after K4b's, and K6 its kShared
-//     after kPairs, so the earlier forms' code is what it was before they
-//     were added (scripts/torch_sass_diff.py).
+//     after kPairs, and K7 its kPacked after kShared, so the earlier forms'
+//     code is what it was before they were added
+//     (scripts/torch_sass_diff.py).
 //
 // Each entry launches on the given stream, allocates nothing, and returns
 // cudaGetLastError() after its launch.
@@ -234,6 +262,19 @@ __device__ __forceinline__ int load_acquire(const int* p) {
 __device__ __forceinline__ void store_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
+}
+
+// kPacked: the codes of tile q (0-based columns q C .. q C + C - 1) of the
+// thread's pair's query ak, as unsigned bytes (as ring_codes reads them),
+// 0 outside 0 .. m - 1; loaded a step before the tile runs
+template <int C>
+__device__ __forceinline__ void packed_codes(const int8_t* ak, int m, int q,
+                                             int (&ac)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int col = q * C + c;
+    ac[c] = q >= 0 && col < m ? (uint8_t)__ldg(&ak[col]) : 0;
+  }
 }
 
 // the codes of 0-based columns col0 .. col0 + C - 1 from the ring, as
@@ -549,8 +590,10 @@ struct Aux {
   int* seen;            // kDebugH: (stripes, m + 1) int32, -1 filled by the
                         // caller: the progress seen at each boundary read
   int skew;             // kDebugH: the test hook, 0 in a sanitizer run
-  int pairs;            // kPairs: B
-  int stripes;          // kPairs: S, stripes a pair (set by `launch`)
+  int pairs;            // kPairs, kPacked: B
+  int stripes;          // kPairs, kPacked: S, stripes a pair (set by
+                        // `launch`; kPacked: 1 where a stripe holds whole
+                        // pairs)
 };
 
 // kDebugH: boundary column j (H and, affine, F of the row above) as the
@@ -614,7 +657,9 @@ __device__ __forceinline__ void band_window(int s, int rows, int C, int m,
 //        the same reason. kPairs: sync holds the ticket, then B * S
 //        progress counters, pair by pair; bnd (and bnd_f) B * (S - 1) rows,
 //        best (B, S, 4); right is not written. kShared: a is one (m,)
-//        query for every pair, b (B, n).
+//        query for every pair, b (B, n). kPacked: a (B, m), b (B, n);
+//        sync the ticket, then a counter a ticket; bnd (and bnd_f) B * (S -
+//        1) rows; best_out is row_best (B, n, 2); right is not written.
 // the launch bound of the source's instantiations: K1-K3's kMaxThreads
 // (stripe_rb.cu, and K8's stripe_rb_pairs.cu; K6's stripe_rb_window.cu
 // adds one block an SM); stripe_rb_p.cu, stripe_rb_block.cu and the band
@@ -622,14 +667,15 @@ __device__ __forceinline__ void band_window(int s, int rows, int C, int m,
 // tile's ext_threads(R) and one block an SM before including this header,
 // which keeps ptxas from trading registers for occupancy these
 // one-block-an-SM launches never use (it spilled 4-12 bytes at 64-128
-// registers without)
+// registers without); the packed form's stripe_rb_packed.cu as K6's,
+// stripe_rb_packed_debug.cu as K9's
 #ifndef SW_RB_LAUNCH_BOUNDS
 #define SW_RB_LAUNCH_BOUNDS kMaxThreads
 #endif
 
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
           bool kBlock = false, bool kBand = false, bool kDebugH = false,
-          bool kPairs = false, bool kShared = false>
+          bool kPairs = false, bool kShared = false, bool kPacked = false>
 __global__ void __launch_bounds__(SW_RB_LAUNCH_BOUNDS)
 stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                  int m, int n, int match, int mismatch, int gap,
@@ -647,6 +693,9 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                 "form score-only");
   static_assert(!kShared || (kPairs && !kBand),
                 "the shared query is the unbanded batch form's");
+  static_assert(!kPacked || !(kP || kBlock || kBand || kPairs),
+                "the packed form is score-only and unbanded, its own batch "
+                "form");
   static_assert(!kDebugH || C % 4 == 0, "the capture stores int4 words");
   constexpr int kSteps = kPublish / C;         // steps a chunk
   __shared__ int s_stripe, s_best, s_k;
@@ -679,12 +728,12 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   if constexpr (kAffine) {
     for (int x = k; x < 2 * (kMaxThreads / 32) * C; x += T) s_f[x] = kNeg;
   }
-  if constexpr (!kBand && !kPairs) {
+  if constexpr (!kBand && !kPairs && !kPacked) {
     for (int c = k; c < kAhead && c < m; c += T) ring[c] = a[c];
   }
   __syncthreads();
 
-  const int s = kPairs ? s_stripe % aux.stripes : s_stripe;
+  const int s = (kPairs || kPacked) ? s_stripe % aux.stripes : s_stripe;
   if constexpr (kPairs) {
     // pair-major tickets: stripe s of pair g waits only on stripe s - 1 of
     // pair g, which took the ticket before it
@@ -701,7 +750,38 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       __syncthreads();
     }
   }
-  const int first = s * T * R + k * R;     // rows first + 1 .. first + R
+  // kPacked: the thread's pair gk and its place kk among the pair's threads
+  // of the stripe (kk = T for a thread that holds no pair: its rows lie
+  // past n, so it computes and stores nothing); else kk is k
+  int kk = k;
+  [[maybe_unused]] int gk = 0;
+  [[maybe_unused]] const int8_t* ak = a;   // kPacked: the pair's query
+  if constexpr (kPacked) {
+    // ticket s_stripe: stripe s of pair g, pair-major (aux.stripes > 1),
+    // or stripe g of T / tpp whole pairs, tpp threads each (aux.stripes ==
+    // 1); the counters and boundary rows are the pair's own
+    const int g = s_stripe / aux.stripes;
+    const size_t rows_above = (size_t)g * (aux.stripes - 1) * ((size_t)m + 1);
+    sync += (size_t)g * aux.stripes;
+    bnd += rows_above;
+    if constexpr (kAffine) bnd_f += rows_above;
+    const int tpp = aux.stripes > 1 ? T : (n + R - 1) / R;
+    const int per = T / tpp;
+    const int slot = k / tpp;
+    gk = aux.stripes > 1 ? g : g * per + slot;
+    const bool live = slot < per && gk < aux.pairs;
+    kk = live ? k - slot * tpp : T;
+    gk = live ? gk : 0;
+    b += (size_t)gk * n;
+    ak = a + (size_t)gk * m;
+    if constexpr (kDebugH) {
+      // the capture's stripe is the ticket, s the pair's stripe
+      aux.h += (size_t)(s_stripe - s) * ((m + C - 1) / C + T - 1) * T * R *
+               C;
+      aux.seen += (size_t)(s_stripe - s) * ((size_t)m + 1);
+    }
+  }
+  const int first = s * T * R + kk * R;    // rows first + 1 .. first + R
   const int kt = (min(T * R, n - s * T * R) + R - 1) / R;  // threads with rows
   // the columns col0 + 1 .. end the stripe visits, in `tiles` tiles; the
   // stripe above stored its last row's pcol0 + 1 .. pend. Every column with
@@ -903,13 +983,17 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     for (int c = 0; c < C; ++c) B[c] = h_last;
   }
   int flushed = 0;         // the publishing warp: the column stored last step
+  [[maybe_unused]] int pa[C];   // kPacked: the codes of tile t - kk
+  if constexpr (kPacked) packed_codes<C>(ak, m, -kk, pa);
 
   for (int t = 0; t < steps; ++t) {
     if (warp == 0 && t % kSteps == 0) {        // thread 0 starts a chunk
       const int c0 = col0 + t * C;             // its first 0-based column
       const int col = c0 + kAhead + lane;      // staged now
-      if (col < m) ring[col & (kRing - 1)] = (int8_t)a_next;
-      a_next = col + kPublish < m ? __ldg(&a[col + kPublish]) : 0;
+      if constexpr (!kPacked) {                // kPacked stages no ring
+        if (col < m) ring[col & (kRing - 1)] = (int8_t)a_next;
+        a_next = col + kPublish < m ? __ldg(&a[col + kPublish]) : 0;
+      }
       if (s > 0 || kBlock) {
         if (t > 0) {
           cur = nxt;
@@ -980,7 +1064,23 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 #pragma unroll
       for (int c = 0; c < C; ++c) UF[c] = __shfl_up_sync(kFull, BF[c], 1);
     }
-    if (lane == 0) {
+    if (kPacked && kk == 0) {
+      // a pair's first thread of the stripe: the row above the stripe (the
+      // pair's own, s > 0) or the pair's row 0, whatever thread is above
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        U[c] = s > 0 ? s_bnd[(t / kSteps) & 1][(t * C + c) & (kPublish - 1)]
+                     : 0;
+      }
+      if constexpr (kAffine) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          UF[c] = s > 0 ? s_bndf[(t / kSteps) & 1]
+                                [(t * C + c) & (kPublish - 1)]
+                        : kNeg;
+        }
+      }
+    } else if (lane == 0) {
       if (k > 0) {
 #pragma unroll
         for (int c = 0; c < C; ++c) U[c] = s_edge[(t + 1) & 1][warp - 1][c];
@@ -1007,13 +1107,18 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
         }
       }
     }
-    const int q = col0 / C + t - k;            // the tile
+    const int q = col0 / C + t - kk;           // the tile
     const int j0 = q * C + 1;
     [[maybe_unused]] int hc[R][C];             // kDebugH: the tile's H
     if (kBand ? k < kt && t - k >= 0 && t - k < tiles
-              : k < kt && q >= 0 && j0 <= m) {
+              : kk < kt && q >= 0 && j0 <= m) {
       int ac[C];
-      ring_codes<C>(s_ring, q * C, ac);
+      if constexpr (kPacked) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) ac[c] = pa[c];
+      } else {
+        ring_codes<C>(s_ring, q * C, ac);
+      }
       if (j0 + C - 1 < m) {
         if constexpr (kBand) {
           tile_ext<R, C, false, kAffine, kSub, kP, false, false, true>(
@@ -1083,7 +1188,7 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                                                 u_last, g, H, E, best,
                                                 best_j, B, BF);
         }
-        if constexpr (!kPairs) {
+        if constexpr (!kPairs && !kPacked) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             if (first + r < n) right[first + r + 1] = H[r];
@@ -1126,7 +1231,7 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
             const int c = 4 * w + x;
-            v[x] = k < kt && q >= 0 && j0 <= m && first + r < n &&
+            v[x] = kk < kt && q >= 0 && j0 <= m && first + r < n &&
                            j0 + c <= m
                        ? hc[r][c]
                        : 0;
@@ -1166,6 +1271,8 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
         flushed = jl;
       }
     }
+    // kPacked: the next tile's codes, in flight across the barrier
+    if constexpr (kPacked) packed_codes<C>(ak, m, t + 1 - kk, pa);
     u_last = U[C - 1];
     if (lane == 31) {
 #pragma unroll
@@ -1185,6 +1292,19 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     store_release(progress, flushed);                               // m
   }
 
+  if constexpr (kPacked) {
+    // each row's (best, first j), a pair's rows at row_best[gk, :n]; a
+    // thread that holds no pair, or a row past n, stores nothing
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (first + r < n) {
+        int* o = best_out + 2 * ((size_t)gk * n + first + r);
+        o[0] = best[r];
+        o[1] = best_j[r];
+      }
+    }
+    return;
+  }
   // stripe argmax: score desc, then row asc; j is already the row's first
   int tb = 0, ti = 0, tj = 0;
 #pragma unroll
@@ -1208,10 +1328,14 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 }
 
 // kPairs: n is one pair's rows and the grid aux.pairs x its stripes;
-// kShared: a is the one (m,) query of every pair.
+// kShared: a is the one (m,) query of every pair. kPacked: n is one pair's
+// rows, T the threads a block (where a stripe holds whole pairs, the
+// wrapper's rounding to the warps they need), best row_best (B, n, 2); the
+// grid is B x S stripes (S = ceil(n / (T R)) > 1) or ceil(B / (T / tpp))
+// (tpp = ceil(n / R), S = 1).
 template <int R, int C, bool kAffine, bool kSub, bool kP = false,
           bool kBlock = false, bool kBand = false, bool kDebugH = false,
-          bool kPairs = false, bool kShared = false>
+          bool kPairs = false, bool kShared = false, bool kPacked = false>
 int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
            int mismatch, int gap, int open, int extend, const int* sub,
            int A, int T, int* sync, int* bnd, int* bnd_f, int* best,
@@ -1249,21 +1373,29 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
                   aux_in.skew < 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (kPairs && (aux_in.pairs < 1 ||
-                 (long long)aux_in.pairs * stripes > INT_MAX ||
-                 (long long)aux_in.pairs * n > INT_MAX ||
-                 (!kShared && (long long)aux_in.pairs * m > INT_MAX))) {
+  if ((kPairs || kPacked) &&
+      (aux_in.pairs < 1 || (long long)aux_in.pairs * stripes > INT_MAX ||
+       (long long)aux_in.pairs * n > INT_MAX ||
+       (!kShared && (long long)aux_in.pairs * m > INT_MAX))) {
     return (int)cudaErrorInvalidValue;
   }
   Aux aux = aux_in;
   aux.stripes = stripes;
+  int blocks = kPairs ? aux.pairs * stripes : stripes;
+  if (kPacked) {
+    // whole pairs a stripe where one pair's rows fit, else S stripes a pair
+    const int per = T / ((n + R - 1) / R);
+    blocks = stripes > 1 ? aux.pairs * stripes
+                         : (per < 1 ? 0 : (aux.pairs + per - 1) / per);
+    if (blocks < 1) return (int)cudaErrorInvalidValue;
+  }
   const size_t smem =
       (kAffine ? f_ints<C>() * sizeof(int) : 0) +
       (kSub ? (size_t)((A < kMaxSym ? A : kMaxSym) + 1) * R * T * sizeof(int)
             : 0) +
       (kDebugH ? (size_t)T * (R * C / 4 + 1) * sizeof(int4) : 0);
   auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock, kBand,
-                                  kDebugH, kPairs, kShared>;
+                                  kDebugH, kPairs, kShared, kPacked>;
   if (kSub || kDebugH) {
     // above 48 KB of static and dynamic shared memory a block needs an
     // opt-in; the profile alone may pass it
@@ -1271,7 +1403,6 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = kPairs ? aux.pairs * stripes : stripes;
   kernel<<<blocks, T, smem, stream>>>(a, b, m, n, match, mismatch, gap,
                                       sync, bnd, best, right, open, extend,
                                       sub, A, bnd_f, ext, band, aux);

@@ -49,11 +49,14 @@ def auto_plan(n: int, band: Optional[int], A: int = 0) -> str:
     turns in every scoring (at 64 x 1056^2 band 64, about 0.5 ms against
     1.2). From chip_smoke.py's times on an NVIDIA H100 80GB HBM3 at 700 W
     (PERF.md, section 6), in turns: at 64 x 1056^2 K8 took 0.344 / 0.385
-    / 0.369 ms (linear / DNA affine / BLOSUM62 affine) against K7's
-    (T=352) 0.963 / 1.021 / 1.080 ms; on the 16 x 16384^2 bucket of the
-    mixed pairs 5.941 ms against 24.600; at 64 x 1000^2, where no T cuts
-    K7's chain, 0.297 ms against K7's 18.142. No threshold of the JAX
-    package's TPU routing carries over."""
+    / 0.369 ms (linear / DNA affine / BLOSUM62 affine) against the
+    stripe template's K7 (T=352) 0.963 / 1.021 / 1.080 ms; on the 16 x
+    16384^2 bucket of the mixed pairs 5.941 ms against 24.600; at 64 x
+    1000^2, where no T cuts that K7's chain, 0.297 ms against 18.142. K7's
+    register-blocked packed form, at K8's own geometry there, stays 7-11 %
+    above K8 (0.376 / 0.414 / 0.413 against 0.347 / 0.388 / 0.371 ms at
+    64 x 1056^2). No threshold of the JAX package's TPU routing carries
+    over."""
     return "stripe"
 
 

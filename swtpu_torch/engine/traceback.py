@@ -39,10 +39,13 @@ import numpy as np
 import torch
 
 from ..core.config import DIAGONAL, LEFT, UP, Scoring
-from ..core.encode import DNA_ALPHABET
+from ..core.encode import DNA_ALPHABET, unknown_letter
 from ..kernels import stripe_fill as sf
 
 _NEG = -(1 << 30)
+# the gap of the code lists the host routes build: no int8 code takes it,
+# so a sentinel code (-1, an unknown base; -2 and -3, padding) stays a base
+GAP = -256
 Device = Union[str, torch.device]
 
 
@@ -200,9 +203,9 @@ def _nw_host(a: np.ndarray, b: np.ndarray, scoring: Scoring, sub=None):
         if code == DIAGONAL:
             out_a.append(a[j - 1]); out_b.append(b[i - 1]); i -= 1; j -= 1
         elif code == UP:
-            out_a.append(-1); out_b.append(b[i - 1]); i -= 1
+            out_a.append(GAP); out_b.append(b[i - 1]); i -= 1
         else:
-            out_a.append(a[j - 1]); out_b.append(-1); j -= 1
+            out_a.append(a[j - 1]); out_b.append(GAP); j -= 1
     return out_a[::-1], out_b[::-1]
 
 
@@ -217,9 +220,9 @@ def _nw_host_affine(a, b, scoring: Scoring, tbg: int, teg: int, sub=None):
     op, ext = scoring.gap_open, scoring.gap_extend
     g0 = op - ext
     if m == 0:
-        return [-1] * n, list(b)
+        return [GAP] * n, list(b)
     if n == 0:
-        return list(a), [-1] * m
+        return list(a), [GAP] * m
     NEG = np.int64(_NEG)
     H = np.empty((n + 1, m + 1), np.int64)
     E = np.full((n + 1, m + 1), NEG, np.int64)
@@ -249,19 +252,19 @@ def _nw_host_affine(a, b, scoring: Scoring, tbg: int, teg: int, sub=None):
     state = 0
     while i > 0 or j > 0:
         if j == 0:
-            out_a.append(-1); out_b.append(b[i - 1]); i -= 1
+            out_a.append(GAP); out_b.append(b[i - 1]); i -= 1
             continue
         if i == 0:
-            out_a.append(a[j - 1]); out_b.append(-1); j -= 1
+            out_a.append(a[j - 1]); out_b.append(GAP); j -= 1
             continue
         if state == UP:
-            out_a.append(-1); out_b.append(b[i - 1])
+            out_a.append(GAP); out_b.append(b[i - 1])
             fo = teg + ext if j == m else op
             state = UP if F[i, j] != H[i - 1, j] + fo else 0
             i -= 1
             continue
         if state == LEFT:
-            out_a.append(a[j - 1]); out_b.append(-1)
+            out_a.append(a[j - 1]); out_b.append(GAP)
             state = LEFT if E[i, j] != H[i, j - 1] + op else 0
             j -= 1
             continue
@@ -327,9 +330,9 @@ def _hirschberg(a: np.ndarray, b: np.ndarray, scoring: Scoring, sub=None,
                 *, device: Device = "cuda"):
     m, n = len(a), len(b)
     if m == 0:
-        return [-1] * n, list(b)
+        return [GAP] * n, list(b)
     if n == 0:
-        return list(a), [-1] * m
+        return list(a), [GAP] * m
     if (m + 1) * (n + 1) <= _BASE_CELLS or n == 1:
         return _nw_host(a, b, scoring, sub=sub)
     half = n // 2
@@ -378,13 +381,19 @@ def _mm_affine(a: np.ndarray, b: np.ndarray, scoring: Scoring,
                         device=device)
     a2, b2 = _mm_affine(a[j:], b[half + 1:], scoring, 0, teg, sub,
                         device=device)
-    return a1 + [-1, -1] + a2, b1 + [b[half - 1], b[half]] + b2
+    return a1 + [GAP, GAP] + a2, b1 + [b[half - 1], b[half]] + b2
 
 
 def _render(codes_a, codes_b, alphabet=DNA_ALPHABET):
-    ra = "".join("-" if c == -1 else alphabet[c] for c in codes_a)
-    rb = "".join("-" if c == -1 else alphabet[c] for c in codes_b)
-    return ra, rb
+    """Code lists -> strings: GAP as '-', a code below 0 as ``decode``
+    renders it ('N', or 'X' for an alphabet that carries one)."""
+    unk = unknown_letter(alphabet)
+
+    def text(codes):
+        return "".join("-" if c == GAP else alphabet[c] if c >= 0 else unk
+                       for c in codes)
+
+    return text(codes_a), text(codes_b)
 
 
 def hirschberg(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
@@ -442,9 +451,9 @@ def _apply_moves(sub_a, sub_b, wn, wm, moves):
             out_a.append(sub_a[j - 1]); out_b.append(sub_b[i - 1])
             i -= 1; j -= 1
         elif move == UP:
-            out_a.append(-1); out_b.append(sub_b[i - 1]); i -= 1
+            out_a.append(GAP); out_b.append(sub_b[i - 1]); i -= 1
         else:
-            out_a.append(sub_a[j - 1]); out_b.append(-1); j -= 1
+            out_a.append(sub_a[j - 1]); out_b.append(GAP); j -= 1
     return out_a[::-1], out_b[::-1]
 
 
@@ -460,8 +469,8 @@ def walk_from_end(a: np.ndarray, b: np.ndarray, scoring: Scoring,
     sub_b = np.asarray(b[:end_i])
     ca, cb = _window_walk(sub_a, sub_b, end_i, end_j, scoring, sub,
                           torch.device(device))
-    si = end_i - sum(1 for c in cb if c != -1) + 1
-    sj = end_j - sum(1 for c in ca if c != -1) + 1
+    si = end_i - sum(1 for c in cb if c != GAP) + 1
+    sj = end_j - sum(1 for c in ca if c != GAP) + 1
     loc = Located(int(score), si, sj, end_i, end_j, int(last_cell))
     ra, rb = _render(ca, cb, alphabet)
     return loc.score, loc, ra, rb

@@ -9,8 +9,11 @@ stripe above that it saw at each read. ``sanitize_stripe`` captures the
 register-blocked stripe that ``score()`` runs (``stripe_rb_capture``:
 each thread's R x C tile of H, the boundary row read by chunks of 32
 columns), at the tile ``score()`` runs for that scoring and shape;
-``sanitize_pairs_packed`` the stripe template's packed pairs (K7). On a
-card that is the production kernel's own schedule, so a broken hand-off
+``sanitize_pairs_packed`` the packed form of that stripe that K7
+(``pairs_packed_score``) runs (``packed_rb_capture``: each pair's rows at
+a pitch of whole threads, every stripe starting at a pair's row 1), at
+K7's tile and geometry. On a card that is the production kernel's own
+schedule, so a broken hand-off
 between stripes, a race that can give the right answer in one run and a
 wrong one in the next, shows up as a broken invariant rather than as a
 wrong answer downstream. On the CPU the plain capture follows the same
@@ -21,30 +24,32 @@ the CUDA kernels mask their edges, and the register-blocked capture stores
 0 for the cells past row n that its tile computes and discards (no cell of
 the matrix reads them), so the checks are stricter. Every capture is read
 in the tile layout (``debug_fill.slot_cells``), the template's as its R =
-C = 1 case. In order:
+C = 1 case; a packed register-blocked capture through the map its
+geometry carries (``PackedGeometry.cells``). In order:
 
 1. every pre-start slot (column < 1) holds exactly 0;
 2. every in-matrix slot equals the numpy oracle's H bit for bit (packed:
    its own pair's H, rows rebased to the pair);
 3. every post-finish slot (column > m) and every slot of a row past the
-   last (the last stripe's idle threads and rows) holds exactly 0, which
+   last (the last stripe's idle threads and rows; packed, each pair's pad
+   rows and the threads past a stripe's last pair) holds exactly 0, which
    implies the JAX checks that garbage stays below the max and never
    feeds an in-matrix cell;
 4. the hand-off: a stripe that reads the boundary row read column j only
    after seeing the stripe above publish j or later; a stripe that reads
    none (stripe 0, and in the packed mode a stripe starting a pair)
    recorded nothing;
-5. every slot the kernel never schedules (the last stripe's steps past its
-   own ceil(m / C) + kt - 1, kt its threads holding rows) still holds the
-   sentinel;
+5. every slot the kernel never schedules (a stripe's steps past its own
+   ceil(m / C) + kt - 1, kt its (pair's) threads holding rows) still
+   holds the sentinel;
 6. the kernel's own max equals the oracle's; in the packed mode K7's
-   public launch (``pairs_fill.pairs_packed_score``) must also give every
-   pair's oracle max.
+   public launch (``pairs_fill.pairs_packed_score``, at the capture's (T,
+   R, C)) must also give every pair's oracle max.
 
 ``sanitize_stripe``/``sanitize_pairs_packed`` raise ``SanitizeError`` at
 the first violation, else return a ``SanitizeReport``, whose ``config``
 names the tile: (T, R, C, stripes), T threads of R rows and C columns a
-step (the template's packed capture: (T, 1, 1, stripes)). They run on
+step. They run on
 ``device`` (default ``'cuda'``, which raises without a card) and take the
 scorings the kernels take (``kernels_take``: negative penalties). The
 capture is sized for debug shapes: above ``SANITIZE_MAX_SLOTS`` int32
@@ -102,30 +107,44 @@ def sanitize_stripe(a, b, scoring: Scoring = Scoring(), T=None,
     a, b = _as_codes(a), _as_codes(b)
     S = None if substitution is None else check_table(substitution)
     at, bt, st = _on(dev, a, b, S)
-    threads = None
-    if T is not None:
-        R = sf.RB_DEFAULTS[sf._mode(scoring, S)][1]
-        threads = min(sf.RB_EXT_MAX_THREADS, max(32, -(-T // (32 * R)) * 32))
-    cap = debug_fill.stripe_rb_capture(at, bt, scoring, threads,
+    cap = debug_fill.stripe_rb_capture(at, bt, scoring,
+                                       _threads(T, scoring, S),
                                        substitution=st, skew=skew)
     return check_capture(cap, *reference(a, b, scoring, S))
+
+
+def _threads(T, scoring: Scoring, S) -> Union[int, None]:
+    """The capture's threads for T rows per stripe: T / R at score()'s
+    (and K7's) R, rounded up to a warp, at most RB_EXT_MAX_THREADS; None
+    for None."""
+    if T is None:
+        return None
+    R = sf.RB_DEFAULTS[sf._mode(scoring, S)][1]
+    return min(sf.RB_EXT_MAX_THREADS, max(32, -(-T // (32 * R)) * 32))
 
 
 def sanitize_pairs_packed(a_batch, b_batch, scoring: Scoring = Scoring(),
                           T=None, substitution=None,
                           device: Union[str, torch.device] = "cuda", *,
                           skew: int = 0) -> SanitizeReport:
-    """Run K9 on B pairs packed as K7 packs them, a (B, m) against
-    b (B, n) codes, and check the invariants per pair."""
+    """Run the packed K9 on B pairs packed as K7 packs them, a (B, m)
+    against b (B, n) codes, and check the invariants per pair. ``T``:
+    rows per stripe, as ``sanitize_stripe`` takes it (K7's (R, C), T / R
+    threads rounded up to a warp, at most the capture's
+    RB_EXT_MAX_THREADS, then K7's geometry's rounding); None runs exactly
+    the (T, R, C) and geometry ``pairs_packed_score`` runs."""
     dev = resolve_device(device)
     aa = np.ascontiguousarray(a_batch, np.int8)
     bb = np.ascontiguousarray(b_batch, np.int8)
     S = None if substitution is None else check_table(substitution)
     at, bt, st = _on(dev, aa, bb, S)
-    cap = debug_fill.packed_capture(at, bt, scoring, T, st, skew)
+    cap = debug_fill.packed_rb_capture(at, bt, scoring, _threads(T, scoring,
+                                                                 S),
+                                       substitution=st, skew=skew)
     H, maxes = reference(aa, bb, scoring, S)
     report = check_capture(cap, H, maxes)
-    got = pf.pairs_packed_score(at, bt, scoring, cap.T, st).scores.tolist()
+    got = pf.pairs_packed_score(at, bt, scoring, cap.T, st, cap.R,
+                                cap.C).scores.tolist()
     for g, (x, y) in enumerate(zip(got, maxes)):
         if x != max(y, 0):
             raise SanitizeError(f"packed pair {g}: K7 max {x} != oracle "
@@ -145,19 +164,39 @@ def check_capture(cap: Capture, H: list, maxes: list) -> SanitizeReport:
     rows = H[0].shape[0] - 1
     n = rows * len(H)
     of = (lambda g: f" of pair {g}") if len(H) > 1 else (lambda g: "")
-    # the capture a right kernel makes: slot (s, t, k, r, c) is cell (i, j)
-    # of slot_cells; stripe s runs ceil(m / C) + kt - 1 steps, kt its
-    # threads holding rows
-    i, j = (x.numpy() for x in debug_fill.slot_cells(stripes, steps, T, R,
-                                                      C))
-    kt = -(-np.minimum(T * R, n - np.arange(stripes) * T * R) // R)
+    geo = cap.geometry
     t = np.arange(steps)[None, :, None, None, None]
-    sched = np.broadcast_to(
-        t < -(-m // C) + kt[:, None, None, None, None] - 1, h.shape)
-    pre = sched & (j < 1)
-    valid = sched & (j >= 1) & (j <= m) & (i <= n)
+    if geo is None:
+        # the capture a right kernel makes: slot (s, t, k, r, c) is cell
+        # (i, j) of slot_cells, pairs back to back at ``rows`` rows; stripe
+        # s runs ceil(m / C) + kt - 1 steps, kt its threads holding rows
+        i, j = (x.numpy() for x in debug_fill.slot_cells(stripes, steps, T,
+                                                          R, C))
+        kt = -(-np.minimum(T * R, n - np.arange(stripes) * T * R) // R)
+        run = -(-m // C) + kt - 1
+        g, r = np.divmod(np.broadcast_to(i, h.shape) - 1, rows)
+        held = True                     # every thread holds rows
+        inside = i <= n
+        # a stripe reads the boundary unless its first row is a pair's row 1
+        reading = (np.arange(stripes) * T * R) % rows != 0
+    else:
+        # the packed form: slot (s, t, k, r, c) is row i of pair g (-1: no
+        # pair) at column j, the geometry's map, each stripe its own steps
+        if (geo.T, geo.R, geo.B, geo.n) != (T, R, len(H), rows):
+            raise SanitizeError(f"capture geometry {geo} does not hold "
+                                f"{len(H)} pairs of {rows} rows at (T, R) = "
+                                f"{(T, R)}")
+        g, i, j = (x.numpy() for x in geo.cells(steps, C))
+        run = geo.stripe_steps(m, C).numpy()
+        held = g >= 0                   # a thread past the last pair: idle
+        inside = held & (i <= rows)
+        g = np.broadcast_to(g, h.shape)
+        r = np.broadcast_to(i, h.shape) - 1
+        reading = geo.reads().numpy()
+    sched = np.broadcast_to(t < run[:, None, None, None, None], h.shape)
+    pre = sched & (j < 1) & held
+    valid = sched & (j >= 1) & (j <= m) & inside
     garbage = sched & ~pre & ~valid
-    g, r = np.divmod(np.broadcast_to(i, h.shape) - 1, rows)
     jj = np.broadcast_to(j, h.shape)
     want = np.where(sched, 0, UNSCHEDULED).astype(np.int32)
     want[valid] = np.stack(H)[g[valid], r[valid] + 1, jj[valid]]
@@ -184,8 +223,6 @@ def check_capture(cap: Capture, H: list, maxes: list) -> SanitizeReport:
         raise SanitizeError(
             f"post-finish or idle-row slot {slot(*x)} holds {h[x]} != 0: an "
             "edge mask leaks")
-    # a stripe reads the boundary unless its first row is a pair's row 1
-    reading = (np.arange(stripes) * T * R) % rows != 0
     col = np.arange(m + 1)
     floor = np.where(reading[:, None] & (col >= 1), col, -1)
     badseen = np.where(floor >= 1, seen < floor, seen != -1)

@@ -28,7 +28,8 @@ SOURCES = tuple(_PKG / "csrc" / f for f in (
     "window_fill.cu", "sanitize_fill.cu", "window_warp.cu",
     "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
     "stripe_rb_band.cu", "stripe_rb_debug.cu", "stripe_rb_pairs.cu",
-    "stripe_rb_pairs_band.cu", "stripe_rb_window.cu"))
+    "stripe_rb_pairs_band.cu", "stripe_rb_window.cu", "stripe_rb_packed.cu",
+    "stripe_rb_packed_debug.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("stripe_kernel.cuh",
                                             "sw_cell.cuh", "stripe_rb.cuh"))
 BUILD_DIR = _PKG / "build"
@@ -143,6 +144,13 @@ for _mode in ("linear", "affine", "sub"):
     # K6 register-blocked (the batch form with one shared window): window,
     # reads, B, W, rlen, then as the K8 entry from the model on
     ARGTYPES[f"sw_window_rb_{_mode}"] = ARGTYPES[f"sw_pairs_rb_{_mode}"]
+    # K7 register-blocked (the packed form): the K8 entry's arguments, with
+    # row_best for best
+    ARGTYPES[f"sw_packed_rb_{_mode}"] = ARGTYPES[f"sw_pairs_rb_{_mode}"]
+    # the packed K9 register-blocked (its capture): the K7 entry's
+    # arguments up to row_best, then h, seen, skew, stream
+    ARGTYPES[f"sw_sanitize_packed_rb_{_mode}"] = (
+        ARGTYPES[f"sw_pairs_rb_{_mode}"][:-1] + [_ptr, _ptr, _int, _ptr])
 # K5 register-blocked: the template's K5 entry's arguments with R, C after
 # T: a, b, m, n, the model, T, R, C, local, then as the template's
 ARGTYPES["sw_stripe_rb_block_linear"] = [_ptr, _ptr] + [_int] * 9 + [_ptr] * 8

@@ -14,9 +14,17 @@ every step, for ``instrument.sanitize`` to check cell by cell.
 * ``stripe_capture``: the same on the stripe template's K1-K3, one row a
   thread (``sw_sanitize_stripe_linear``, ``_affine``, ``_sub``,
   ``csrc/sanitize_fill.cu``), the earlier design, on no route.
-* ``packed_capture``: B pairs of one shape, a (B, m) against b (B, n),
-  packed as K7 packs them (``sw_sanitize_packed_linear``, ``_affine``,
-  ``_sub``), at the stripe height ``pairs_packed_score`` launches.
+* ``packed_rb_capture``: B pairs of one shape, a (B, m) against b (B,
+  n), on the packed form of the register-blocked stripe that
+  ``pairs_packed_score`` (K7) runs (C entries
+  ``sw_sanitize_packed_rb_linear``, ``_affine``, ``_sub``,
+  ``csrc/stripe_rb_packed_debug.cu``), at K7's (T, R, C) (``rb_shape``'s
+  'packed_debug' kind) and its geometry (``pairs_fill.packed_rb_geometry``),
+  which the capture carries.
+* ``packed_capture``: the same packed as the stripe template's K7 packs
+  them (``sw_sanitize_packed_linear``, ``_affine``, ``_sub``), at the
+  stripe height the template's K7 (``pairs_fill._launch_packed``) takes,
+  the earlier design, on no route.
 
 Each returns ``Capture``: ``h``, H of every slot after every step;
 ``seen``, (stripes, m + 1) int32, the progress of stripe s - 1 that stripe
@@ -33,22 +41,31 @@ the capture stores 0 there, as for every slot outside the matrix: those
 rows lie below row n, so no cell of the matrix reads them, and one rule,
 "exactly 0", holds every slot outside it.
 
-Each wrapper launches its kernel for tensors on a CUDA device and runs its
-plain version (``stripe_rb_capture_plain``, ``stripe_capture_plain``,
-``packed_capture_plain``) for tensors on the CPU, and nowhere else; a
-failed build or launch raises. The plain versions follow their kernel's
-stripe schedule: one ``scan_fill`` per stripe (per segment between a
-pair's first rows in the packed mode), each starting from the stripe
-above's last row, so that the test hook ``skew`` (read boundary column j -
-skew: a broken hand-off) gives the same wrong cells on the card and off
-it; the register-blocked one gathers each stripe's H into the tile layout
-through ``slot_cells``. A sequential producer has always finished, so the
-plain ``seen`` is m wherever a stripe reads the boundary.
+The packed register-blocked capture's slot (s, t, k, r, c) holds H of row
+kk*R + r + 1 of its stripe's rows of pair g, column (t - kk)*C + c + 1
+(``PackedGeometry.cells``: kk the thread's place among its pair's threads
+in the stripe, where the skew restarts), 0 in a pad row, in a thread past
+the stripe's last pair and outside columns 1..m, and ``UNSCHEDULED`` past
+each stripe's own ceil(m / C) + kt - 1 steps.
 
-``rb_launches`` and ``rb_plain_calls`` count the register-blocked entries
-and their plain version, ``launches`` and ``plain_calls`` the template's;
-``pairs_fill.reset_counts()`` zeroes them with every other kernel's
-counters.
+Each wrapper launches its kernel for tensors on a CUDA device and runs its
+plain version (``stripe_rb_capture_plain``, ``packed_rb_capture_plain``,
+``stripe_capture_plain``, ``packed_capture_plain``) for tensors on the
+CPU, and nowhere else; a failed build or launch raises. The plain versions
+follow their kernel's stripe schedule: one ``scan_fill`` per stripe (per
+segment of a pair inside a stripe in the packed modes), each starting from
+the stripe above's last row, so that the test hook ``skew`` (read boundary
+column j - skew: a broken hand-off) gives the same wrong cells on the card
+and off it; the register-blocked ones gather each segment's H into the
+tile layout through ``slot_cells`` or the geometry's ``cells``. A
+sequential producer has always finished, so the plain ``seen`` is m
+wherever a stripe reads the boundary.
+
+``rb_launches`` and ``rb_plain_calls`` count the register-blocked
+single-pair entries and their plain version, ``packed_rb_launches`` and
+``packed_rb_plain_calls`` the register-blocked packed ones, ``launches``
+and ``plain_calls`` the template's; ``pairs_fill.reset_counts()`` zeroes
+them with every other kernel's counters.
 """
 
 from __future__ import annotations
@@ -84,6 +101,11 @@ plain_calls = {"stripe_capture_plain": 0, "packed_capture_plain": 0}
 # the register-blocked K9's own counters
 rb_launches = dict.fromkeys(RB_DEBUG_KERNELS.values(), 0)
 rb_plain_calls = {"stripe_rb_capture_plain": 0}
+# the register-blocked packed K9 entries by mode, and their counters
+PACKED_RB_DEBUG_KERNELS = {mode: f"sw_sanitize_packed_rb_{mode}"
+                           for mode in ("linear", "affine", "sub")}
+packed_rb_launches = dict.fromkeys(PACKED_RB_DEBUG_KERNELS.values(), 0)
+packed_rb_plain_calls = {"packed_rb_capture_plain": 0}
 
 
 class Capture(NamedTuple):
@@ -95,6 +117,9 @@ class Capture(NamedTuple):
     scores: torch.Tensor    # (B,) int32: each pair's max (B = 1: one pair)
     R: int = 1              # rows a thread
     C: int = 1              # columns a step
+    # the packed register-blocked capture's map of slots to cells; None:
+    # slot_cells' map, pairs (if several) back to back at n rows each
+    geometry: Optional[pf.PackedGeometry] = None
 
 
 def slot_cells(stripes: int, steps: int, T: int, R: int = 1, C: int = 1,
@@ -123,9 +148,11 @@ def same_capture(k: Capture, p: Capture, skewed: bool = False) -> int:
     read the boundary in the same stripes and, but under the test hook
     (``skewed``), each read must follow its column's release. Raises
     ValueError where they differ."""
-    if (k.T, k.R, k.C) != (p.T, p.R, p.C) or k.h.shape != p.h.shape:
+    if (k.T, k.R, k.C, k.geometry) != (p.T, p.R, p.C, p.geometry) \
+            or k.h.shape != p.h.shape:
         raise ValueError(f"(T, R, C) {(k.T, k.R, k.C)} != {(p.T, p.R, p.C)}"
-                         f" or h {tuple(k.h.shape)} != {tuple(p.h.shape)}")
+                         f", geometry {k.geometry} != {p.geometry} or h "
+                         f"{tuple(k.h.shape)} != {tuple(p.h.shape)}")
     if not torch.equal(k.scores.cpu(), p.scores.cpu()):
         raise ValueError(f"scores {k.scores.tolist()} != "
                          f"{p.scores.tolist()}")
@@ -148,6 +175,29 @@ def rb_debug_kernel_name(scoring: Scoring, substitution) -> str:
     """The register-blocked K9 entry of this scoring, what
     ``stripe_rb_capture`` (and so ``sanitize()``) runs on a card."""
     return RB_DEBUG_KERNELS[sf._mode(scoring, substitution)]
+
+
+def packed_rb_debug_kernel_name(scoring: Scoring, substitution) -> str:
+    """The register-blocked packed K9 entry of this scoring, what
+    ``packed_rb_capture`` (and so ``sanitize_pairs_packed``) runs on a
+    card."""
+    return PACKED_RB_DEBUG_KERNELS[sf._mode(scoring, substitution)]
+
+
+def packed_rb_capture_geometry(b: torch.Tensor, scoring: Scoring,
+                               substitution: Optional[torch.Tensor],
+                               T: Optional[int] = None,
+                               R: Optional[int] = None,
+                               C: Optional[int] = None) -> tuple:
+    """((T, R, C), geometry) of ``packed_rb_capture`` over b's (B, n)
+    rows: ``rb_shape``'s 'packed_debug' kind, by default the (T, R, C)
+    that ``pairs_packed_score`` runs, and ``packed_rb_geometry`` there (T
+    the launch's)."""
+    B, n = b.shape
+    T, R, C = sf.rb_shape(n, T, R, C, sf._mode(scoring, substitution),
+                          _alphabet(substitution), "packed_debug")
+    geo = pf.packed_rb_geometry(B, n, T, R)
+    return (geo.T, R, C), geo
 
 
 def rb_capture_shape(b: torch.Tensor, scoring: Scoring,
@@ -218,6 +268,87 @@ def stripe_rb_capture_plain(a: torch.Tensor, b: torch.Tensor,
     return Capture(h, seen, T, best.view(1), R, C)
 
 
+def packed_rb_capture(a: torch.Tensor, b: torch.Tensor,
+                      scoring: Scoring = Scoring(), T: Optional[int] = None,
+                      R: Optional[int] = None, C: Optional[int] = None,
+                      substitution: Optional[torch.Tensor] = None,
+                      skew: int = 0) -> Capture:
+    """The packed K9: B pairs, a (B, m) against b (B, n), on the packed
+    form of the register-blocked stripe, ``pairs_packed_score``'s fill
+    with the capture, at ``packed_rb_capture_geometry``'s (T, R, C) and
+    geometry on both devices; ``skew``: the hand-off test hook, 0 in a
+    sanitizer run."""
+    if sf._route(a, b, scoring, substitution, batched=True) == "cpu":
+        return packed_rb_capture_plain(a, b, scoring, T, R, C, substitution,
+                                       skew)
+    (T, R, C), geo = packed_rb_capture_geometry(b, scoring, substitution, T,
+                                                R, C)
+    h, seen = _buffers(b.shape[1], a.shape[1], T, skew, a.device, R, C,
+                       geo.stripes)
+    args, row_best = pf.packed_args(a, b, scoring, substitution, geo, C)
+    name = packed_rb_debug_kernel_name(scoring, substitution)
+    sf._call(name, a.device, args + [h.data_ptr(), seen.data_ptr(), skew],
+             name, packed_rb_launches)
+    return Capture(h, seen, T, pf._reduce_rows(row_best).scores, R, C, geo)
+
+
+def packed_rb_capture_plain(a: torch.Tensor, b: torch.Tensor,
+                            scoring: Scoring = Scoring(),
+                            T: Optional[int] = None, R: Optional[int] = None,
+                            C: Optional[int] = None,
+                            substitution: Optional[torch.Tensor] = None,
+                            skew: int = 0) -> Capture:
+    """Plain PyTorch version of the packed register-blocked K9 entries, on
+    any device: one ``scan_fill`` per segment of a pair inside a stripe,
+    a segment that continues its pair from the stripe above's last row
+    (shifted under ``skew``), its H gathered into the tile layout through
+    the geometry's ``cells``."""
+    packed_rb_plain_calls["packed_rb_capture_plain"] += 1
+    (T, R, C), geo = packed_rb_capture_geometry(b, scoring, substitution, T,
+                                                R, C)
+    (B, m), n = a.shape, b.shape[1]
+    dev = a.device
+    h, seen = _buffers(n, m, T, skew, dev, R, C, geo.stripes)
+    steps, tpp = h.shape[1], geo.tpp
+    _, i_all, j_all = geo.cells(steps, C, dev)
+    sched = (torch.arange(steps, device=dev)[None, :] <
+             geo.stripe_steps(m, C).to(dev)[:, None])
+    table = sf._table(substitution)
+    scores = torch.zeros(B, dtype=torch.int32, device=dev)
+    bottom = {}                         # pair -> its stripe above's last row
+    for s in range(geo.stripes):
+        ss = s % geo.spp
+        # every slot the stripe runs: 0 unless a segment's cell lies there
+        h[s] = torch.where(sched[s].view(-1, 1, 1, 1), 0, UNSCHEDULED)
+        for p in range(geo.per):
+            g = s // geo.spp if geo.spp > 1 else s * geo.per + p
+            if g >= B:
+                break
+            lo = ss * geo.T * R
+            hi = min(n, lo + tpp * R)
+            kw = {}
+            if ss:
+                top, top_f = bottom[g]
+                kw["top_row"] = _shift(top, skew, 0)
+                if scoring.is_affine:
+                    kw["top_f"] = _shift(top_f, skew, NEG)
+                seen[s, 1:] = m
+            out = scan_fill(a[g], b[g, lo:hi], scoring=scoring,
+                            return_h=True, sub_table=table, **kw)
+            H = diag_to_rowmajor(out.h_diag, hi - lo, m)
+            ks = slice(p * tpp, (p + 1) * tpp)
+            i = i_all[s, :, ks] - lo                 # the segment's row
+            j = j_all[s, :, ks].expand(steps, -1, R, C)
+            inside = (j >= 1) & (j <= m) & (i <= hi - lo)
+            cells = torch.where(inside, H[i.clamp(max=hi - lo),
+                                          j.clamp(0, m)], 0)
+            h[s, :, ks] = torch.where(sched[s].view(-1, 1, 1, 1), cells,
+                                      UNSCHEDULED)
+            scores[g] = torch.maximum(scores[g], out.max_score)
+            bottom[g] = out.bottom_row, out.bottom_f
+    return Capture(h, seen, T, scores, R, C, geo)
+
+
 def stripe_capture(a: torch.Tensor, b: torch.Tensor,
                    scoring: Scoring = Scoring(), T: Optional[int] = None,
                    substitution: Optional[torch.Tensor] = None,
@@ -279,14 +410,16 @@ def _packed_rows(b, T, sub) -> int:
 
 
 def _buffers(n: int, m: int, T: int, skew: int, dev: torch.device,
-             R: int = 1, C: int = 1) -> tuple:
+             R: int = 1, C: int = 1, stripes: Optional[int] = None) -> tuple:
     """(h, seen) of a capture of n rows by m columns at T threads of R rows
-    and C columns a step: h all UNSCHEDULED, (stripes, ceil(m / C) + T -
-    1, T, R, C); seen all -1. Raises ValueError above SANITIZE_MAX_SLOTS
-    (which keeps n far below int32's range) or for a negative skew."""
+    and C columns a step (``stripes`` of them, by default ceil(n / (T *
+    R))): h all UNSCHEDULED, (stripes, ceil(m / C) + T - 1, T, R, C); seen
+    all -1. Raises ValueError above SANITIZE_MAX_SLOTS (which keeps n far
+    below int32's range) or for a negative skew."""
     if skew < 0:
         raise ValueError(f"skew must be >= 0, got {skew}")
-    stripes = -(-n // (T * R))
+    if stripes is None:
+        stripes = -(-n // (T * R))
     shape = (stripes, -(-m // C) + T - 1, T, R, C)
     slots = stripes * shape[1] * T * R * C
     if slots > SANITIZE_MAX_SLOTS:

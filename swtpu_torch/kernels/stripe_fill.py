@@ -158,6 +158,9 @@ RB_DEBUG_TILES = ((8, 4), RB_WIDE_TILE)
 # window against 64 DNA reads of 5000 rows and 256 protein queries of
 # 600 residues, where T clamps to 96), (128, 8, 4) came within 1 % of
 # the fastest point for K8[band] and within 7 % for K6 (PERF.md section 6)
+# the packed form (K7, csrc/stripe_rb_packed.cu, T up to RB_MAX_THREADS)
+# takes RB_FORM_TILES and RB_DEFAULTS too, and its capture (the packed K9,
+# csrc/stripe_rb_packed_debug.cu) K9's RB_DEBUG_TILES and launch bounds
 # K4 stores a row's codes of a tile at once, into rows of a pitch rounded
 # up to P_PITCH_ALIGN bytes and shifted so that column 1 is word-aligned
 P_PITCH_ALIGN = 16
@@ -242,44 +245,52 @@ def rb_shape(n: int, T: Optional[int] = None, R: Optional[int] = None,
     launch of ``kind`` ('score' K1-K3, 'fill_p' K4, 'block' K5, the band
     form K4b, 'band' and 'fill_p_band', the capture form K9, 'debug', the
     batch form K8, 'pairs', over each pair's n rows, its band form
-    K8[band], 'pairs_band', or its shared-window form K6, 'window', over
-    each read's n rows) in ``mode`` ('linear', 'affine' or 'sub', an
-    alphabet of A symbols) over n rows: T threads (default the form's,
-    RB_DEFAULTS (K1-K3, K9, K8, K8[band] and K6), RB_P_DEFAULTS,
+    K8[band], 'pairs_band', its shared-window form K6, 'window', over
+    each read's n rows, or its packed form K7, 'packed', and that form's
+    capture, the packed K9, 'packed_debug', over each pair's n rows) in
+    ``mode`` ('linear', 'affine' or 'sub', an alphabet of A symbols) over
+    n rows: T threads (default the form's, RB_DEFAULTS (K1-K3, K9, K8,
+    K8[band], K6, K7 and the packed K9), RB_P_DEFAULTS,
     RB_BLOCK_DEFAULTS, RB_BAND_DEFAULTS or RB_BAND_P_DEFAULTS; a multiple
-    of 32 up to RB_MAX_THREADS, each holding R rows; K1-K3, K8, K8[band]
-    and K6 in the form's RB_FORM_TILES, K9 in RB_DEBUG_TILES, the others
-    in RB_EXT_TILES; every form but K1-K3, K8 and K6 above
-    RB_EXT_MAX_THREADS only in RB_WIDE_TILE, its default there), no more
-    than ceil(n / R) needs, rounded up to a warp, and, for a table, no
+    of 32 up to RB_MAX_THREADS, each holding R rows; K1-K3, K8, K8[band],
+    K6 and K7 in the form's RB_FORM_TILES, K9 and the packed K9 in
+    RB_DEBUG_TILES, the others in RB_EXT_TILES; every form but K1-K3, K8,
+    K6 and K7 above RB_EXT_MAX_THREADS only in RB_WIDE_TILE, its default
+    there), no more than ceil(n / R) needs, rounded up to a warp (K7 and
+    the packed K9: rounded by ``pairs_fill.packed_rb_geometry`` instead,
+    to the warps of the whole pairs a stripe holds), and, for a table, no
     more than the profile's shared memory holds (RB_PROFILE_BYTES, with
     K9's capture staging beside it)."""
-    if kind in ("score", "pairs", "pairs_band", "window"):
+    if kind in ("score", "pairs", "pairs_band", "window", "packed"):
         defaults, tiles = RB_DEFAULTS, RB_FORM_TILES[mode]
     else:
         defaults = {"fill_p": RB_P_DEFAULTS, "block": RB_BLOCK_DEFAULTS,
                     "band": RB_BAND_DEFAULTS,
                     "fill_p_band": RB_BAND_P_DEFAULTS,
-                    "debug": RB_DEFAULTS}[kind]
-        tiles = RB_DEBUG_TILES if kind == "debug" else RB_EXT_TILES
+                    "debug": RB_DEFAULTS, "packed_debug": RB_DEFAULTS}[kind]
+        tiles = (RB_DEBUG_TILES if kind in ("debug", "packed_debug")
+                 else RB_EXT_TILES)
     dT, dR, dC = defaults[mode]
     T = dT if T is None else T
     if T < 32 or T > RB_MAX_THREADS or T % 32:
         raise ValueError(f"threads T={T} of the register-blocked {kind} "
                          "kernels must be a multiple of 32 in [32, "
                          f"{RB_MAX_THREADS}]")
-    if kind not in ("score", "pairs", "window") and T > RB_EXT_MAX_THREADS:
+    if kind not in ("score", "pairs", "window", "packed") \
+            and T > RB_EXT_MAX_THREADS:
         (dR, dC), tiles = RB_WIDE_TILE, (RB_WIDE_TILE,)
     R, C = dR if R is None else R, dC if C is None else C
     if (R, C) not in tiles:
         raise ValueError(f"rows per thread R={R} and columns per step C={C}"
                          f" must be one of the {mode} {kind} tiles {tiles}"
                          f" at T={T}")
-    T = min(T, -(-(-(-n // R)) // 32) * 32)
+    if kind not in ("packed", "packed_debug"):
+        T = min(T, -(-(-(-n // R)) // 32) * 32)
     if mode == "sub":
         # the profile, and K9's capture staging (R * C / 4 + 1 int4 a thread)
         rows = min(A, RB_MAX_SYMBOLS) + 1
-        per = 4 * rows * R + (16 * (R * C // 4 + 1) if kind == "debug" else 0)
+        per = 4 * rows * R + (16 * (R * C // 4 + 1)
+                              if kind in ("debug", "packed_debug") else 0)
         T = min(T, RB_PROFILE_BYTES // per // 32 * 32)
     return T, R, C
 

@@ -331,7 +331,8 @@ def test_cpu_tensors_run_the_plain_version():
         "sw_pairs_score_sub", "sw_pairs_score_linear[band]",
         "sw_pairs_score_affine[band]", "sw_pairs_score_sub[band]",
         "sw_packed_score_linear", "sw_packed_score_affine",
-        "sw_packed_score_sub"}
+        "sw_packed_score_sub", "sw_packed_rb_linear", "sw_packed_rb_affine",
+        "sw_packed_rb_sub"}
     sf.plain_calls["stripe_score_plain"] += 1
     pf.reset_counts()                # zeroes the single-pair counters too
     assert not any(pf.plain_calls.values())
@@ -475,9 +476,9 @@ def test_public_batch_calls_launch_the_kernels_on_card(cuda):
     want_band = _triple(tbatch.batch_score(aa, bb, band=4, device="cpu"))
     pf.reset_counts()
     assert _triple(swtpu_torch.batch_score(aa, bb)) == want
-    # no stripe height cuts K7's chain at n = 90, so 'auto' runs K8
+    # 'auto' runs K8
     assert pf.launches["sw_pairs_rb_linear"] == 1
-    assert pf.launches["sw_packed_score_linear"] == 0
+    assert pf.launches["sw_packed_rb_linear"] == 0
     for plan in ("stripe", "packed"):
         assert _triple(swtpu_torch.batch_score(aa, bb, plan=plan)) == want
     assert _triple(swtpu_torch.batch_score(aa, bb, band=4)) == want_band
@@ -489,7 +490,9 @@ def test_public_batch_calls_launch_the_kernels_on_card(cuda):
     assert pf.launches["sw_pairs_score_linear"] == 0
     assert pf.launches["sw_pairs_rb_band_linear"] == 1
     assert pf.launches["sw_pairs_score_linear[band]"] == 0
-    assert pf.launches["sw_packed_score_linear"] >= 1
+    # plan='packed' runs K7's packed form, the template's K7 on no route
+    assert pf.launches["sw_packed_rb_linear"] == 1
+    assert pf.launches["sw_packed_score_linear"] == 0
     assert not any(pf.plain_calls.values())
     assert not any(sf.plain_calls.values())
 

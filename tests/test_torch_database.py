@@ -475,8 +475,10 @@ def test_align_hits_unknown_base(monkeypatch):
     """A read with an unknown base (-1): the JAX package's native host
     tier, which its align_hits takes on the CPU, renders the base as a gap
     ('-', its own gap marker) and so counts a deletion in the CIGAR; its
-    scan plan renders it as the alignment of an aligned base. The port's
-    align_hits follows the JAX scan plan (ROADMAP Queue 3)."""
+    scan plan aligns the base but prints the alphabet's last letter ('T')
+    for it. The port aligns it as the scan plan does and renders it as
+    itself, 'N': every field equal to the scan plan's record but that one
+    letter of the aligned read."""
     import swtpu.runtime_native as rn
     q, ref = _mapping_batch()
     jh = jdb.search(q, ref, window=512, plan="scan")
@@ -487,7 +489,12 @@ def test_align_hits_unknown_base(monkeypatch):
         host = jdb.align_hits(jh, q, ref, reads=[2])
         assert host[0].cigar == "7M1D32M"      # the base counted as a gap
     monkeypatch.setattr(rn, "available", lambda: False)   # the scan plan
-    assert _records(got) == _records(jdb.align_hits(jh, q, ref, reads=[2]))
+    want = jdb.align_hits(jh, q, ref, reads=[2])
+    read, jread = got[0].aligned_read, want[0].aligned_read
+    at = [x for x, (c, d) in enumerate(zip(read, jread)) if c != d]
+    assert len(read) == len(jread) and [(read[x], jread[x]) for x in at] == [
+        ("N", "T")]
+    assert _records([got[0]._replace(aligned_read=jread)]) == _records(want)
 
 
 def test_hits_from_jax_names_and_dtypes():

@@ -167,9 +167,10 @@ def test_skewed_hand_off_is_caught():
     tsan.sanitize_stripe(a, b, T=128, device="cpu")
     with pytest.raises(tsan.SanitizeError, match="!= oracle"):
         tsan.sanitize_stripe(a, b, T=128, device="cpu", skew=1)
-    aa, bb = random_batch(4, 40, 130, seed=7)       # 3 stripes at T=256
+    # K7's packed form at (128, 8, 4): each pair 2 stripes of its own
+    aa, bb = random_batch(4, 40, 1100, seed=7)
     rep = tsan.sanitize_pairs_packed(aa, bb, device="cpu")
-    assert rep.config == (256, 1, 1, 3)
+    assert rep.config == (128, 8, 4, 8)
     with pytest.raises(tsan.SanitizeError, match="!= oracle"):
         tsan.sanitize_pairs_packed(aa, bb, device="cpu", skew=1)
 
@@ -349,7 +350,7 @@ def test_skew_is_caught_on_card(cuda):
     assert df.same_capture(k, p, skewed=True) == 0
     with pytest.raises(tsan.SanitizeError):
         tsan.sanitize_stripe(a, b, T=128, skew=1)
-    aa, bb = random_batch(4, 40, 130, seed=7)
+    aa, bb = random_batch(4, 40, 1100, seed=7)     # pairs across stripes
     with pytest.raises(tsan.SanitizeError):
         tsan.sanitize_pairs_packed(aa, bb, skew=1)
 
@@ -364,6 +365,9 @@ def test_sanitize_launches_k9_on_card(cuda):
     assert tsan.sanitize_pairs_packed(aa, bb).valid_cells == 6 * 60 * 90
     assert df.rb_launches["sw_sanitize_rb_linear"] == 1
     assert df.launches["sw_sanitize_stripe_linear"] == 0
-    assert df.launches["sw_sanitize_packed_linear"] == 1
+    # sanitize_pairs_packed captures K7's packed form, not the template's
+    assert df.packed_rb_launches["sw_sanitize_packed_rb_linear"] == 1
+    assert df.launches["sw_sanitize_packed_linear"] == 0
     assert not any(df.plain_calls.values())
     assert not any(df.rb_plain_calls.values())
+    assert not any(df.packed_rb_plain_calls.values())
