@@ -77,6 +77,7 @@ Without a CUDA device it fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import multiprocessing
@@ -2537,6 +2538,325 @@ def drive_search(dev) -> tuple:
     return lines, walls
 
 
+# ---- the dispatch phase: the host tiers, the crossovers, the tuned table
+
+# the host crossover's squares, each tier timed against the card (three
+# runs a point, the fastest kept; dispatch.autotune.host_crossover)
+CROSS_HOST = (128, 256, 384, 512, 768)
+CROSS_SIMD = (512, 1024, 2048, 3072)
+# the OpenMP probes in child processes: the batch the children score, and
+# how long a forked child may take before it counts as hung
+OMP_BATCH = (64, 300, 400)
+FORK_WAIT_S = 5.0
+# the search of one window: the search's reads against the reference's
+# first DISPATCH_WINDOW - qlen bases, one window of DISPATCH_WINDOW columns
+# (the host SIMD fill's positions ride int16 lanes: at most 32767)
+DISPATCH_WINDOW = 32767
+# tuned lookups, score-only, DNA linear
+TUNED_SIZES = (2048, 8192, 25632)
+
+
+def _in_turns(new, old, reps: int = 2) -> tuple:
+    """(best new s, best old s, new's result, old's result): new, old,
+    old, new, ..., host clocks around calls that end on the host."""
+    t_new, t_old, r_new, r_old = [], [], None, None
+    for k in range(reps):
+        for which in ((new, old) if k % 2 == 0 else (old, new)):
+            t0 = time.perf_counter()
+            got = which()
+            dt = time.perf_counter() - t0
+            if which is new:
+                t_new.append(dt)
+                r_new = got
+            else:
+                t_old.append(dt)
+                r_old = got
+    return min(t_new), min(t_old), r_new, r_old
+
+
+_OMP_CHILD = """
+import json, sys, numpy as np, torch
+from swtpu_torch import runtime_native as rn
+B, m, n = {shape}
+rng = np.random.default_rng(7)
+aa = rng.integers(0, 4, (B, m)).astype(np.int8)
+bb = rng.integers(0, 4, (B, n)).astype(np.int8)
+x = torch.randn(512, 512)
+s = float((x @ x).sum())
+got = [v.tolist() for v in rn.score_simd_batch(aa, bb)]
+print(json.dumps({{"omp": rn.omp_threads(), "torch": torch.get_num_threads(),
+                  "got": got}}))
+"""
+
+
+def _omp_batch() -> tuple:
+    B, m, n = OMP_BATCH
+    rng = np.random.default_rng(7)
+    return (rng.integers(0, 4, (B, m)).astype(np.int8),
+            rng.integers(0, 4, (B, n)).astype(np.int8))
+
+
+def _omp_fork_child(what: str, conn) -> None:
+    """A forked child's work: a torch matmul on the host, or the native
+    batch scorer; sends 'ok' when it returns."""
+    from swtpu_torch import runtime_native as rn
+    if what == "torch":
+        x = torch.randn(512, 512)
+        float((x @ x).sum())
+    else:
+        rn.score_simd_batch(*_omp_batch())
+    conn.send("ok")
+
+
+def omp_coexistence(rn) -> list:
+    """The native library's OpenMP runtime beside torch's: the runtimes
+    this process maps and their threads, the batch scorer's answers in a
+    spawned interpreter (as the mesh's ranks start) after this process ran
+    both, and whether a child forked after both runs either. A spawned
+    child that fails or disagrees fails the run; a forked one is reported
+    (nothing in the port forks)."""
+    aa, bb = _omp_batch()
+    x = torch.randn(512, 512)
+    float((x @ x).sum())
+    want = [v.tolist() for v in rn.score_simd_batch(aa, bb)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c",
+                           _OMP_CHILD.format(shape=OMP_BATCH)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(Path(__file__).resolve().parent))
+    require(proc.returncode == 0, f"spawned OpenMP child: {proc.stderr}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(child["got"] == want, "spawned OpenMP child: batch scores differ")
+    spawn_s = time.perf_counter() - t0
+    forked = []
+    ctx = multiprocessing.get_context("fork")
+    for what in ("torch", "native"):
+        recv, send = ctx.Pipe(duplex=False)
+        p = ctx.Process(target=_omp_fork_child, args=(what, send))
+        p.start()
+        ok = recv.poll(FORK_WAIT_S)
+        if p.is_alive():
+            p.kill()
+        p.join()
+        forked.append(f"{what} {'returned' if ok else 'hung (killed)'}")
+    runtimes = sorted({ln.split()[-1] for ln in open("/proc/self/maps")
+                       if "gomp" in ln or "iomp" in ln or "libomp" in ln})
+    return [f"OpenMP: runtimes mapped {runtimes}; native regions "
+            f"{rn.omp_threads()} threads, torch {torch.get_num_threads()}; "
+            f"a spawned child after both: native {child['omp']} threads, "
+            f"torch {child['torch']}, the {OMP_BATCH[0]}x{OMP_BATCH[1]}x"
+            f"{OMP_BATCH[2]} batch equal, in {spawn_s:.1f} s; a child forked "
+            f"after both: {', '.join(forked)} within {FORK_WAIT_S} s"]
+
+
+def drive_dispatch(dev) -> list:
+    """The host tiers and the dispatch layer on the card: the native build
+    and its OpenMP runtime beside torch's (in this process, a spawned and
+    a forked child), the SIMD rate and the card's floor as a check on the
+    committed crossovers, the crossovers measured again, the host tiers
+    serving through the public calls against the kernels and the plain
+    versions, align_hits and map_reads against the K4 route (the host
+    tier off) in turns, tuned lookups and a small sweep. Returns phase
+    lines."""
+    from swtpu_torch import runtime_native as rn
+    from swtpu_torch.core import config as cf
+    from swtpu_torch.dispatch import autotune as at
+    from swtpu_torch.dispatch import plan as dp
+    from swtpu_torch.engine import align as ealign
+    from swtpu_torch.kernels import _native
+    lines = []
+    t0 = time.perf_counter()
+    _native.library()
+    lines.append(f"host library {_native.BUILD.path.name}: "
+                 f"{_native.BUILD.cxx} {_native.BUILD.seconds:.2f} s, "
+                 f"loaded in {time.perf_counter() - t0:.2f} s, flags "
+                 f"{' '.join(_native.BUILD.flags)}; host "
+                 f"{_native.cpu_model()}, {os.cpu_count()} cores"
+                 + (f"; the OpenMP probes failed: {_native.BUILD.openmp_log}"
+                    if _native.BUILD.openmp_log else ""))
+    lines += omp_coexistence(rn)
+    rate = rn.measured_simd_gcups()
+    floor = at.card_floor_s()
+    cap = EngineConfig().simd_cells_cap()
+    require(rate and rate > 0 and cap == cf.HOST_SIMD_MAX_CELLS,
+            f"SIMD rate {rate}, the SIMD cap {cap}")
+    lines.append(f"SIMD fill {rate:.3f} GCUPS a core (min of 5 at 1056^2) "
+                 f"x card floor {floor * 1e6:.1f} us (min of "
+                 f"{at.FLOOR_PROBE_CALLS} warm score() at "
+                 f"{at.FLOOR_PROBE_N}^2) = {int(rate * 1e9 * floor)} cells, "
+                 f"a check on the committed caps: host_simd_max_cells "
+                 f"{cap} (~{int(cap ** 0.5)}^2), host_max_cells "
+                 f"{cf.HOST_MAX_CELLS} (~{int(cf.HOST_MAX_CELLS ** 0.5)}^2)")
+    cross = at.host_crossover(CROSS_HOST, CROSS_SIMD, k=3, verbose=False)
+    for tier in ("host", "simd"):
+        lines.append(f"{tier} tier wins up to {cross[tier + '_max_side']}^2"
+                     ": " + ", ".join(
+                         f"{r['side']}^2 {r['host_s'] * 1e3:.3f}/"
+                         f"{r['card_s'] * 1e3:.3f} ms"
+                         for r in cross[tier]) + " (host/card)")
+
+    # align() at 64^2 and score() under the cap, 'auto' against 'stripe'
+    # and the plain version, in each scoring
+    side = max(16, min(1024, int(cap ** 0.5) // 2))
+    for mode in MODES:
+        sc, S, alphabet, make = MODELS[mode]
+        kw = dict(substitution=S, alphabet=alphabet)
+        a, b = make(64, 64)
+        pf.reset_counts()
+        r = swtpu_torch.align(a, b, sc, device=dev, **kw)
+        require(r.plan == "host" and not any(sf.launches.values()),
+                f"{mode} align 64^2 auto: plan {r.plan}, {sf.launches}")
+        k = swtpu_torch.align(a, b, sc, plan="stripe", device=dev, **kw)
+        p = swtpu_torch.align(a, b, sc, plan="scan", device="cpu", **kw)
+        fields = [(x.max_score, x.max_i, x.max_j, x.last_cell, x.path,
+                   x.aligned_a, x.aligned_b) for x in (r, k, p)]
+        require(fields[0] == fields[1] == fields[2] and k.plan == "stripe"
+                and sf.launches[sf.fill_kernel_name(sc, S)] == 1,
+                f"{mode} align 64^2: host {fields[0]} stripe {fields[1]} "
+                f"plain {fields[2]}")
+        a, b = make(side, side)
+        got = None
+        if rn.simd_shape_ok(side, side, sc, S) and side * side <= cap:
+            pf.reset_counts()
+            r = swtpu_torch.align(a, b, sc, traceback=False, device=dev,
+                                  **kw)
+            require(r.plan == "host-simd" and not any(sf.launches.values()),
+                    f"{mode} score {side}^2 auto: plan {r.plan}")
+            got = (r.max_score, r.max_i, r.max_j, r.last_cell)
+            k = swtpu_torch.align(a, b, sc, traceback=False, plan="stripe",
+                                  device=dev, **kw)
+            p = swtpu_torch.align(a, b, sc, traceback=False, plan="scan",
+                                  device="cpu", **kw)
+            require(got == (k.max_score, k.max_i, k.max_j, k.last_cell)
+                    == (p.max_score, p.max_i, p.max_j, p.last_cell)
+                    and swtpu_torch.score(a, b, sc, device=dev,
+                                          substitution=S) == got[0],
+                    f"{mode} score {side}^2: host-simd {got} != the kernel "
+                    "or the plain version")
+        lines.append(f"[{mode}] align 64^2 auto -> host, equal to "
+                     f"plan='stripe' (K4) and the plain version; score "
+                     f"{side}^2 auto -> "
+                     + ("host-simd " + str(got) + ", equal" if got else
+                        "not under the cap (the SIMD gate)"))
+
+    # batch_score(plan='host-simd') against K8 on the batch path's batch
+    B, n = BATCH
+    for mode in MODES:
+        sc, S, _, _ = MODELS[mode]
+        aa, bb = full_batch(mode)
+        kw = dict(substitution=S)
+        host_s, k8_s, hh, kk = _in_turns(
+            lambda: [x.tolist() for x in swtpu_torch.batch_score(
+                aa, bb, sc, plan="host-simd", device=dev, **kw)],
+            lambda: [x.tolist() for x in swtpu_torch.batch_score(
+                aa, bb, sc, plan="stripe", device=dev, **kw)])
+        require(hh == kk, f"{mode} batch_score host-simd != K8")
+        lines.append(f"[{mode}] batch_score {B}x{n}^2 host-simd "
+                     f"{host_s * 1e3:.1f} ms vs K8 {k8_s * 1e3:.1f} ms "
+                     "(walls, in turns), equal")
+
+    # search(plan='host-simd') against K6 over one window
+    Bq, qlen, _ = DB
+    for mode in MODES:
+        sc, S, _, _ = MODELS[mode]
+        ref, reads, _ = db_inputs(mode)
+        ref = ref[:DISPATCH_WINDOW - qlen]
+        kw = dict(scoring=sc, substitution=S, window=DISPATCH_WINDOW,
+                  device=dev)
+        host_s, k6_s, hh, kk = _in_turns(
+            lambda: [x.tolist() for x in swtpu_torch.search(
+                reads, ref, plan="host-simd", **kw)],
+            lambda: [x.tolist() for x in swtpu_torch.search(
+                reads, ref, plan="stripe", **kw)])
+        require(hh == kk, f"{mode} search host-simd != K6")
+        lines.append(f"[{mode}] search {Bq}x{qlen} x one {DISPATCH_WINDOW}"
+                     f"-column window: host-simd {host_s * 1e3:.1f} ms vs "
+                     f"K6 {k6_s * 1e3:.1f} ms (walls, in turns), equal")
+
+    # align_hits(top=512) and map_reads: the host tier against the K4
+    # route (every re-alignment a K4 launch, the copy of P, a host walk)
+    sc, S, alphabet, _ = MODELS["linear"]
+    ref, reads, _ = db_inputs("linear")
+    hits = swtpu_torch.search(reads, ref, device=dev)
+    records, mreads, _ = map_inputs()
+
+    real_choose = ealign.choose_exec
+
+    def no_host_tier(m, n, config, *args, **kw):
+        return real_choose(m, n, dataclasses.replace(config,
+                                                     host_max_cells=0),
+                           *args, **kw)
+
+    def new(fn):
+        return fn()
+
+    def old(fn):
+        ealign.choose_exec = no_host_tier
+        try:
+            return fn()
+        finally:
+            ealign.choose_exec = real_choose
+
+    def hits_fn():
+        return [tuple(r) for r in swtpu_torch.align_hits(
+            hits, reads, ref, sc, top=TOP_HITS, device=dev)]
+
+    def map_fn():
+        return [tuple(r) for r in swtpu_torch.map_reads(
+            records, mreads, ref_names=MAP_NAMES, device=dev).records]
+
+    pf.reset_counts()
+    new(hits_fn)
+    k4 = sf.fill_kernel_name(sc, S)
+    require(sf.launches[k4] == 0, f"align_hits on the host tier ran {k4}")
+    h_new, h_old, rh_new, rh_old = _in_turns(lambda: new(hits_fn),
+                                             lambda: old(hits_fn))
+    require(rh_new == rh_old and sf.launches[k4] >= 2 * TOP_HITS,
+            f"align_hits: host tier != the K4 route, or {k4} ran "
+            f"{sf.launches[k4]} times")
+    m_new, m_old, rm_new, rm_old = _in_turns(lambda: new(map_fn),
+                                             lambda: old(map_fn))
+    require(rm_new == rm_old, "map_reads: host tier != the K4 route")
+    lines.append(f"[linear] align_hits(top={TOP_HITS}) host tier "
+                 f"{h_new:.3f} s vs the K4 route (host tier off) "
+                 f"{h_old:.3f} s; "
+                 f"map_reads {MAP_READS}x{MAP_LEN} {m_new:.3f} s vs "
+                 f"{m_old:.3f} s (walls, best of 2 in turns); records equal")
+
+    # tuned lookups, and the score they run against the defaults'
+    pol = dp._tuned_policy()
+    looked = []
+    for s in TUNED_SIZES:
+        e = dp.choose_exec(s, s, EngineConfig(), SCORING, False, dev)
+        looked.append(f"{s}^2 -> {e.plan} T={e.T} R={e.R} C={e.C} "
+                      f"({e.source})")
+        a, b = random_pair(s, s, seed=0)
+        require(swtpu_torch.score(a, b, device=dev) == swtpu_torch.score(
+            a, b, plan="stripe", device=dev), f"tuned score {s}^2")
+    stamp = None if pol is None else pol.table.get("device")
+    lines.append(f"tuned table {'loaded' if pol else 'not loaded'} "
+                 f"(stamp {stamp}): " + "; ".join(looked)
+                 + "; each score() equal to the defaults'")
+
+    # a two-size, three-tile sweep (DNA affine: its form's three tiles)
+    t0 = time.perf_counter()
+    table = at.sweep(sizes=(2048, 8192), threads=(128,), scoring=DNA_AFFINE,
+                     k=3, verbose=False)
+    rows = []
+    for e in table["entries"]:
+        fast = min(e["all"], key=lambda r: r["s"])
+        rows.append(f"{e['m']}^2 fastest T={fast['T']} R={fast['R']} "
+                    f"C={fast['C']} {fast['s'] * 1e3:.3f} ms, the default "
+                    f"{e['default']['s'] * 1e3:.3f} ms, spread "
+                    f"{e['spread'] * 100:.1f} % of {len(e['all'])}: "
+                    + ("a winner" if e["best"] else "the default stands"))
+    require(all(len(e["all"]) == 3 for e in table["entries"])
+            and at.stamp_matches(table), "autotune.sweep's table")
+    lines.append(f"autotune.sweep [affine] in {time.perf_counter() - t0:.1f}"
+                 f" s: " + "; ".join(rows))
+    return lines
+
+
 # ---- the sanitize path ----
 
 SANITIZE_N = 4096                  # sanitize() at 4096^2: 16.8 M cells
@@ -3427,10 +3747,17 @@ def run(dev, name: str, start: float, pool, scans) -> int:
           f"{ref_s:.1f} s (in a process of their own, beside the kernel "
           f"phases), equal to the known values {refs}")
 
+    # ---- the host tiers and the dispatch layer (no counted path) ----
+    t0 = time.perf_counter()
+    for ln in drive_dispatch(dev):
+        phase("dispatch", ln)
+    phase("dispatch", f"dispatch phase in {time.perf_counter() - t0:.1f} s")
+
     # ---- the full-P path: public calls only, counted from zero ----
     sf.reset_counts()
+    # the golden pair is far below host_max_cells: pinned to the kernels
     r = swtpu_torch.align(swtpu_torch.BUILTIN_A, swtpu_torch.BUILTIN_B,
-                          device="cuda")
+                          plan="stripe", device="cuda")
     require((r.max_score, r.max_pos, r.last_cell) == (13, 69, 7)
             and (r.aligned_a, r.aligned_b) == ("GTT-AC", "GTTGAC"),
             f"golden: {r}")

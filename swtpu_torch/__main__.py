@@ -176,8 +176,9 @@ def main(argv=None) -> int:
                     help="rows (length of b)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--plan", default=None,
-                    choices=["auto", "stripe", "scan"],
-                    help="execution plan (default: dispatch by device)")
+                    choices=["host", "scan", "stripe", "pipeline", "auto"],
+                    help="execution plan (default: dispatch by device, "
+                         "size and the tuned table)")
     ap.add_argument("--sanitize", action="store_true",
                     help="run the stripe kernel's structural sanitizer on "
                          "this input (every cell captured and checked "

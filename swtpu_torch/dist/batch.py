@@ -8,22 +8,34 @@ buckets, one ``batch_score`` per bucket), and ``batch_align`` /
 without a card; it never carries on on the CPU.
 
 Plans of ``batch_score``: 'stripe' (K8, the pair grid), 'packed' (K7,
-packed pairs), 'scan' (the plain batched sweep), 'pipeline' (with
-``mesh=``: the bubble-filled column-stripe pipeline, ``dist.pipeline``)
-and 'auto'. On a card 'auto' runs K8 (``auto_plan``) where the kernels
-take the scoring, and the plain sweep on the card where they do not,
-decided before any launch (``dispatch.plan.runs_kernels``), as the JAX
-package runs its scan there; on the CPU every plan runs the sweep. With a
-mesh, pairs wider than the kernels' MAX_WIDTH, or ``plan='pipeline'``,
-take the pipeline across the mesh axis; otherwise the mesh's device
-serves the call.
+packed pairs), 'scan' (the plain batched sweep), 'host-simd' (the striped
+SIMD fill on the host, ``runtime_native.score_simd_batch``, OpenMP across
+the pairs, its answers moved to ``device``), 'pipeline' (with ``mesh=``:
+the bubble-filled column-stripe pipeline, ``dist.pipeline``) and 'auto'.
+On a card 'auto' runs K8 (``auto_plan``) where the kernels take the
+scoring, and the plain sweep on the card where they do not, decided
+before any launch (``dispatch.plan.runs_kernels``), as the JAX package
+runs its scan there; on the CPU every plan but 'host-simd' runs the
+sweep. 'auto' never takes 'host-simd', as the JAX package's does not on
+a TPU. 'host-simd' raises ValueError with a mesh, with a band, or where
+the SIMD fill refuses the problem (``simd_reject_reason``). With a mesh,
+pairs wider than the kernels' MAX_WIDTH, or ``plan='pipeline'``, take the
+pipeline across the mesh axis; otherwise the mesh's device serves the
+call.
+
+``batch_align`` and ``align_many`` re-align each chosen pair with the
+default ``EngineConfig``, whose ``host_max_cells`` is the card machine's
+measured crossover (``core.config.HOST_MAX_CELLS``, 192^2), where the JAX
+package raises it to 2^20: on a card a pair that small runs the native
+serial fill and the host walk rather than a launch and the copy of P, and
+a larger one K4, since above ~192^2 to 256^2 the serial fill and its walk
+lose to the card's full-P ``align()`` (PERF.md section 6).
 
 Across a mesh (every rank calls with the same arguments):
 ``make_sharded_batch_scorer`` scores each rank's slice of the batch with
 ``batch_score`` (K8 on a card) and all-gathers the (B,) results;
 ``make_best_hit_reducer`` merges each rank's best pair into the global
-one with a max, two mins and two sums. Not ported yet: the native host
-tier (``plan='host-simd'``), which raises ValueError.
+one with a max, two mins and two sums.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .. import runtime_native as rn
 from ..core.config import EngineConfig, Scoring
 from ..core.substitution import check_table
 from ..dispatch.plan import runs_kernels
@@ -42,8 +55,7 @@ from ..kernels.pairs_fill import (BatchHits, pairs_packed_score,
 from ..kernels.stripe_fill import MAX_WIDTH
 from .mesh import all_gather, all_reduce, check_mesh, first_axis
 
-PLANS = ("auto", "stripe", "packed", "scan", "pipeline")
-
+PLANS = ("auto", "stripe", "packed", "scan", "host-simd", "pipeline")
 __all__ = ["BatchHits", "BestHit", "batch_score", "score_many",
            "batch_align", "align_many", "make_sharded_batch_scorer",
            "make_best_hit_reducer"]
@@ -79,9 +91,6 @@ def auto_plan(n: int, band: Optional[int], A: int = 0) -> str:
 
 
 def _check_plan(plan: str, band: Optional[int]) -> None:
-    if plan == "host-simd":
-        raise ValueError("plan='host-simd' (the native host SIMD tier) is "
-                         "not ported yet")
     if plan not in PLANS:
         raise ValueError(f"unknown plan {plan!r} (use one of {PLANS})")
     if band is not None and plan in ("stripe", "packed"):
@@ -120,6 +129,9 @@ def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
     ``device`` (with a mesh, its device): each pair's max score and its
     first row-major end cell, bit-equal to the JAX package's."""
     _check_plan(plan, band)
+    if plan == "host-simd":
+        return _host_simd(a_batch, b_batch, scoring, band, mesh,
+                          substitution, device)
     dev = _device(mesh, device)
     m = np.shape(a_batch)[-1]
     if mesh is not None and band is None \
@@ -144,6 +156,30 @@ def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
     if plan == "packed":
         return pairs_packed_score(a, b, scoring, substitution=sub)
     return pairs_score_plain(a, b, scoring, sub, band)
+
+
+def _host_simd(a_batch, b_batch, scoring: Scoring, band, mesh, substitution,
+               device) -> BatchHits:
+    """``batch_score(plan='host-simd')``: the SIMD fill on the host, its
+    (B,) answers moved to ``device``. A forced host tier runs or raises:
+    with a mesh, with a band, or where the fill refuses the problem."""
+    if mesh is not None:
+        raise ValueError("plan='host-simd' batch scoring runs on the host; "
+                         "it cannot be combined with a device mesh")
+    if band is not None:
+        raise ValueError("plan='host-simd' batch scoring does not support "
+                         "band; use plan='auto' or 'scan' for banded "
+                         "batches")
+    dev = resolve_device(device)
+    a, b = _host(a_batch), _host(b_batch)
+    sub_np = None if substitution is None else check_table(substitution)
+    got = rn.score_simd_batch(a, b, scoring, sub_np)
+    if got is None:
+        raise ValueError(
+            "plan='host-simd' was forced but the host SIMD tier is "
+            "ineligible for this problem: " + rn.simd_reject_reason(
+                a.shape[-1], b.shape[-1], scoring, sub_np))
+    return BatchHits(*(torch.from_numpy(x).to(dev) for x in got))
 
 
 def make_sharded_batch_scorer(mesh, scoring: Scoring = Scoring(),
@@ -310,8 +346,8 @@ def batch_align(a_batch, b_batch, scoring: Scoring = Scoring(),
                        mesh=mesh, substitution=substitution, device=device)
     a_np, b_np = _host(a_batch), _host(b_batch)
     return _align_best(hits, lambda i: (a_np[i], b_np[i]), scoring,
-                       EngineConfig(band=band), substitution, alphabet, top,
-                       _device(mesh, device))
+                       EngineConfig(band=band),
+                       substitution, alphabet, top, _device(mesh, device))
 
 
 def align_many(a_list, b_list, scoring: Scoring = Scoring(),
@@ -324,5 +360,5 @@ def align_many(a_list, b_list, scoring: Scoring = Scoring(),
     hits = score_many(a_list, b_list, scoring, substitution=substitution,
                       plan=plan, mesh=mesh, device=device)
     return _align_best(hits, lambda i: (_host(a_list[i]), _host(b_list[i])),
-                       scoring, EngineConfig(), substitution, alphabet, top,
-                       _device(mesh, device))
+                       scoring, EngineConfig(),
+                       substitution, alphabet, top, _device(mesh, device))

@@ -17,11 +17,16 @@ search and its counters cleared on the stream before each window); on the
 CPU its plain version, the batched sweep. Plans of
 ``search``/``make_searcher``: 'auto' (K6 on a card where it takes the
 scoring, the plain sweep on the card where it does not, decided before
-any launch, and the plain sweep on the CPU), 'stripe' (K6) and 'scan'
-(the plain sweep). Not ported yet: the native host tier
-(``plan='host-simd'``), which raises ValueError; the JAX package's
-searcher memo and tuned-table lookup have no counterpart, since the port
-traces nothing.
+any launch, and the plain sweep on the CPU), 'stripe' (K6), 'scan' (the
+plain sweep) and 'host-simd' (the SIMD fill on the host,
+``runtime_native.score_simd_window``, one call a window, OpenMP across
+the reads, its answers folded on ``device``; windows of at most 32767
+columns, where its positions ride int16 lanes). 'auto' never takes
+'host-simd', as the JAX package's does not on a TPU; a forced
+'host-simd' raises ValueError up front with a mesh or where the SIMD fill
+refuses the search (``simd_reject_reason``). The JAX package's searcher
+memo and tuned-table lookup have no counterpart, since the port traces
+nothing.
 
 With ``mesh=``, the reference is sharded along the mesh axis
 (``shard_reference``: each rank's shard plus a read length of the next),
@@ -33,9 +38,13 @@ the six top-2 carries, which every rank then folds identically
 merged hits.
 
 ``align_hits`` re-aligns selected hits with one ``align()`` each on the
-same device, ``pair_hits`` chooses mate placements, ``to_sam`` renders
-SAM. Hits are tuples of (B,) int32 tensors on the search's device;
-``align_hits``, ``pair_hits`` and ``to_sam`` also take numpy arrays.
+same device, with the default ``EngineConfig`` (the JAX package raises
+``host_max_cells`` to 2^20; the port keeps the card machine's measured
+crossover): on a card a hit's window of at most 192^2 cells runs the
+native serial fill and the host walk.
+``pair_hits`` chooses mate placements, ``to_sam`` renders SAM. Hits are
+tuples of (B,) int32 tensors on the search's device; ``align_hits``,
+``pair_hits`` and ``to_sam`` also take numpy arrays.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .. import runtime_native as rn
 from ..core.config import EngineConfig, Scoring
 from ..core.encode import DNA_ALPHABET, PROTEIN_ALPHABET, decode, revcomp
 from ..core.substitution import check_table
@@ -53,10 +63,10 @@ from ..kernels.window_fill import (WindowScorer, check_window,
                                    window_score_plain)
 from ..kernels.scan_fill import check_codes
 from ..dispatch.plan import runs_kernels
-from .batch import _codes
+from .batch import _codes, _host
 from .mesh import all_gather, all_reduce, check_mesh, first_axis
 
-PLANS = ("auto", "stripe", "scan")
+PLANS = ("auto", "stripe", "scan", "host-simd")
 # the "no position" sentinel of the fold, as in the JAX package
 _FAR = 2**31 - 1
 
@@ -178,11 +188,24 @@ def _merge2(c, other, min_dist=0):
 
 
 def _check_plan(plan: str) -> None:
-    if plan == "host-simd":
-        raise ValueError("plan='host-simd' (the native host SIMD tier) is "
-                         "not ported yet")
     if plan not in PLANS:
         raise ValueError(f"unknown plan {plan!r} (use one of {PLANS})")
+
+
+def _check_host_simd(mesh, qlen: int, window: int, scoring: Scoring,
+                     sub_np) -> None:
+    """A forced ``plan='host-simd'`` search runs or raises up front: with
+    a mesh, or where the SIMD fill refuses reads of qlen against windows
+    of at most 32767 columns."""
+    if mesh is not None:
+        raise ValueError("plan='host-simd' searches run on the host; it "
+                         "cannot be combined with a device mesh")
+    w16 = min(window, rn.SIMD_MAX_LEN)
+    if not rn.simd_eligible(w16, qlen, scoring, sub_np):
+        raise ValueError(
+            "plan='host-simd' was forced but the host SIMD tier is "
+            "ineligible for this search: "
+            + rn.simd_reject_reason(w16, qlen, scoring, sub_np))
 
 
 def make_searcher(qlen: int, shard_len: int, window: int = 32768,
@@ -231,13 +254,35 @@ def make_searcher(qlen: int, shard_len: int, window: int = 32768,
     if plan == "auto":
         plan = ("stripe" if runs_kernels(dev, scoring, sub_np, window, qlen)
                 else "scan")
+    if plan == "host-simd":
+        _check_host_simd(mesh, qlen, window, scoring, sub_np)
+        if window > rn.SIMD_MAX_LEN:
+            # window columns ride the SIMD fill's int16 lanes
+            window = rn.SIMD_MAX_LEN
+            step = window - qlen
+            nwin = max(1, -(-max(1, ext - qlen) // step))
     sub = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
+
+    def host_scorer(q: np.ndarray):
+        def score(win: np.ndarray):
+            got = rn.score_simd_window(win, q, scoring, sub_np)
+            if got is None:                    # checked up front
+                raise RuntimeError("the host SIMD fill refused a window")
+            return tuple(torch.from_numpy(x).to(dev) for x in got)
+        return score
 
     def prepare(queries, ref_sharded):
         q = _codes(queries, dev)
         if len(ref_sharded) != D:
             raise ValueError(f"ref_sharded holds {len(ref_sharded)} shards "
                              f"for {D} ranks")
+        if plan == "host-simd":
+            shard = _host(ref_sharded[d:d + 1])[0]
+            nsym = 4 if sub_np is None else sub_np.shape[0]
+            if len(shard) and (shard.min() < -3 or shard.max() >= nsym):
+                raise ValueError(f"plan='host-simd' needs reference codes "
+                                 f"in [-3, {nsym})")
+            return q, shard, host_scorer(_host(queries))
         shard = _codes(ref_sharded[d:d + 1], dev)[0]
         if plan == "scan":
             return q, shard, (lambda win: window_score_plain(q, win, scoring,
@@ -474,6 +519,7 @@ def align_hits(hits, queries, reference, scoring: Scoring = Scoring(), *,
                        key=lambda i: (-scores[i], pos[i], i))
         if top is not None:
             reads = reads[:top]
+    cfg = EngineConfig()
     out: list[HitAlignment] = []
     for i in reads:
         s = int(scores[i])
@@ -484,7 +530,7 @@ def align_hits(hits, queries, reference, scoring: Scoring = Scoring(), *,
         W = len(q) + 32
         while True:
             start = max(0, end + 1 - W)
-            res = align(reference[start:end + 1], q, scoring, EngineConfig(),
+            res = align(reference[start:end + 1], q, scoring, cfg,
                         traceback=True, substitution=substitution,
                         alphabet=alphabet, device=dev)
             if res.max_score >= s or start == 0:

@@ -2,16 +2,23 @@
 
 Counterpart of ``swtpu.engine.align`` with an explicit ``device``. Plans:
 'stripe' (the hand-written CUDA kernels, on a CUDA device), 'scan' (the
-PyTorch sweep, on any device) and 'pipeline' (the column-stripe pipeline
+PyTorch sweep, on any device), 'host' (the native serial fill on the host,
+``runtime_native.fill``, its P walked there and the strings rendered by
+the oracle, on either device) and 'pipeline' (the column-stripe pipeline
 across the ranks of a mesh, ``dist.pipeline``); 'auto' lets
-``dispatch.plan.choose_exec`` decide, and takes the pipeline for a pair
-wider than the kernels' MAX_WIDTH. 'pipeline' runs on ``mesh=``, or on
-the whole initialized process group (``dist.mesh.default_mesh``); with
+``dispatch.plan.choose_exec`` decide (its tiers and tuned (T, R, C)), and
+takes the pipeline for a pair wider than the kernels' MAX_WIDTH. Before
+dispatch, an 'auto' score-only unbanded call on a CUDA device of at most
+``config.simd_cells_cap()`` cells runs the striped SIMD fill on the host
+(``runtime_native.score_simd_pos``) where it is eligible. On the CPU
+'auto' takes neither host tier. 'pipeline' runs on ``mesh=``, or on the
+whole initialized process group (``dist.mesh.default_mesh``); with
 neither, or for ``return_matrices`` or a band, it runs the single-card
 plans, as the JAX package does on one device. ``Alignment.plan`` says
-which plan ran. With a mesh every rank of it calls the same function and
-the mesh's device serves the call. A request for ``device='cuda'`` on a
-machine without a card raises; it never carries on on the CPU.
+which plan ran ('host-simd' for the SIMD tier). With a mesh every rank of
+it calls the same function and the mesh's device serves the call. A
+request for ``device='cuda'`` on a machine without a card raises, for a
+pair of any size; it never carries on on the CPU.
 
 Scoring: linear or affine (Gotoh) gaps, with the match/mismatch compare or,
 given ``substitution=``, an (A, A) table S[a_code, b_code] such as
@@ -37,6 +44,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import runtime_native as rn
 from ..core import oracle
 from ..core.config import EngineConfig, Scoring
 from ..core.encode import DNA_ALPHABET, encode
@@ -97,6 +105,55 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+def _host_codes_ok(a_codes, b_codes, sub_np) -> bool:
+    """The serial fill takes any codes without a table, and codes in [0,
+    A) with one."""
+    if sub_np is None:
+        return True
+    nsym = sub_np.shape[0]
+    return bool((a_codes >= 0).all() and (a_codes < nsym).all()
+                and (b_codes >= 0).all() and (b_codes < nsym).all())
+
+
+def _host_path(a_codes, b_codes, scoring: Scoring, sub_np, want_tb: bool,
+               return_matrices: bool, alphabet: str) -> Alignment:
+    """The 'host' plan: the native serial fill, its P walked on the host
+    (natively in linear mode, by the oracle's state machine in affine
+    mode, as the JAX package walks it) and the strings rendered by the
+    oracle."""
+    m, n = len(a_codes), len(b_codes)
+    out = rn.fill(a_codes, b_codes, scoring, sub_np)
+    bi, bj = out.max_ij
+    res = Alignment(max_score=out.max_score, max_i=bi, max_j=bj,
+                    last_cell=int(out.H[n, m]),
+                    H=out.H if return_matrices else None,
+                    P=out.P if return_matrices else None, plan="host")
+    res._m1 = m + 1
+    if want_tb and out.max_score > 0:
+        walk = oracle.backtrack if scoring.is_affine else rn.traceback
+        res.path = walk(out.P, out.max_pos)
+        res.aligned_a, res.aligned_b = oracle.alignment_strings(
+            a_codes, b_codes, out.P, out.max_pos, alphabet=alphabet)
+    return res
+
+
+def stripe_call(a_codes, b_codes, scoring: Scoring, sub_np,
+                dev: torch.device, want_tb: bool = False,
+                band: Optional[int] = None, T: Optional[int] = None,
+                R: Optional[int] = None, C: Optional[int] = None) -> tuple:
+    """The stripe plan's card work: the codes (and table) to ``dev``, one
+    kernel launch at (T, R, C), one fetch of the (4,) result. Returns
+    ([max, i, j, last], P on the host or None)."""
+    a_t = torch.from_numpy(a_codes).to(dev)
+    b_t = torch.from_numpy(b_codes).to(dev)
+    sub_t = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
+    fill = stripe_fill if want_tb else stripe_score
+    out = fill(a_t, b_t, scoring, T=T, substitution=sub_t, band=band, R=R,
+               C=C)
+    vals = out.best.tolist()                             # one small fetch
+    return vals, (out.P.cpu().numpy() if want_tb else None)
+
+
 def _resolve_traceback_method(m: int, n: int, config: EngineConfig) -> str:
     """'auto' -> 'full' up to full_p_max_cells, 'windowed' above; a banded
     problem always takes 'full'."""
@@ -127,7 +184,8 @@ def align(
     ``substitution``: optional (A, A) integer table S[a_code, b_code] in
     place of the match/mismatch compare; codes must then lie in [-3, A).
     ``mesh``: a ``dist.mesh.Mesh`` for the pipeline, whose device then
-    serves the call."""
+    serves the call. The device is resolved first, so a request for a
+    card that is not there raises whatever the pair's size."""
     if mesh is not None:
         dev = check_mesh(mesh).device
     else:
@@ -147,6 +205,20 @@ def align(
         res._m1 = m + 1
         return res
 
+    # the score-only SIMD tier on the host, below the card's per-call
+    # floor: the score, the first end cell and the last cell
+    if plan in (None, "auto") and dev.type == "cuda" and not want_tb \
+            and not return_matrices and config.band is None \
+            and rn.simd_shape_ok(m, n, scoring, sub_np) \
+            and m * n <= config.simd_cells_cap():
+        got = rn.score_simd_pos(a_codes, b_codes, scoring, sub_np)
+        if got is not None:
+            s, bi, bj, last = got
+            res = Alignment(max_score=s, max_i=bi, max_j=bj, last_cell=last,
+                            plan="host-simd")
+            res._m1 = m + 1
+            return res
+
     if plan in (None, "auto") and m > MAX_WIDTH:
         plan = "pipeline"           # wider than one kernel
     if plan == "pipeline":
@@ -155,12 +227,29 @@ def align(
             return _pipeline_path(a_codes, b_codes, scoring, mesh, want_tb,
                                   alphabet, sub_np)
         plan = None                 # no mesh: the single-card plans
+    exec_plan = None
     if plan in (None, "auto"):
-        plan = choose_exec(m, n, config, scoring, want_tb, dev,
-                           substitution=sub_np).plan
-    if plan not in ("stripe", "scan"):
-        raise ValueError(f"unknown plan {plan!r} (use 'stripe', 'scan' or "
-                         "'pipeline')")
+        exec_plan = choose_exec(m, n, config, scoring, want_tb, dev,
+                                substitution=sub_np)
+        plan = exec_plan.plan
+        if plan == "pipeline":      # wider than one kernel, and no mesh
+            plan = "scan"
+    if plan not in ("stripe", "scan", "host"):
+        raise ValueError(f"unknown plan {plan!r} (use 'stripe', 'scan', "
+                         "'host' or 'pipeline')")
+    if plan == "host":
+        if config.band is None and _host_codes_ok(a_codes, b_codes, sub_np):
+            return _host_path(a_codes, b_codes, scoring, sub_np, want_tb,
+                              return_matrices, alphabet)
+        # a band, or a table's sentinel codes: the device's plans
+        plan = ("stripe" if dev.type == "cuda" and stripe_fill_supported(
+            m, n, want_tb, scoring, sub_np) else "scan")
+    # the tuned (T, R, C), unless the caller named the kernel's shape
+    kern = dict(T=config.stripe_rows, R=None, C=None)
+    if exec_plan is not None and exec_plan.source == "tuned" \
+            and config.stripe_rows is None \
+            and config.stripe_rows_per_lane is None:
+        kern = dict(T=exec_plan.T, R=exec_plan.R, C=exec_plan.C)
 
     # memory-lean traceback: locate + windowed refill / Hirschberg, no
     # full P (engine/traceback.py); like the JAX package, it serves every
@@ -186,18 +275,14 @@ def align(
             m, n, want_tb, scoring, sub_np)):
         plan = "scan"     # the stripe kernels never materialize H
 
-    a_t = torch.from_numpy(a_codes).to(dev)
-    b_t = torch.from_numpy(b_codes).to(dev)
-    sub_t = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
     H = P = None
     if plan == "stripe":
-        fill = stripe_fill if want_tb else stripe_score
-        out = fill(a_t, b_t, scoring, T=config.stripe_rows,
-                   substitution=sub_t, band=config.band)
-        vals = out.best.tolist()                         # one small fetch
-        if want_tb:
-            P = out.P.cpu().numpy()
+        vals, P = stripe_call(a_codes, b_codes, scoring, sub_np, dev,
+                              want_tb, config.band, **kern)
     else:
+        a_t = torch.from_numpy(a_codes).to(dev)
+        b_t = torch.from_numpy(b_codes).to(dev)
+        sub_t = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
         table = None if sub_t is None else embed_table(sub_t)
         out = scan_fill(a_t, b_t, scoring=scoring,
                         return_p=want_tb or return_matrices,

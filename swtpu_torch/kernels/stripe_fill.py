@@ -353,28 +353,32 @@ def _sub_gaps_ok(scoring: Scoring) -> bool:
 def stripe_score(a: torch.Tensor, b: torch.Tensor,
                  scoring: Scoring = Scoring(), T: Optional[int] = None,
                  substitution: Optional[torch.Tensor] = None,
-                 band: Optional[int] = None) -> StripeOut:
+                 band: Optional[int] = None, R: Optional[int] = None,
+                 C: Optional[int] = None) -> StripeOut:
     """Score-only local fill of a (m,) against b (n,), int8 codes on one
     device. ``T``: threads per block (CUDA only; a thread holds its form's
     R rows, up to RB_MAX_THREADS threads, ``rb_shape``). ``substitution``:
     an (A, A) int32 table S[a_code, b_code] on the same device, or None
     for the match/mismatch compare. ``band``: keep only the cells with
-    |i - j| <= band (None: every cell)."""
+    |i - j| <= band (None: every cell). ``R``, ``C`` (CUDA only): the
+    thread's tile of rows and columns a step, one the form instantiates
+    (``rb_shape``), None its default."""
     if _route(a, b, scoring, substitution) == "cpu":
         return stripe_score_plain(a, b, scoring, substitution, band)
-    return _launch_rb(a, b, scoring, T, sub=substitution, band=band)
+    return _launch_rb(a, b, scoring, T, R, C, sub=substitution, band=band)
 
 
 def stripe_fill(a: torch.Tensor, b: torch.Tensor,
                 scoring: Scoring = Scoring(), T: Optional[int] = None,
                 substitution: Optional[torch.Tensor] = None,
-                band: Optional[int] = None) -> StripeOut:
+                band: Optional[int] = None, R: Optional[int] = None,
+                C: Optional[int] = None) -> StripeOut:
     """``stripe_score`` plus the row-major predecessor matrix P. ``T``:
     threads per block (CUDA only; each holds R rows, up to RB_MAX_THREADS
-    threads, ``rb_shape``)."""
+    threads, ``rb_shape``); ``R``, ``C`` as ``stripe_score``'s."""
     if _route(a, b, scoring, substitution) == "cpu":
         return stripe_fill_plain(a, b, scoring, substitution, band)
-    return _launch_rb_p(a, b, scoring, T, sub=substitution, band=band)
+    return _launch_rb_p(a, b, scoring, T, R, C, sub=substitution, band=band)
 
 
 def stripe_score_plain(a: torch.Tensor, b: torch.Tensor,

@@ -450,7 +450,9 @@ def test_card_refuses_scorings_the_kernels_do_not_take(jsc, jtable):
 
 def test_plan_contract():
     aa, bb = random_batch(2, 8, 8, seed=1)
-    for kw, match in ((dict(plan="host-simd"), "host-simd"),
+    # the host SIMD tier is ported: it refuses a band, as the JAX
+    # package's does
+    for kw, match in ((dict(plan="host-simd", band=2), "host-simd"),
                       (dict(plan="bogus"), "unknown plan")):
         with pytest.raises(ValueError, match=match):
             tbatch.batch_score(aa, bb, device="cpu", **kw)
@@ -461,9 +463,12 @@ def test_plan_contract():
     assert _triple(tbatch.batch_score(aa, bb, plan="pipeline",
                                       device="cpu")) == _triple(
         jbatch.batch_score(aa, bb, plan="pipeline"))
+    # and a scoring its lazy-F loop cannot take (extension dearer than
+    # opening), in score_many's buckets too
     with pytest.raises(ValueError, match="host-simd"):
-        swtpu_torch.score_many(list(aa), list(bb), plan="host-simd",
-                               device="cpu")
+        swtpu_torch.score_many(list(aa), list(bb), swtpu_torch.Scoring(
+            mode="affine", gap_open=-1, gap_extend=-6), plan="host-simd",
+            device="cpu")
 
 
 # ---- on the card ----

@@ -352,8 +352,12 @@ def test_search_refusals():
                    device="cpu")
     with pytest.raises(ValueError, match="n_best"):
         tdb.search(q, ref, n_best=3, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        tdb.search(q, ref, plan="host-simd", device="cpu")
+    # the host SIMD tier is ported: a forced one refuses up front what its
+    # lazy-F loop cannot take, as the JAX package's does
+    with pytest.raises(ValueError, match="host-simd"):
+        tdb.search(q, ref, scoring=swtpu_torch.Scoring(
+            mode="affine", gap_open=-1, gap_extend=-6), plan="host-simd",
+            device="cpu")
     with pytest.raises(TypeError, match="must be a swtpu_torch"):
         tdb.search(q, ref, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown plan"):

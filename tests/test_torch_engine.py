@@ -3,6 +3,7 @@
 Both packages are configured from the same numpy-held state, carried into
 the port with ``swtpu_torch.convert``; every comparison is exact."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +16,7 @@ import swtpu_torch
 from swtpu.core.encode import random_pair
 from swtpu_torch.convert import (TPU_ONLY_FIELDS, config_from_jax,
                                  scoring_from_jax)
+from swtpu_torch.core.config import HOST_MAX_CELLS, HOST_SIMD_MAX_CELLS
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -120,11 +122,24 @@ def test_convert_reads_dataclasses_and_mappings():
                             traceback=False)
     pc = config_from_jax(jc)
     assert pc == swtpu_torch.EngineConfig(full_p_max_cells=1 << 20,
-                                          stripe_rows=512, traceback=False)
+                                          stripe_rows=512, traceback=False,
+                                          host_max_cells=jc.host_max_cells,
+                                          host_simd_max_cells=None)
     assert not hasattr(pc, "tpu_full_p_fetch_max_cells")
     assert TPU_ONLY_FIELDS == {"tpu_full_p_fetch_max_cells"}
-    # every other field of the JAX config has a counterpart with its default
-    assert config_from_jax(swtpu.EngineConfig()) == swtpu_torch.EngineConfig()
+    # every other field of the JAX config has a counterpart with its
+    # default, but the host tiers' caps: the port's defaults are the
+    # crossovers measured on a card machine (core.config.HOST_MAX_CELLS,
+    # HOST_SIMD_MAX_CELLS), and the JAX package's None, "derive the SIMD
+    # crossover", carries over as the measured one
+    carried = config_from_jax(swtpu.EngineConfig())
+    assert carried == dataclasses.replace(
+        swtpu_torch.EngineConfig(),
+        host_max_cells=swtpu.EngineConfig().host_max_cells,
+        host_simd_max_cells=None)
+    assert swtpu_torch.EngineConfig().host_max_cells == HOST_MAX_CELLS
+    assert carried.simd_cells_cap() == HOST_SIMD_MAX_CELLS == \
+        swtpu_torch.EngineConfig().simd_cells_cap()
     assert scoring_from_jax(swtpu.Scoring(mode="affine", gap_open=-5)) == \
         swtpu_torch.Scoring(mode="affine", gap_open=-5)
     s = scoring_from_jax(STATE)

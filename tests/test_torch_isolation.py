@@ -28,6 +28,8 @@ def test_port_imports_no_jax_and_no_swtpu():
         "import swtpu_torch.kernels.debug_fill\n"
         "import swtpu_torch.dist.mesh, swtpu_torch.dist.pipeline\n"
         "import swtpu_torch.dist.checkpoint, swtpu_torch.dist.dryrun\n"
+        "import swtpu_torch.runtime_native, swtpu_torch.kernels._native\n"
+        "import swtpu_torch.dispatch.autotune\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'swtpu'))\n"
         "assert not bad, bad\n"
@@ -36,6 +38,21 @@ def test_port_imports_no_jax_and_no_swtpu():
                           text=True, cwd=REPO, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_importing_the_host_tiers_builds_nothing():
+    code = (
+        "import swtpu_torch, swtpu_torch.runtime_native as rn\n"
+        "import swtpu_torch.dispatch.autotune, swtpu_torch.dispatch.plan\n"
+        "from swtpu_torch.kernels import _native, _cuda\n"
+        "assert _native._lib is None and _native.BUILD.path is None\n"
+        "assert _cuda._lib is None\n"
+        "assert rn._simd_probe['ok'] is None\n"
+        "print('nothing built')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "nothing built"
 
 
 @pytest.fixture
@@ -53,6 +70,20 @@ def test_cuda_request_without_a_card_raises(no_card, call):
         call("ACGTACGT", "ACGTTT")          # 'cuda' is the default
 
 
+@pytest.mark.parametrize("plan", [None, "host", "stripe"])
+@pytest.mark.parametrize("m, n", [(1, 1), (8, 6), (64, 64), (300, 200)])
+def test_cuda_request_raises_for_every_pair_size(no_card, plan, m, n):
+    """Pairs small enough for the host tiers raise too: the device is
+    resolved before any tier is chosen."""
+    a, b = np.zeros(m, np.int8), np.ones(n, np.int8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        swtpu_torch.align(a, b, plan=plan)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        swtpu_torch.score(a, b, plan=plan)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        swtpu_torch.batch_score(a[None], b[None], plan="host-simd")
+
+
 @pytest.mark.parametrize("call", [
     swtpu_torch.batch_score, swtpu_torch.batch_align,
     swtpu_torch.score_many, swtpu_torch.align_many])
@@ -66,10 +97,9 @@ def test_batch_request_without_a_card_raises(no_card, call):
 
 
 @pytest.mark.parametrize("kw, err, match", [
-    (dict(plan="host-simd"), ValueError, "not ported"),
     # the mesh is ported: what is not a Mesh is refused
     (dict(mesh=object()), TypeError, "must be a swtpu_torch"),
-], ids=["host_simd", "mesh"])
+], ids=["mesh"])
 def test_unported_batch_routes_raise(kw, err, match):
     aa = np.zeros((2, 8), np.int8)
     for call in (swtpu_torch.batch_score, swtpu_torch.score_many):
