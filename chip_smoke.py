@@ -26,7 +26,16 @@ cut, ``align_hits`` of the best 4), and the sanitize path
 (``swtpu_torch.sanitize`` at 4096^2 and ``sanitize_pairs_packed`` on 16
 pairs of 1056^2, every cell of the K9
 capture checked against the numpy oracle, and ``python -m swtpu_torch
-4096 4096 --skip-backtrack --sanitize``). Two more paths run the
+4096 4096 --skip-backtrack --sanitize``), and the tools path
+(``swtpu_torch.bench_sweep``'s quick square and rectangular grids, each
+score against the host serial fill; ``instrument.profiling``'s
+``phase_report`` of the stripe call at 64^2 and 25632^2 and a ``trace()``
+that must name ``sw_stripe_rb_linear``, its score the host serial fill's;
+``instrument.access``'s ``validate_model`` at 4096^2 in each scoring
+against the allocator, ptxas and the launcher, each plan's answer the
+plain sweep's; ``examples/torch_*.py`` on the card, at a cut size equal to their
+CPU runs; ``scripts/torch_map_warm.py``; ``reference_random`` against
+``GlibcRand``). Two more paths run the
 multi-device layer (``swtpu_torch.dist``): mesh1, a world-1 NCCL mesh in
 this process (``align(mesh=, plan='pipeline')`` score-only at 65536^2
 linear and 16384^2 DNA affine and protein, with traceback at 16384^2, and
@@ -742,7 +751,7 @@ RB_SENTINELS = [(300, 700), (50, 24), (4, 90)]
 RB_SWEEP = {mode: [(T, R, C) for T in (64, 128, 256)
                    for R, C in sf.RB_FORM_TILES[mode]]
             for mode in sf.RB_FORM_TILES}
-RB_SWEEP_ROUNDS = 5
+RB_SWEEP_ROUNDS = 3
 # the register-blocked K4's and K5's (T, R, C) at the small shapes (512
 # threads: their R = 4 tile), and their sweeps at the path's sizes (K4 at
 # 16384^2 and the lean route's window, K5 at its 25632^2 reverse pass)
@@ -2316,7 +2325,7 @@ def window_rb_vs_plain(dev) -> tuple:
             require(hits_diff(f(shard[:W]), p) == 0,
                     f"{name} ({T}, {R}, {C}) [{mode}] != plain")
             best[f.T, R, C] = min(best.get((f.T, R, C), float("inf")),
-                                  timed_ms(lambda: f(shard[:W]), 3)[0])
+                                  timed_ms(lambda: f(shard[:W]), 2)[0])
         fastest = min(best, key=best.get)
         cells = B * qlen * W
         rb = new._rb
@@ -2341,7 +2350,7 @@ def window_rb_vs_plain(dev) -> tuple:
             f"GCUPS) against the template's {tmpl} (T={old.T}) "
             f"{o_ms:.3f} ms in turns ({o_ms / k_ms:.2f}x); plain "
             f"{p_ms:.1f} ms, both equal to it{at_cut}; bound "
-            f"{recs[name]['bound_ms']:.3f} ms; sweep (min of 3), all equal: "
+            f"{recs[name]['bound_ms']:.3f} ms; sweep (min of 2), all equal: "
             + ", ".join(f"{T}/{R}/{C} {ms:.3f}" for (T, R, C), ms in
                         sorted(best.items()))
             + f"; fastest {fastest} {best[fastest]:.3f} ms" + extra)
@@ -3290,14 +3299,14 @@ def mesh_block_check(mesh) -> tuple:
 
 def mesh_sweep(mesh, at, bt, want: list) -> tuple:
     """The world-1 pipeline at MESH_BIG^2 over SWEEP_ROWS x SWEEP_T (K5's
-    threads, tile (8, 4)), min of 3 by CUDA events after a warm-up, each
+    threads, tile (8, 4)), min of 2 by CUDA events after a warm-up, each
     point's answer equal to single-card score()'s; single-card score()'s
     K1 beside it. Returns (lines, {(rows, T): ms})."""
     grid = {}
     for R in SWEEP_ROWS:
         for T in SWEEP_T:
             fn = pl.make_pipeline(mesh, MESH_BIG, MESH_BIG, R, SCORING, T=T)
-            ms, res = timed_ms(lambda: fn(at, bt), 3)
+            ms, res = timed_ms(lambda: fn(at, bt), 2)
             require([int(x) for x in res] == want,
                     f"pipeline rows {R} T {T}: {res} != {want}")
             grid[R, T] = ms
@@ -3308,7 +3317,7 @@ def mesh_sweep(mesh, at, bt, want: list) -> tuple:
         f"rows {R} ({-(-MESH_BIG // R)} blocks): " + ", ".join(
             f"T={T} {grid[R, T]:.2f}" for T in SWEEP_T) for R in SWEEP_ROWS)
     return [f"block_rows x T sweep of the world-1 pipeline at {MESH_BIG}^2 "
-            f"linear, ms min of 3 (answers equal to score()): {rows}; "
+            f"linear, ms min of 2 (answers equal to score()): {rows}; "
             f"fastest rows {best[0]} T={best[1]} {grid[best]:.2f} ms; "
             f"single-card score() ({sf.RB_KERNEL}) {k1_ms:.2f} ms"], grid
 
@@ -3626,6 +3635,302 @@ def run_mesh(dev) -> tuple:
     return total, errs
 
 
+# ---- the tools path: instrument/, bench_sweep, the examples ----
+# the host serial fill checks the sweep's rows up to this many cells (its
+# H and P, 5 bytes a cell, in about a second on the card's host); above
+# it the one row is the benchmark pair, whose answer is KNOWN
+SERIAL_CHECK_CELLS = 3 * 10 ** 8
+SWEEPS = (("square", "auto"), ("rect", "auto"), ("square", "stripe"))
+PHASE_SIDES = (64, SCORE_N)        # the card's per-call floor; the bench pair
+PHASE_REPORTS = 5
+TRACE_N = 4096
+VALIDATE_N = 4096
+GLIBC_SEEDS = (0, 1, 12345)
+# each example at its small sizes on the card, and at a cut size on the
+# card and on the CPU (the plain versions), whose answers must agree:
+# (argv, environment) of each
+EXAMPLES = {
+    "examples/torch_batch_pairs.py": (([], {}), (["8", "64"], {})),
+    "examples/torch_read_mapping.py": (
+        ([], {"SWTPU_DEMO_REF": "20000", "SWTPU_DEMO_READS": "50"}),
+        ([], {"SWTPU_DEMO_REF": "9600", "SWTPU_DEMO_READS": "10"})),
+    "examples/torch_protein_search.py": (
+        ([], {}), ([], {"SWTPU_DEMO_DB": "3000",
+                        "SWTPU_DEMO_QUERIES": "20"})),
+}
+MAP_WARM = "scripts/torch_map_warm.py"
+# the kernels the tools path must launch: the sweep's and the phase
+# reports' K1, validate_model's K1-K4 in each scoring, the batch example's
+# K8, the search examples' and the mapping script's warp-per-read K6
+TOOLS_KERNELS = (
+    *sf.RB_KERNELS.values(), *sf.RB_P_KERNELS.values(),
+    pf.pairs_kernel_name(SCORING, None),
+    wf.warp_kernel_name(SCORING, None), wf.warp_kernel_name(PROTEIN, BLOSUM62))
+
+
+def load_script(rel: str):
+    """A script of the repository (an example, the mapping benchmark),
+    imported as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_main(mod, argv: list, env: dict) -> str:
+    """``mod.main(argv)`` with ``env`` set around it; its standard output.
+    Raises unless main returns 0."""
+    import contextlib
+    import io
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(rc == 0, f"{mod.__name__}.main({argv}) returned {rc}")
+    return buf.getvalue()
+
+
+def stable_lines(text: str) -> list:
+    """An example's output without its timed lines."""
+    return [ln for ln in text.splitlines()
+            if not ln.startswith(("searched ", "(first call"))
+            and " cold " not in ln]
+
+
+def example_references() -> tuple:
+    """({script: stable lines}, seconds): each example at its cut size on
+    the CPU, the plain versions; run in the reference process, beside
+    the kernel phases, on two threads."""
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    out = {}
+    for rel, (_, (argv, env)) in EXAMPLES.items():
+        out[rel] = stable_lines(run_main(load_script(rel),
+                                         argv + ["--device", "cpu"], env))
+    return out, time.perf_counter() - t0
+
+
+def _strict(const):
+    raise ValueError(f"not strict JSON: {const}")
+
+
+def check_sweep(text: str, grid: str, plan: str, serial: dict) -> list:
+    """The sweep's records, checked: a backend-init record first (gcups
+    0.0), every line strict JSON, the grid's sizes in order, every score
+    the host serial fill's (KNOWN at the benchmark pair)."""
+    from swtpu_torch import runtime_native as rn
+    from swtpu_torch.bench_sweep import _grid
+    recs = [json.loads(ln, parse_constant=_strict)
+            for ln in text.splitlines()]
+    require(recs[0]["name"] == f"backend-init-{grid}"
+            and recs[0]["gcups"] == 0.0 and recs[0]["m"] == 0,
+            f"first record {recs[0]}")
+    require([(r["m"], r["n"]) for r in recs[1:]] == _grid(grid, True),
+            f"{grid} sizes {[(r['m'], r['n']) for r in recs[1:]]}")
+    for r in recs[1:]:
+        m, n, got = r["m"], r["n"], r["extra"]["score"]
+        if (m, n) == (SCORE_N, SCORE_N):
+            want = KNOWN["linear", m, n][0]
+        else:
+            require(m * n <= SERIAL_CHECK_CELLS, f"{m}x{n} unchecked")
+            if (m, n) not in serial:
+                serial[m, n] = int(rn.fill(*random_pair(m, n, seed=0))
+                                   .max_score)
+            want = serial[m, n]
+        require(got == want, f"sweep {grid} {plan} {m}x{n}: {got} != "
+                f"{want}")
+    return recs
+
+
+def drive_tools(dev, ex_cpu: dict) -> list:
+    """The tools path on the card: bench_sweep's quick grids (auto on both,
+    stripe on the square), phase_report of score()'s stripe call at 64^2
+    and 25632^2, a trace() of a 4096^2 score(), validate_model at 4096^2
+    in each scoring, the three examples (at their small sizes, and at the
+    cut sizes against ``ex_cpu``), torch_map_warm at full size and
+    reference_random against GlibcRand. Returns phase lines."""
+    import contextlib
+    import io
+    from swtpu_torch import bench_sweep
+    from swtpu_torch import runtime_native as rn
+    from swtpu_torch.core.encode import GlibcRand
+    from swtpu_torch.instrument import access, profiling
+    lines = []
+
+    t0 = time.perf_counter()
+    serial = {}
+    for grid, plan in SWEEPS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_sweep.main(["--grid", grid, "--quick", "--plan", plan])
+        require(rc == 0, f"bench_sweep {grid} {plan} returned {rc}")
+        recs = check_sweep(buf.getvalue(), grid, plan, serial)
+        lines.append(
+            f"bench_sweep --grid {grid} --quick --plan {plan}: init "
+            f"{recs[0]['extra']['init_s']} s; " + ", ".join(
+                f"{r['m']}x{r['n']} {r['plan']} {r['fill_s'] * 1e3:.3f} ms "
+                f"({r['gcups']:.2f} GCUPS) = {r['extra']['score']}"
+                for r in recs[1:]))
+    best = KNOWN["linear", SCORE_N, SCORE_N][0]
+    lines.append(f"every row equal to the host serial fill ({len(serial)} "
+                 f"sizes) and 25632^2 to {best}, in "
+                 f"{time.perf_counter() - t0:.1f} s")
+
+    # the card's per-call floor (ROADMAP P3): the stripe call's uploads,
+    # its launch (scratch, K1, the on-card reduction) and its fetch
+    for side in PHASE_SIDES:
+        a, b = random_pair(side, side, seed=0)
+        got, reps = [], []
+        for _ in range(PHASE_REPORTS):
+            reps.append(profiling.phase_report(
+                prep=lambda: on_card(a, b, dev=dev),
+                run=lambda ab: sf.stripe_score(*ab, SCORING),
+                fetch=lambda out: got.append(out.best.tolist()),
+                repeats=5, device=dev))
+        rep = {k: min(r[k] for r in reps) for k in reps[0]}
+        r = swtpu_torch.align(a, b, traceback=False, plan="host",
+                              device=dev) if side != SCORE_N else None
+        want = (list(KNOWN["linear", side, side]) if r is None
+                else [r.max_score, r.max_i, r.max_j, r.last_cell])
+        require(got == [want] * PHASE_REPORTS,
+                f"phase_report {side}^2: {got} != {want}")
+        walls = []
+        for _ in range(5):
+            w0 = time.perf_counter()
+            swtpu_torch.score(a, b, plan="stripe", device=dev)
+            walls.append(time.perf_counter() - w0)
+        lines.append(f"phase_report of the stripe call at {side}^2 (each "
+                     f"phase the min of {PHASE_REPORTS} reports, a report's"
+                     f" run the min of 5): prep {rep['input_prep_s'] * 1e6:.0f} us, run "
+                     f"{rep['device_run_s'] * 1e6:.0f} us (CUDA events), "
+                     f"fetch {rep['result_fetch_s'] * 1e6:.0f} us; "
+                     f"score(plan='stripe') wall min {min(walls) * 1e6:.0f}"
+                     f" us, median {sorted(walls)[2] * 1e6:.0f} us")
+
+    t0 = time.perf_counter()
+    a, b = random_pair(TRACE_N, TRACE_N, seed=0)
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir, device=dev) as prof:
+            with torch.profiler.record_function("score 4096^2"):
+                traced = swtpu_torch.score(a, b, device=dev)
+        kernels = profiling.trace_kernels(logdir)
+        size = os.path.getsize(os.path.join(logdir, profiling.TRACE_FILE))
+    require(kernels.get(sf.RB_KERNEL, 0) >= 1,
+            f"the trace names no {sf.RB_KERNEL}: {dict(kernels)}")
+    want = int(rn.fill(a, b).max_score)
+    require(traced == want, f"traced score() {traced} != the host serial "
+            f"fill's {want}")
+    dev_us = sum(e.device_time_total for e in prof.key_averages()
+                 if "stripe_rb_kernel" in e.key)
+    ours = {k: v for k, v in kernels.items() if k.startswith("sw_")}
+    lines.append(f"trace() of score() at {TRACE_N}^2 (= {traced}, the "
+                 f"host serial fill's): "
+                 f"{size} bytes, the port's kernels {ours} "
+                 f"beside {sum(kernels.values()) - sum(ours.values())} of "
+                 f"torch's (fills, the upload's copy, the reduction), the "
+                 f"stripe_rb_kernel's device time {dev_us:.1f} us (key_"
+                 f"averages), in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    usage = access.ptxas_usage(_cuda.BUILD.log)
+    require(usage, "no ptxas figures: the kernel library was not built "
+            "in this process")
+    for mode in MODES:
+        sc, S = MODELS[mode][:2]
+        got = access.validate_model(VALIDATE_N, VALIDATE_N, sc, dev,
+                                    substitution=S)
+        require(set(got) == {"scan", "scan+P", "stripe", "stripe+P"},
+                f"validate_model [{mode}]: {sorted(got)}")
+        # every measured call's answer: K1-K3's and K4's best (score, end
+        # cell, H[n, m]) and right column the plain sweep's, K4's P the
+        # sweep's P
+        scan, scan_p, k13, k4 = (got[p][1].result for p in
+                                 ("scan", "scan+P", "stripe", "stripe+P"))
+        want = sf._pack(scan).tolist()
+        p_want = sf.diag_to_rowmajor(scan_p.p_diag, VALIDATE_N, VALIDATE_N)
+        for plan, out in (("scan+P", scan_p), ("stripe", k13),
+                          ("stripe+P", k4)):
+            best = (out.best if plan.startswith("stripe")
+                    else sf._pack(out)).tolist()
+            e = diff(out.right_col, scan.right_col)
+            if plan == "stripe+P":
+                e = max(e, diff(out.P, p_want))
+            require(best == want and e == 0, f"validate_model [{mode}] "
+                    f"{plan}: {best} != the plain sweep's {want}, or its "
+                    f"right column or P differs ({e})")
+        del scan, scan_p, k13, k4, p_want
+        parts = []
+        for plan, (model, meas) in got.items():
+            parts.append(f"{plan} {model.plan}: P {model.p_bytes}/"
+                         f"{meas.output_bytes}, scratch "
+                         f"{model.scratch_bytes}/{meas.temp_bytes}")
+            if model.p_bytes:
+                r = meas.output_bytes / model.p_bytes
+                require(0.8 <= r <= 1.25, f"[{mode}] {plan}: output "
+                        f"{meas.output_bytes} against P {model.p_bytes}")
+            if plan.startswith("stripe"):
+                r = meas.temp_bytes / model.scratch_bytes
+                require(0.5 <= r <= 2, f"[{mode}] {plan}: temp "
+                        f"{meas.temp_bytes} against scratch "
+                        f"{model.scratch_bytes}")
+                res = access.launched_resident(
+                    usage, VALIDATE_N, VALIDATE_N,
+                    traceback=plan == "stripe+P", scoring=sc,
+                    substitution=S)
+                r = res / model.resident_bytes
+                require(0.5 <= r <= 2, f"[{mode}] {plan}: resident "
+                        f"{model.resident_bytes} against ptxas and the "
+                        f"launcher {res}")
+                parts[-1] += f", resident {model.resident_bytes}/{res}"
+        lines.append(f"validate_model({VALIDATE_N}, {VALIDATE_N}) [{mode}] "
+                     f"answers {want}, the four plans equal; "
+                     "model/measured bytes: " + "; ".join(parts))
+    lines.append(f"validate_model in {time.perf_counter() - t0:.1f} s")
+
+    for rel, ((argv, env), (cut_argv, cut_env)) in EXAMPLES.items():
+        t0 = time.perf_counter()
+        mod = load_script(rel)
+        out = run_main(mod, argv + ["--device", "cuda"], env)
+        cut = stable_lines(run_main(mod, cut_argv + ["--device", "cuda"],
+                                    cut_env))
+        require(cut == ex_cpu[rel], f"{rel} at its cut size: the card's "
+                f"{cut} != the CPU's {ex_cpu[rel]}")
+        head = " | ".join(out.strip().splitlines()[:3])
+        lines.append(f"{rel} ({' '.join(argv) or 'defaults'}"
+                     f"{' ' + str(env) if env else ''}): {head} ...; at "
+                     f"{' '.join(cut_argv) or str(cut_env)} its "
+                     f"{len(cut)} answer lines equal the CPU's; "
+                     f"{time.perf_counter() - t0:.1f} s")
+
+    mod = load_script(MAP_WARM)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "map.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = mod.main(["--out", path])
+        with open(path) as f:
+            require(json.loads(f.read()) == out, "torch_map_warm --out")
+    require(out["mapped"] >= 0.99 * out["B"], f"torch_map_warm {out}")
+    lines.append(f"{MAP_WARM}: {json.dumps(out)}")
+
+    for seed in GLIBC_SEEDS:
+        got = rn.reference_random(4096, seed)
+        require(np.array_equal(got, GlibcRand(seed).reference_sequence(4096)),
+                f"reference_random(4096, {seed}) != GlibcRand({seed})")
+    lines.append(f"reference_random(4096, seed) == GlibcRand(seed) for "
+                 f"seeds {GLIBC_SEEDS}")
+    return lines
+
+
 def reference_scans() -> tuple:
     """(refs, seconds): independent references for the main paths, numpy
     row scans on the host, each equal to its known value; the banded scan
@@ -3669,14 +3974,15 @@ def main() -> int:
     # phases run here; a fresh interpreter (spawn) touches no CUDA state
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
-        return run(dev, name, start, pool, pool.apply_async(reference_scans))
+        return run(dev, name, start, pool, pool.apply_async(reference_scans),
+                   pool.apply_async(example_references))
     finally:
         pool.terminate()
 
 
-def run(dev, name: str, start: float, pool, scans) -> int:
+def run(dev, name: str, start: float, pool, scans, examples) -> int:
     """The phases and the counted paths; ``scans`` yields the row scans'
-    references."""
+    references, ``examples`` the examples' answers on the CPU."""
     t0 = time.perf_counter()
     _cuda.library()
     built = build_line()
@@ -3741,11 +4047,13 @@ def run(dev, name: str, start: float, pool, scans) -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     refs, ref_s = scans.get()
+    ex_cpu, ex_s = examples.get()
     pool.close()
     pool.join()
     phase("reference", f"numpy row scans of {len(refs)} pairs in "
           f"{ref_s:.1f} s (in a process of their own, beside the kernel "
-          f"phases), equal to the known values {refs}")
+          f"phases), equal to the known values {refs}; the examples at "
+          f"their cut sizes on the CPU in {ex_s:.1f} s there")
 
     # ---- the host tiers and the dispatch layer (no counted path) ----
     t0 = time.perf_counter()
@@ -3886,6 +4194,29 @@ def run(dev, name: str, start: float, pool, scans) -> int:
           f"{ {k: v for k, v in sanitize.items() if v} }, plain calls "
           f"{plain}")
 
+    # ---- the tools path: instrument/, bench_sweep, the examples, from
+    # zero ----
+    pf.reset_counts()
+    t0 = time.perf_counter()
+    lines = drive_tools(dev, ex_cpu)
+    tools_s = time.perf_counter() - t0
+    tools = {**sf.launches, **pf.launches, **wf.launches, **df.launches,
+             **df.rb_launches, **df.packed_rb_launches}
+    plain = {**sf.plain_calls, **pf.plain_calls, **wf.plain_calls,
+             **df.plain_calls, **df.rb_plain_calls,
+             **df.packed_rb_plain_calls}
+    # ---- end of the tools path ----
+    for ln in lines:
+        phase("tools", ln)
+    require(all(tools[k] > 0 for k in TOOLS_KERNELS)
+            and not any(tools[k] for k in (*EARLIER, *EARLIER_PAIRS,
+                                           *wf.WINDOW_KERNELS.values(),
+                                           *df.launches)),
+            f"launches {tools}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    phase("path", f"tools path in {tools_s:.1f} s: kernel launches "
+          f"{ {k: v for k, v in tools.items() if v} }, plain calls {plain}")
+
     # ---- the mesh paths: world-1 NCCL, then four gloo ranks ----
     t0 = time.perf_counter()
     mesh_seen, k5_err = run_mesh(dev)
@@ -3893,7 +4224,8 @@ def run(dev, name: str, start: float, pool, scans) -> int:
         recs[entry]["max_abs_err"] = max(recs[entry]["max_abs_err"], e)
     phase("mesh", f"mesh1 and mesh4 in {time.perf_counter() - t0:.1f} s")
 
-    # launches: the seven paths' runs; the K7/K8/K8[band] counters run on
+    # launches: the eight paths' runs (the tools path's K1-K4, K8 and K6
+    # among them); the K7/K8/K8[band] counters run on
     # the batch path (K7 also on the sanitize path), the K6 counters (warp
     # per read, and above 512 rows the register-blocked) on the search path
     # alone, the K9 counters on the sanitize path alone; the earlier
@@ -3903,7 +4235,8 @@ def run(dev, name: str, start: float, pool, scans) -> int:
                     replaces=origin(k)[1],
                     launches=(launches.get(k, 0) + lean.get(k, 0)
                               + batch.get(k, 0) + search.get(k, 0)
-                              + sanitize[k] + mesh_seen.get(k, 0)),
+                              + sanitize[k] + tools[k]
+                              + mesh_seen.get(k, 0)),
                     **recs[k])
                for k in sanitize]
     phase("done", f"all phases in {time.perf_counter() - start:.1f} s")

@@ -84,3 +84,20 @@ extern "C" int sw_stripe_rb_sub(const int8_t* a, const int8_t* b, int m,
 #undef SW_RB_TILE
   return (int)cudaErrorInvalidValue;
 }
+
+// The dynamic shared memory, in bytes, that a block of the register-blocked
+// template's launch asks for at C columns a thread, R rows, T threads and
+// a table of A symbols, with the affine F arrays (affine != 0), the table's
+// profile (sub != 0) and the capture form's tile (debug_h != 0): the
+// launcher's own figure (stripe_rb.cuh, dyn_smem), for a check of a model
+// of the on-chip set. -1 for a C no tile has.
+extern "C" long long sw_stripe_rb_smem(int R, int C, int affine, int sub,
+                                       int debug_h, int A, int T) {
+  switch (C) {
+    case 1: return (long long)dyn_smem<1>(affine, sub, debug_h, A, R, T);
+    case 2: return (long long)dyn_smem<2>(affine, sub, debug_h, A, R, T);
+    case 4: return (long long)dyn_smem<4>(affine, sub, debug_h, A, R, T);
+    case 8: return (long long)dyn_smem<8>(affine, sub, debug_h, A, R, T);
+  }
+  return -1;
+}

@@ -1327,6 +1327,18 @@ stripe_rb_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
+// the dynamic shared memory a block of the launch below asks for: the
+// affine form's F arrays, the table's profile of (min(A, kMaxSym) + 1) R T
+// ints and the capture form's tile; sw_stripe_rb_smem reports it
+template <int C>
+size_t dyn_smem(bool affine, bool sub, bool debug_h, int A, int R, int T) {
+  return (affine ? f_ints<C>() * sizeof(int) : 0) +
+         (sub ? (size_t)((A < kMaxSym ? A : kMaxSym) + 1) * R * T *
+                    sizeof(int)
+              : 0) +
+         (debug_h ? (size_t)T * (R * C / 4 + 1) * sizeof(int4) : 0);
+}
+
 // kPairs: n is one pair's rows and the grid aux.pairs x its stripes;
 // kShared: a is the one (m,) query of every pair. kPacked: n is one pair's
 // rows, T the threads a block (where a stripe holds whole pairs, the
@@ -1389,11 +1401,7 @@ int launch(const int8_t* a, const int8_t* b, int m, int n, int match,
                          : (per < 1 ? 0 : (aux.pairs + per - 1) / per);
     if (blocks < 1) return (int)cudaErrorInvalidValue;
   }
-  const size_t smem =
-      (kAffine ? f_ints<C>() * sizeof(int) : 0) +
-      (kSub ? (size_t)((A < kMaxSym ? A : kMaxSym) + 1) * R * T * sizeof(int)
-            : 0) +
-      (kDebugH ? (size_t)T * (R * C / 4 + 1) * sizeof(int4) : 0);
+  const size_t smem = dyn_smem<C>(kAffine, kSub, kDebugH, A, R, T);
   auto* kernel = stripe_rb_kernel<R, C, kAffine, kSub, kP, kBlock, kBand,
                                   kDebugH, kPairs, kShared, kPacked>;
   if (kSub || kDebugH) {

@@ -6,9 +6,11 @@
 // csrc/swtpu_native.cpp: sw_traceback, sw_fill, the striped scorer
 // sw_score_striped behind sw_score_simd and sw_score_simd_pos,
 // sw_score_simd_batch, the inter-sequence group sw_swipe_group and
-// sw_score_simd_batch1. Left out: sw_alignment (it renders code -1 as a
-// gap; the port renders strings with core/oracle.alignment_strings), the
-// encoders and the FASTA/FASTQ readers (core/seqfile.py).
+// sw_score_simd_batch1; and sw_reference_random, glibc's rand() stream as
+// a reference binary's generate() maps it (core/encode.GlibcRand's twin).
+// Left out: sw_alignment (it renders code -1 as a gap; the port renders
+// strings with core/oracle.alignment_strings), the encoders and the
+// FASTA/FASTQ readers (core/seqfile.py).
 //
 // Every fill compares raw codes in match/mismatch mode, so an unknown base
 // (-1) matches another unknown base, as the oracle and the CUDA kernels
@@ -26,7 +28,46 @@
 #include <omp.h>
 #endif
 
+namespace {
+
+// glibc TYPE_3 additive-feedback rand(), bit-exact: srandom's seeding (seed
+// 0 taken as 1), 310 outputs discarded, then r[i] = r[i-31] + r[i-3], each
+// output r[i] >> 1.
+struct GlibcRand {
+  std::vector<uint32_t> r;
+  size_t idx;
+  explicit GlibcRand(uint32_t seed) : r(344), idx(344) {
+    if (seed == 0) seed = 1;
+    r[0] = seed;
+    for (int i = 1; i < 31; ++i) {
+      int64_t hi = r[i - 1] / 127773;
+      int64_t lo = r[i - 1] % 127773;
+      int64_t word = 16807 * lo - 2836 * hi;
+      if (word < 0) word += 2147483647;
+      r[i] = static_cast<uint32_t>(word);
+    }
+    for (int i = 31; i < 34; ++i) r[i] = r[i - 31];
+    for (int i = 34; i < 344; ++i) r[i] = r[i - 31] + r[i - 3];
+  }
+  uint32_t next() {
+    uint32_t val = r[idx - 31] + r[idx - 3];
+    r.push_back(val);
+    ++idx;
+    return val >> 1;
+  }
+};
+
+}  // namespace
+
 extern "C" {
+
+// Reference-identical random sequence: glibc rand() % 4 with the letter map
+// 0:'A' 2:'C' 3:'G' else:'T', as our ACGT codes {0, 1, 2, 3}.
+void sw_reference_random(uint32_t seed, long len, int8_t* out) {
+  static const int8_t remap[4] = {0, 3, 1, 2};  // rand % 4 -> ACGT code
+  GlibcRand rng(seed);
+  for (long i = 0; i < len; ++i) out[i] = remap[rng.next() % 4];
+}
 
 // The threads an OpenMP region of the batch scorers would use here: 1 in a
 // build without OpenMP.

@@ -29,6 +29,8 @@ card (``autotune.load``); the JAX package's TPU tables are never read.
 Calls do not feed the table: it changes only by a sweep
 (``python -m swtpu_torch.dispatch.autotune``).
 
+``choose_plan`` is its plan name alone.
+
 Not ported: the JAX package's cost model that picks the multi-device
 pipeline below MAX_WIDTH (``pipeline_projection``): ``plan='pipeline'``
 is asked for, or taken above MAX_WIDTH.
@@ -126,6 +128,13 @@ def choose_exec(m: int, n: int, config: EngineConfig = EngineConfig(),
             if got is not None:
                 return got
     return ExecPlan("stripe")
+
+
+def choose_plan(m: int, n: int, config: EngineConfig = EngineConfig(),
+                device: torch.device = torch.device("cuda")) -> str:
+    """The plan name alone of ``choose_exec`` for an m x n problem of the
+    default scoring on ``device``."""
+    return choose_exec(m, n, config, device=torch.device(device)).plan
 
 
 def runs_kernels(device: torch.device, scoring: Scoring = Scoring(),

@@ -246,6 +246,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sw_error_string.argtypes = [ctypes.c_int]
     lib.sw_error_string.restype = ctypes.c_char_p
+    lib.sw_stripe_rb_smem.argtypes = [ctypes.c_int] * 7
+    lib.sw_stripe_rb_smem.restype = ctypes.c_longlong
     BUILD.path = path
     _lib = lib
     return lib

@@ -1,21 +1,21 @@
 """Build and bind the native host library of ``swtpu_torch/csrc``.
 
 ``csrc/swtpu_native.cpp`` (the host tiers: the serial fill, the walk of P
-and the striped SIMD scorers) is compiled with ``g++`` for the host CPU,
-with the JAX package's ``csrc/Makefile`` flags (``-O3 -march=native -fPIC
--std=c++17``, and ``-fopenmp`` where a probe shows an OpenMP runtime), into
-a shared library with a plain C interface, loaded with ctypes at first use
-and once per process. The compiler is ``$CXX``, else ``g++`` on PATH; where
-``$CXX`` fails the OpenMP probe and ``g++`` passes it, ``g++`` builds, so
-that the batch scorers run on every core (a ``$CXX`` wrapper may lack the
-OpenMP runtime's spec file that the system compiler has). Where no compiler
-passes the probe the library builds without OpenMP and a RuntimeWarning
-says so. The library lands in ``swtpu_torch/build/``, named by a hash of
-the source, the compiler, the flags and the host's CPU (its model name and
-flags line in ``/proc/cpuinfo``): a ``-march=native`` library built on one
-host is never loaded on another, and an edited source is rebuilt. Nothing
-is compiled at import time, and a failed build raises: there is no
-fallback.
+and the striped SIMD scorers; and glibc's ``rand()`` stream) is compiled
+with ``g++`` for the host CPU, with the JAX package's ``csrc/Makefile``
+flags (``-O3 -march=native -fPIC -std=c++17``, and ``-fopenmp`` where a
+probe shows an OpenMP runtime), into a shared library with a plain C
+interface, loaded with ctypes at first use and once per process. The
+compiler is ``$CXX``, else ``g++`` on PATH; where ``$CXX`` fails the OpenMP
+probe and ``g++`` passes it, ``g++`` builds, so that the batch scorers run
+on every core (a ``$CXX`` wrapper may lack the OpenMP runtime's spec file
+that the system compiler has). Where no compiler passes the probe the
+library builds without OpenMP and a RuntimeWarning says so. The library
+lands in ``swtpu_torch/build/``, named by a hash of the source, the
+compiler, the flags and the host's CPU (its model name and flags line in
+``/proc/cpuinfo``): a ``-march=native`` library built on one host is never
+loaded on another, and an edited source is rebuilt. Nothing is compiled at
+import time, and a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -68,6 +68,8 @@ SIGNATURES = {
     # window, reads, B, m, n, the model, scores, out_i, out_j
     "sw_score_simd_batch1": (None, [_i8p, _i8p, _long, _long, _long, *_MODEL,
                                     _i32p, _i32p, _i32p]),
+    # seed, len, out: glibc's rand() stream as ACGT codes
+    "sw_reference_random": (None, [ctypes.c_uint32, _long, _i8p]),
 }
 
 

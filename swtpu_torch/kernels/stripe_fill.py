@@ -164,6 +164,27 @@ RB_DEBUG_TILES = ((8, 4), RB_WIDE_TILE)
 # K4 stores a row's codes of a tile at once, into rows of a pitch rounded
 # up to P_PITCH_ALIGN bytes and shifted so that column 1 is word-aligned
 P_PITCH_ALIGN = 16
+# the flags of csrc/stripe_rb.cuh's stripe_rb_kernel<R, C, kAffine, kSub,
+# kP, kBlock, kBand, kDebugH, kPairs, kShared, kPacked>, after (R, C)
+RB_FLAGS = ("kAffine", "kSub", "kP", "kBlock", "kBand", "kDebugH",
+            "kPairs", "kShared", "kPacked")
+# every register-blocked C entry of csrc/stripe_rb*.cu, its scoring as
+# {mode}, -> the flags it sets beside kAffine and kSub, which follow the
+# mode (a table's entry takes either gap model); the one place that maps
+# an entry to its instantiation and back
+RB_ENTRY_FLAGS = {
+    "sw_stripe_rb_{mode}": (),
+    "sw_stripe_rb_fill_p_{mode}": ("kP",),
+    "sw_stripe_rb_block_{mode}": ("kBlock",),
+    "sw_stripe_rb_band_{mode}": ("kBand",),
+    "sw_stripe_rb_fill_p_band_{mode}": ("kP", "kBand"),
+    "sw_sanitize_rb_{mode}": ("kDebugH",),
+    "sw_sanitize_packed_rb_{mode}": ("kDebugH", "kPacked"),
+    "sw_pairs_rb_{mode}": ("kPairs",),
+    "sw_pairs_rb_band_{mode}": ("kPairs", "kBand"),
+    "sw_window_rb_{mode}": ("kPairs", "kShared"),
+    "sw_packed_rb_{mode}": ("kPacked",),
+}
 FILL_P_KERNEL = "sw_stripe_fill_p_linear"
 SCORE_AFFINE_KERNEL = "sw_stripe_score_affine"
 FILL_P_AFFINE_KERNEL = "sw_stripe_fill_p_affine"
@@ -198,6 +219,31 @@ def reset_counts() -> None:
     for counts in (launches, plain_calls):
         for name in counts:
             counts[name] = 0
+
+
+def rb_flags(entry: str, affine: bool = False) -> tuple:
+    """The nine template flags (RB_FLAGS, in order) of the instantiation
+    the register-blocked C entry ``entry`` launches; ``affine``: a table
+    entry's gap model (a DNA entry's is its mode's)."""
+    form, mode = entry.rsplit("_", 1)
+    on = {*RB_ENTRY_FLAGS[form + "_{mode}"]}
+    if mode == "affine" or (mode == "sub" and affine):
+        on.add("kAffine")
+    if mode == "sub":
+        on.add("kSub")
+    return tuple(f in on for f in RB_FLAGS)
+
+
+def rb_entry(flags: tuple) -> Optional[str]:
+    """The register-blocked C entry that launches the instantiation of
+    these nine flags (RB_FLAGS, in order), or None where none does."""
+    affine, sub = flags[:2]
+    on = {f for f, v in zip(RB_FLAGS[2:], flags[2:]) if v}
+    mode = "sub" if sub else "affine" if affine else "linear"
+    for form, extra in RB_ENTRY_FLAGS.items():
+        if set(extra) == on:
+            return form.format(mode=mode)
+    return None
 
 
 def _mode(scoring: Scoring, substitution) -> str:

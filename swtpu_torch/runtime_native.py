@@ -8,8 +8,10 @@ walk of P ``traceback``, and the striped SIMD score-only fills
 'host-simd')``) and ``score_simd_window`` (``search(plan='host-simd')``),
 with their gates ``simd_shape_ok``, ``simd_eligible`` and
 ``simd_reject_reason``, the per-core rate probe ``measured_simd_gcups``
-(a printed check beside the measured crossovers; no route reads it) and
-``omp_threads``, the threads of the batch scorers' OpenMP regions.
+(a printed check beside the measured crossovers; no route reads it),
+``omp_threads``, the threads of the batch scorers' OpenMP regions, and
+``reference_random``, glibc's ``rand()`` stream as a reference C binary's
+generator maps it (``core.encode.GlibcRand``'s twin).
 
 The library is built with g++ for this host at first use
 (``kernels._native``), never at import; a failed build raises, and no
@@ -58,6 +60,19 @@ def omp_threads() -> int:
     """The threads the batch and window scorers' OpenMP regions use (1 in
     a build without OpenMP). Builds the library on first use."""
     return int(_native.library().sw_omp_max_threads())
+
+
+def reference_random(length: int, seed: int = 1) -> np.ndarray:
+    """The int8 ACGT codes a reference binary's generate() makes from
+    glibc's ``rand()`` seeded with ``seed`` (its serial generator never
+    seeds: 1; 0 is taken as 1, as glibc takes it), equal to
+    ``GlibcRand(seed).reference_sequence(length)``. Builds the library on
+    first use; a failed build raises."""
+    if length < 0:
+        raise ValueError(f"length must be >= 0, got {length}")
+    out = np.empty(length, np.int8)
+    _native.library().sw_reference_random(seed & 0xFFFFFFFF, length, out)
+    return out
 
 
 def _model(scoring: Scoring, sub) -> tuple:

@@ -30,6 +30,9 @@ def test_port_imports_no_jax_and_no_swtpu():
         "import swtpu_torch.dist.checkpoint, swtpu_torch.dist.dryrun\n"
         "import swtpu_torch.runtime_native, swtpu_torch.kernels._native\n"
         "import swtpu_torch.dispatch.autotune\n"
+        "import swtpu_torch.instrument.profiling\n"
+        "import swtpu_torch.instrument.access\n"
+        "import swtpu_torch.bench_sweep\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'swtpu'))\n"
         "assert not bad, bad\n"
@@ -38,6 +41,32 @@ def test_port_imports_no_jax_and_no_swtpu():
                           text=True, cwd=REPO, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("rel", ["examples/torch_batch_pairs.py",
+                                 "examples/torch_read_mapping.py",
+                                 "examples/torch_protein_search.py",
+                                 "scripts/torch_map_warm.py"])
+def test_examples_and_scripts_import_no_jax(rel):
+    """The port's examples and mapping benchmark, run with --help in a
+    fresh interpreter, import no jax, jaxlib or swtpu."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{rel!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_path({rel!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'swtpu', 'tpu_round4'))\n"
+        "assert not bad, bad\n"
+        "assert 'swtpu_torch' in sys.modules\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("clean")
+    assert "usage:" in proc.stdout
 
 
 def test_importing_the_host_tiers_builds_nothing():
