@@ -48,7 +48,14 @@ pipeline, the sharded scorer and best-hit reducer on 64 x 1056^2,
 ``search(mesh=)`` of the 1 Mb search with n_best 1 and 2, ``map_reads(mesh=)``
 on ``examples/read_mapping.py``'s set), against the world-1 answers,
 ``batch_score``, the single-card search of each shard merged on the host,
-the unsharded search and single-card ``map_reads``. Fourteen kernels
+the unsharded search and single-card ``map_reads``. The pipeline_model
+phase then loads the committed pipeline cost record
+(``swtpu_torch/dispatch/pipe_h100.json``, which must be this card's),
+holds its predictions against the times the paths took (``score()`` at
+25632^2 in each scoring, the world-1 sweep at 65536^2 at K5's default T),
+each within 1.25x, and prints the projected speedups and block rows at
+65536^2, 2^19^2 and 2^20^2 on 2, 4 and 8 cards; it launches nothing.
+Fourteen kernels
 have a second,
 earlier design beside them: unbanded score-only runs the register-blocked
 K1, K2 and K3 (``csrc/stripe_rb.cu``), unbanded P capture its K4
@@ -107,6 +114,8 @@ from swtpu_torch import EngineConfig, Scoring, random_batch, random_pair
 from swtpu_torch.core.encode import (DNA_ALPHABET, PROTEIN_ALPHABET, decode,
                                      revcomp)
 from swtpu_torch.core.substitution import BLOSUM62
+from swtpu_torch.dispatch import cost
+from swtpu_torch.dispatch import plan as dp
 from swtpu_torch.dist import database as db
 from swtpu_torch.dist import dryrun
 from swtpu_torch.dist import mesh as msh
@@ -1446,9 +1455,9 @@ def check_alignment(r, a, b, mode: str) -> None:
             f"{mode}: aligned strings are not the inputs' substrings")
 
 
-def drive(mode: str, refs: dict) -> str:
+def drive(mode: str, refs: dict) -> tuple:
     """The public calls at the main path's sizes in one scoring; returns
-    the phase line."""
+    the phase line and score()'s ms at SCORE_N^2."""
     sc, S, alphabet, make = MODELS[mode]
     kw = dict(substitution=S, alphabet=alphabet, device="cuda")
     a, b = make(SCORE_N, SCORE_N)
@@ -1472,7 +1481,7 @@ def drive(mode: str, refs: dict) -> str:
     check_alignment(r, a, b, mode)
     return (f"{msg}; align {ALIGN_N}^2 full-P -> {got}, "
             f"{len(r.aligned_a)} columns re-score to {r.max_score}, "
-            f"wall {wall:.3f} s")
+            f"wall {wall:.3f} s"), ms
 
 
 def hits_diff(x, y) -> int:
@@ -3595,7 +3604,7 @@ def drive_mesh4(dev, mesh1_out: dict) -> tuple:
 
 def run_mesh(dev) -> tuple:
     """The two mesh phases; returns (launches summed over both paths,
-    K5's max_abs_err at a stage)."""
+    K5's max_abs_err at a stage, the sweep's {(rows, T): ms})."""
     with tempfile.TemporaryDirectory() as tmp:
         msh.initialize(f"file://{tmp}/store", 1, 0, "cuda")
         try:
@@ -3606,7 +3615,8 @@ def run_mesh(dev) -> tuple:
             for ln in lines:
                 phase("mesh1", ln)
             a, b = on_card(*random_pair(MESH_BIG, MESH_BIG, seed=0), dev=dev)
-            sweep_lines, _ = mesh_sweep(mesh, a, b, out["want"]["linear"])
+            sweep_lines, grid = mesh_sweep(mesh, a, b,
+                                           out["want"]["linear"])
             del a, b
             for ln in sweep_lines:
                 phase("mesh1", ln)
@@ -3632,7 +3642,78 @@ def run_mesh(dev) -> tuple:
     total = dict(seen1)
     for k, v in seen4.items():
         total[k] = total.get(k, 0) + v
-    return total, errs
+    return total, errs, grid
+
+
+# ---- the pipeline cost model: predictions against this run's times ----
+MODEL_TOLERANCE = 1.25
+PROJECTED_SIDES = (MESH_BIG, 1 << 19, 1 << 20)
+PROJECTED_CARDS = (2, 4, 8)
+
+
+def pipeline_model(headline: dict, grid: dict) -> list:
+    """The committed cost record's predictions beside this run's own
+    times, each within MODEL_TOLERANCE: score() at SCORE_N^2 in each
+    scoring (the full-P path's), and the world-1 pipeline at MESH_BIG^2
+    at each of SWEEP_ROWS (the sweep's, at K5's default T); then the
+    projections on PROJECTED_CARDS cards. No launch. Fails when the
+    record does not load on this card, or this machine would project."""
+    rec = cost.load_record()
+    require(rec is not None, f"{cost.DEFAULT_PIPE_RECORD.name} does not "
+            "load on this card (its stamp, or malformed)")
+    dev = rec["device"]
+    out, worst = [], 1.0
+
+    def held(what: str, pred: float, got: float) -> str:
+        nonlocal worst
+        r = max(pred / got, got / pred)
+        worst = max(worst, r)
+        require(r <= MODEL_TOLERANCE, f"{what}: model {pred:.3f} ms, "
+                f"measured {got:.3f} ms, {r:.3f}x")
+        return f"{pred:.2f}/{got:.2f}"
+
+    parts = []
+    for mode in MODES:
+        sc, S = MODELS[mode][:2]
+        pred = cost.stripe_cost_s(SCORE_N, SCORE_N, sc, S, "score",
+                                  record=rec) * 1e3
+        parts.append(f"{mode} " + held(f"score() {mode}", pred,
+                                       headline[mode]))
+    out.append(f"record {cost.DEFAULT_PIPE_RECORD.name} of {dev['name']} "
+               f"(capability {dev['capability']}, {dev['power_limit']}, "
+               f"{rec['date']}) loads; score() at {SCORE_N}^2, ms model/"
+               f"measured: {', '.join(parts)}")
+    T = sf.RB_BLOCK_DEFAULTS["linear"][0]
+    over = rec["overhead_s"]["linear"]
+    parts = []
+    for R in SWEEP_ROWS:
+        nb = -(-MESH_BIG // R)
+        pred = nb * (cost.stripe_cost_s(MESH_BIG, R, SCORING, None, "block",
+                                        record=rec) + over) * 1e3
+        parts.append(f"{nb} blocks " + held(f"pipeline rows {R}", pred,
+                                            grid[R, T]))
+    out.append(f"world-1 pipeline at {MESH_BIG}^2 linear, T={T}, ms model "
+               f"(blocks x (K5 + {over * 1e6:.1f} us a stage))/measured: "
+               f"{', '.join(parts)}; worst {worst:.3f}x of "
+               f"{MODEL_TOLERANCE}x")
+    parts = []
+    for side in PROJECTED_SIDES:
+        for D in PROJECTED_CARDS:
+            sp, rows = dp.pipeline_projection(side, side, D)
+            parts.append(f"{side}^2 D={D} {sp:.2f}x rows {rows}")
+    gated = [side for side in PROJECTED_SIDES
+             if dp.pipeline_projection(side, side, 8)[0]
+             >= dp.PIPE_MIN_SPEEDUP]
+    out.append(f"projected speedup over one card (linear): "
+               f"{'; '.join(parts)}; the gate (>= {dp.PIPE_MIN_SPEEDUP}x) "
+               f"opens at D=8 for {gated or 'none'}")
+    # this machine: one card, so no call leaves it
+    require(dp.pipeline_devices() == 1
+            and dp.choose_exec(1 << 20, 1 << 20).plan != "pipeline",
+            "a one-card machine would take the mesh")
+    out.append("one card here: pipeline_devices() == 1, choose_exec keeps "
+               f"{1 << 20}^2 on the card")
+    return out
 
 
 # ---- the tools path: instrument/, bench_sweep, the examples ----
@@ -4074,13 +4155,15 @@ def run(dev, name: str, start: float, pool, scans, examples) -> int:
     phase("golden", f"13 @ 69, last 7, {r.aligned_a}/{r.aligned_b} via "
           f"{golden_fill}")
 
-    line = drive("linear", refs)
+    headline = {}
+    line, headline["linear"] = drive("linear", refs)
     m, n = THIN
     thin = swtpu_torch.score(*random_pair(m, n, seed=0), device="cuda")
     require(thin == refs["linear", *THIN][0], f"score {m}x{n}: {thin}")
     phase("linear", f"{line}; {m}x{n} transposed -> {thin}")
     for mode in ("dna_affine", "protein"):
-        phase(mode, drive(mode, refs))
+        line, headline[mode] = drive(mode, refs)
+        phase(mode, line)
 
     launches = dict(sf.launches)
     plain = dict(sf.plain_calls)
@@ -4219,10 +4302,12 @@ def run(dev, name: str, start: float, pool, scans, examples) -> int:
 
     # ---- the mesh paths: world-1 NCCL, then four gloo ranks ----
     t0 = time.perf_counter()
-    mesh_seen, k5_err = run_mesh(dev)
+    mesh_seen, k5_err, grid = run_mesh(dev)
     for entry, e in k5_err.items():
         recs[entry]["max_abs_err"] = max(recs[entry]["max_abs_err"], e)
     phase("mesh", f"mesh1 and mesh4 in {time.perf_counter() - t0:.1f} s")
+    for ln in pipeline_model(headline, grid):
+        phase("pipeline_model", ln)
 
     # launches: the eight paths' runs (the tools path's K1-K4, K8 and K6
     # among them); the K7/K8/K8[band] counters run on

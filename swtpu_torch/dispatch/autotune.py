@@ -31,11 +31,22 @@ Counterpart of ``swtpu.dispatch.autotune`` over the port's own grid:
   compute capability and the torch and CUDA versions; ``load`` refuses a
   table whose card is not this process's (``stamp_matches``), so a table
   tuned on one card never steers another, and the defaults then apply;
-* ``Policy`` picks the nearest entry of the same scoring signature.
+* ``Policy`` picks the nearest entry of the same scoring signature;
+* ``fit_pipeline`` fits the step model of ``dispatch.cost`` on the card,
+  in each scoring of the table: ``score()`` at squares from 4096^2 to
+  2^20^2, whose stripes outnumber what the card keeps resident, and K5
+  (``stripe_block``) alone at the world-1 pipeline's stage shapes and at
+  wider blocks; then the world-1 pipeline's stage walls at the stage
+  shapes (``PIPE_STAGES`` stages each), whose excess over K5's launch
+  alone, the median over the shapes, is the per-stage overhead. Every
+  time the fastest of k by CUDA events after a warm-up. The record keeps
+  each launch's time beside the model's.
 
 ``python -m swtpu_torch.dispatch.autotune`` runs the sweeps on the card
 and writes the table (default ``dispatch/tuned_h100.json``, the one
-``dispatch.plan`` loads).
+``dispatch.plan`` loads); with ``--pipeline`` it runs ``fit_pipeline``
+instead and writes its record (default ``dispatch/pipe_h100.json``, the
+one ``dispatch.cost`` loads), about 70 s on an H100.
 """
 
 from __future__ import annotations
@@ -73,6 +84,20 @@ SIMD_SIZES = (64, 128, 256, 512, 768, 1024, 1536, 2048, 2560, 2880, 3072,
 # score() calls of this square on the card
 FLOOR_PROBE_N = 64
 FLOOR_PROBE_CALLS = 5
+# fit_pipeline's launches: score() squares; the world-1 pipeline's stage
+# shapes (columns a rank, block rows), at which K5 alone and the stage
+# walls are timed; wider K5 blocks, up to the stages a mesh's projection
+# weighs; stages a timed pass; the ratio of model to measurement (or
+# back) the record promises for every launch it was fitted on
+PIPE_SCORE_SIZES = (4096, 8192, 16384, 25632, 65536, 131072, 262144,
+                    524288, 1048576)
+PIPE_STAGE_SHAPES = tuple((mc, rows) for mc in (8192, 32768)
+                          for rows in (512, 2048, 8192))
+PIPE_BLOCK_SHAPES = PIPE_STAGE_SHAPES + (
+    (65536, 4096), (65536, 16384), (65536, 65536), (131072, 131072),
+    (262144, 262144), (524288, 524288))
+PIPE_STAGES = 16
+PIPE_TOLERANCE = 1.25
 
 
 def scoring_sig(scoring: Optional[Scoring] = None, substitution=None) -> str:
@@ -350,6 +375,177 @@ def card_floor_s(k: int = FLOOR_PROBE_CALLS) -> float:
     return _wall_s(lambda: score(a, b, plan="stripe", device=dev), k)
 
 
+def power_limit() -> Optional[str]:
+    """The card's power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` reports it, or None where it
+    cannot be read."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    line = out.strip().splitlines()[0] if out.strip() else ""
+    return line.rsplit(",", 1)[1].strip() if "," in line else None
+
+
+def _block_inputs(mc: int, rows: int, scoring: Scoring, substitution,
+                  dev: torch.device) -> tuple:
+    """A stage's first block on the card: seeded codes, zero row 0 and
+    column 0, F of row 0 and E of column 0 at NEG (affine)."""
+    from ..kernels.scan_fill import NEG
+    a, b = _inputs(mc, rows, substitution)
+    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    top = torch.zeros(mc + 1, dtype=torch.int32, device=dev)
+    left = torch.zeros(rows + 1, dtype=torch.int32, device=dev)
+    top_f = left_e = None
+    if scoring.is_affine:
+        top_f = torch.full((mc + 1,), NEG, dtype=torch.int32, device=dev)
+        left_e = torch.full((rows + 1,), NEG, dtype=torch.int32, device=dev)
+    return a, b, top, left, top_f, left_e
+
+
+def _fit_row(kind: str, m: int, n: int, seconds: float, scoring: Scoring,
+             substitution) -> dict:
+    from .cost import geometry
+    return {"kind": kind, "m": m, "n": n,
+            **geometry(m, n, scoring, substitution, kind), "s": seconds}
+
+
+def fit_pipeline(k: int = 3) -> dict:
+    """Fit ``dispatch.cost``'s step model and the pipeline's per-stage
+    overhead on the card, in each scoring of the table (DNA linear, DNA
+    affine, BLOSUM62 protein: the forms 'linear', 'affine', 'sub'), every
+    time the fastest of k by CUDA events after a warm-up:
+
+    * kind 'score': score-only ``score(plan='stripe')`` of a seeded square
+      pair at each of ``PIPE_SCORE_SIZES``, host codes in, the answer
+      fetched;
+    * kind 'block': K5 (``stripe_block``, want_bottom) alone on the card
+      at each (columns, rows) of ``PIPE_BLOCK_SHAPES``;
+    * the world-1 pipeline (a process group of one rank, ``make_pipeline``)
+      of ``PIPE_STAGES`` block rows at each of ``PIPE_STAGE_SHAPES``, in
+      turns with K5 alone at that shape, two rounds: the pass' wall over
+      its stages is a stage's; less K5 alone, the stage's overhead;
+      ``overhead_s`` is its median over the shapes. A world-1 halo
+      exchanges nothing, so the overhead holds no cross-card halo.
+
+    Returns the stamped record ``cost.load_record`` reads: each kind's and
+    form's constants (``cost.fit``), the overheads, and every launch's
+    time beside the model's. Raises RuntimeError without a card."""
+    import tempfile
+    import torch.distributed as dist
+    from ..dist import mesh as msh
+    from ..dist import pipeline as pl
+    from ..engine.align import score
+    from ..kernels import stripe_fill as sf
+    from .cost import fit, geometry, model_s, rate_bound
+    dev = _require_card("fit_pipeline")
+    stages, stage_shapes = PIPE_STAGES, PIPE_STAGE_SHAPES
+    rec = {"device": dict(device_stamp(), power_limit=power_limit()),
+           "method": (
+               "score(): score-only score(plan='stripe') of a seeded "
+               "square; block: K5 (stripe_block) alone; each the fastest "
+               f"of {k} by CUDA events after a warm-up; cost.fit per kind "
+               "and form. overhead_s: the world-1 pipeline's wall over "
+               f"{stages} stages, less K5 alone at that shape (in turns, "
+               "two rounds), the median over the stage shapes, per form; "
+               "a world-1 halo exchanges "
+               "nothing, so it holds no cross-card halo "
+               "(python -m swtpu_torch.dispatch.autotune --pipeline)"),
+           "date": time.strftime("%Y-%m-%d %H:%M"),
+           "tolerance": PIPE_TOLERANCE,
+           "model": {"score": {}, "block": {}}, "overhead_s": {},
+           "fit_rows": [], "stage_rows": []}
+    runs = []
+    for label, sc, sub in _scorings():
+        sub_np = None if sub is None else np.asarray(sub, np.int32)
+        sub_t = None if sub is None else torch.from_numpy(sub_np).to(dev)
+        rows = []
+        for side in PIPE_SCORE_SIZES:
+            a, b = _inputs(side, side, sub)
+            t = _events_s(lambda: score(a, b, sc, plan="stripe",
+                                        substitution=sub_np, device=dev), k)
+            rows.append(_fit_row("score", side, side, t, sc, sub_np))
+        k5 = {}
+        for mc, br in PIPE_BLOCK_SHAPES:
+            args = _block_inputs(mc, br, sc, sub, dev)
+            t = _events_s(lambda: sf.stripe_block(
+                *args[:2], sc, *args[2:], substitution=sub_t,
+                want_bottom=True), k)
+            k5[mc, br] = t
+            rows.append(_fit_row("block", mc, br, t, sc, sub_np))
+        runs.append((label, sc, sub_np, rows, k5))
+    with tempfile.TemporaryDirectory() as tmp:
+        msh.initialize(f"file://{tmp}/store", 1, 0, "cuda")
+        try:
+            mesh = msh.pipeline_mesh(1, device="cuda")
+            walls, alone = {}, {}
+            for label, sc, sub_np, _, _ in runs:
+                sub_t = (None if sub_np is None else
+                         torch.from_numpy(sub_np).to(dev))
+                for mc, br in stage_shapes:
+                    fn = pl.make_pipeline(mesh, mc, stages * br, br, sc,
+                                          substitution=sub_np)
+                    a, b = _inputs(mc, stages * br, sub_np)
+                    a = torch.from_numpy(a).to(dev)
+                    b = torch.from_numpy(b).to(dev)
+                    args = _block_inputs(mc, br, sc, sub_np, dev)
+                    # K5 alone and the pass in turns, two rounds
+                    ts = [(_events_s(lambda: sf.stripe_block(
+                        *args[:2], sc, *args[2:], substitution=sub_t,
+                        want_bottom=True), k), _events_s(lambda: fn(a, b), k))
+                        for _ in range(2)]
+                    alone[label, mc, br] = min(t[0] for t in ts)
+                    walls[label, mc, br] = min(t[1] for t in ts)
+        finally:
+            dist.destroy_process_group()
+    for label, sc, sub_np, rows, k5 in runs:
+        form = geometry(1, 1, sc, sub_np)["form"]
+        for kind in ("score", "block"):
+            pts = [r for r in rows if r["kind"] == kind]
+            c = fit(pts)
+            rec["model"][kind][form] = {
+                key: c[key] for key in ("floor_s", "step_s", "rate_cps",
+                                        "rate_measured")}
+            for r in pts:
+                r["model_s"] = model_s(c, r["steps"], r["cells"])
+                r["bound"] = ("rate" if rate_bound(c, r["steps"],
+                                                   r["cells"]) else "steps")
+                rec["fit_rows"].append(r)
+            print(f"[{label}] {kind}: floor {c['floor_s'] * 1e6:.1f} us, "
+                  f"step {c['step_s'] * 1e9:.2f} ns, rate "
+                  f"{c['rate_cps'] / 1e9:.1f} GCUPS"
+                  f"{'' if c['rate_measured'] else ' (a lower bound)'}; "
+                  f"worst {c['worst']:.3f}x: " + ", ".join(
+                      f"{r['m']}x{r['n']} {r['s'] * 1e3:.3f}/"
+                      f"{r['model_s'] * 1e3:.3f} ms"
+                      f"{' rate' if r['bound'] == 'rate' else ''}"
+                      for r in pts), flush=True)
+        over = sorted(walls[label, mc, br] / stages - alone[label, mc, br]
+                      for mc, br in stage_shapes)
+        rec["overhead_s"][form] = max(0.0, over[len(over) // 2])
+        blk = rec["model"]["block"][form]
+        for mc, br in stage_shapes:
+            g = geometry(mc, br, sc, sub_np, "block")
+            stage = walls[label, mc, br] / stages
+            rec["stage_rows"].append({
+                "form": form, "mc": mc, "rows": br, "stages": stages,
+                "stage_s": stage, "k5_s": alone[label, mc, br],
+                "overhead_s": stage - alone[label, mc, br],
+                "model_s": model_s(blk, g["steps"], g["cells"])
+                + rec["overhead_s"][form]})
+        print(f"[{label}] stage overhead "
+              f"{rec['overhead_s'][form] * 1e6:.1f} us, the median of "
+              + ", ".join(f"{r['mc']}x{r['rows']} "
+                          f"{r['overhead_s'] * 1e6:.1f}"
+                          for r in rec["stage_rows"] if r["form"] == form)
+              + " us", flush=True)
+    return rec
+
+
 def save(table: dict, path=DEFAULT_TABLE) -> None:
     Path(path).write_text(json.dumps(table, indent=1) + "\n")
 
@@ -420,14 +616,33 @@ def main(argv=None) -> int:
         prog="python -m swtpu_torch.dispatch.autotune",
         description="sweep the kernels' (T, R, C) and the host tiers' "
                     "crossovers on the card; write the stamped table")
-    ap.add_argument("--out", default=str(DEFAULT_TABLE),
+    ap.add_argument("--out", default=None,
                     help="where to write the table (default: the one "
-                         "dispatch.plan loads)")
-    ap.add_argument("-k", type=int, default=5,
+                         "dispatch.plan loads) or, with --pipeline, the "
+                         "record (default: the one dispatch.cost loads)")
+    ap.add_argument("-k", type=int, default=None,
                     help="timed runs a point in each round, the fastest "
-                         "kept")
+                         "kept (default 5; with --pipeline 3)")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="fit the pipeline's cost model instead "
+                         "(fit_pipeline)")
     args = ap.parse_args(argv)
     _require_card("main")
+    if args.pipeline:
+        from .cost import DEFAULT_PIPE_RECORD
+        rec = fit_pipeline(k=args.k or 3)
+        out = args.out or DEFAULT_PIPE_RECORD
+        save(rec, out)
+        worst = max(max(t / r["model_s"], r["model_s"] / t)
+                    for r in rec["fit_rows"] + rec["stage_rows"]
+                    for t in [r.get("s", r.get("stage_s"))])
+        print(f"wrote {len(rec['fit_rows'])} fit rows and "
+              f"{len(rec['stage_rows'])} stage rows to {out}; the model "
+              f"within {worst:.3f}x of every one (tolerance "
+              f"{rec['tolerance']}x)", flush=True)
+        return 0 if worst <= rec["tolerance"] else 1
+    args.out = args.out or str(DEFAULT_TABLE)
+    args.k = args.k or 5
     from .. import runtime_native as rn
     from ..kernels._native import cpu_model
     table = {"device": device_stamp(), "entries": []}

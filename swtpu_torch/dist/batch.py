@@ -136,6 +136,8 @@ def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
     m = np.shape(a_batch)[-1]
     if mesh is not None and band is None \
             and (m > MAX_WIDTH or plan == "pipeline"):
+        # block rows: the projection over the mesh's cards where it has
+        # any (pipeline.block_rows_for), else the default rule
         from .pipeline import pipeline_align_batch
         res = pipeline_align_batch(_host(a_batch), _host(b_batch), mesh,
                                    scoring=scoring,

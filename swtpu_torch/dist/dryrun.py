@@ -221,6 +221,11 @@ def _call_align(mesh, a, b, **kw):
     return align(a, b, mesh=mesh, **kw)
 
 
+def _call_score(mesh, a, b, **kw):
+    from ..engine.align import score
+    return score(a, b, mesh=mesh, **kw)
+
+
 def _call_align_world(mesh, a, b, **kw):
     """``align`` with no mesh on the mesh's device: the pipeline over the
     whole initialized group (``mesh.default_mesh``)."""
@@ -240,6 +245,7 @@ CALLS = {
     "search": _call_search,
     "map_reads": _call_map_reads,
     "align": _call_align,
+    "score": _call_score,
     "align_world": _call_align_world,
 }
 

@@ -34,7 +34,8 @@ import torch
 
 from ..core.config import Scoring
 from ..core.substitution import check_table
-from ..dispatch.plan import runs_kernels
+from ..dispatch.plan import (pipeline_devices, pipeline_projection,
+                             runs_kernels)
 from ..kernels import stripe_fill as sf
 from .batch import _codes, _host
 from .mesh import (Mesh, all_reduce, broadcast_object, check_mesh,
@@ -59,17 +60,56 @@ class PipelineBatchResult(NamedTuple):
 
 
 def default_block_rows(m: int, n: int, D: int) -> int:
-    """Rows a block when the caller names none: the fewest, tallest blocks
-    that still keep every rank of the axis busy at once, one block row a
-    rank (n/D rows; all n at world 1). In chip_smoke.py's sweep of the
-    world-1 pipeline at 65536^2 on an NVIDIA H100 80GB HBM3 at 700 W
-    (PERF.md section 5), one block took 22.82 ms, two 35.87, four 61.36,
+    """Rows a block where the cost model has none (one card, gloo ranks
+    sharing a card, no record fitted on this card): the fewest, tallest
+    blocks that still keep every rank of the axis busy at once, one block
+    row a rank (n/D rows; all n at world 1). In chip_smoke.py's sweep of
+    the world-1 pipeline at 65536^2 on an NVIDIA H100 80GB HBM3 at 700 W
+    (PERF.md section 6), one block took 22.82 ms, two 35.87, four 61.36,
     eight 115.31 and sixteen 219.60 (K5 at T = 128; single-card score()
     21.16 ms): every block is a chain of m/C + rows/R steps, so fewer,
     taller blocks win. With fewer than D block rows no stage has every
-    rank filling. Across cards the rule is unmeasured, a placeholder for
-    the dispatch tier's cost model."""
+    rank filling."""
     return -(-max(n, 1) // max(D, 1))
+
+
+def projected_rows(m: int, n: int, mesh: Mesh, axis: str,
+                   scoring: Scoring = Scoring(),
+                   substitution=None) -> Optional[int]:
+    """The rows of ``dispatch.plan.pipeline_projection`` for an n x m pass
+    over the cards of ``mesh``'s ``axis`` (``pipeline_devices``), where
+    there are two or more and it projects any, else None. Each rank
+    projects from its own record, so the axis' rank 0's rows go to every
+    rank (``broadcast_object``): ranks whose records differ still cut the
+    same blocks."""
+    cards = pipeline_devices(mesh, axis=axis)
+    if cards < 2:
+        return None
+    _, rows = pipeline_projection(m, n, cards, scoring, substitution)
+    return broadcast_object(rows or None, mesh, axis)
+
+
+def block_rows_for(m: int, n: int, mesh: Mesh, axis: str,
+                   scoring: Scoring = Scoring(), substitution=None) -> int:
+    """Rows a block of an n x m pass on ``mesh``'s ``axis`` when the caller
+    names none: ``projected_rows``, else ``default_block_rows``. The
+    answer does not depend on them."""
+    return (projected_rows(m, n, mesh, axis, scoring, substitution)
+            or default_block_rows(m, n, mesh.shape[axis]))
+
+
+def agree(mesh: Mesh, verdict: bool, key: tuple) -> bool:
+    """True on every rank of ``mesh``'s pipeline axis (its first) where
+    every rank's ``verdict`` holds and every rank passed the same integers
+    ``key``, else False on every rank: one all-reduce of the minimum of
+    (verdict, key, -key). Every rank of the axis calls it."""
+    axis = _resolve(mesh, None)
+    k = [int(x) for x in key]
+    got = all_reduce(torch.tensor([int(bool(verdict)), *k, *(-x for x in k)],
+                                  dtype=torch.int64, device=mesh.device),
+                     "min", mesh, axis).tolist()
+    low, high = got[1:1 + len(k)], [-x for x in got[1 + len(k):]]
+    return bool(got[0]) and low == high
 
 
 @dataclasses.dataclass
@@ -265,12 +305,13 @@ def pipeline_align(a_codes, b_codes, mesh: Mesh,
     sentinel prefix (-1 for a, -2 for b) fills with exact zeros, so it
     only extends the zero boundary, the padded matrix's bottom-right
     corner is the true H[n, m], and max positions shift by the constant
-    offsets. ``block_rows`` None: ``default_block_rows``."""
+    offsets. ``block_rows`` None: ``block_rows_for``."""
     axis = _resolve(mesh, axis)
     a_codes, b_codes = _host(a_codes), _host(b_codes)
     D = mesh.shape[axis]
     m, n = len(a_codes), len(b_codes)
-    R = block_rows or default_block_rows(m, n, D)
+    R = block_rows or block_rows_for(m, n, mesh, axis, scoring,
+                                     substitution)
     mp, np_ = _pad_shapes(m, n, D, R)
     a_pad = np.full((mp,), -1, np.int8)
     a_pad[mp - m:] = a_codes
@@ -299,7 +340,8 @@ def _pipeline_nw_argmax(a_codes: np.ndarray, b_codes: np.ndarray,
     padded cells decay strictly, so they never tie the positive max."""
     D = mesh.shape[axis]
     m, n = len(a_codes), len(b_codes)
-    R = block_rows or default_block_rows(m, n, D)
+    R = block_rows or block_rows_for(m, n, mesh, axis, scoring,
+                                     substitution)
     mp, np_ = _pad_shapes(m, n, D, R)
     a_pad = np.full((mp,), -1, np.int8)
     a_pad[:m] = a_codes
@@ -317,11 +359,16 @@ def pipeline_locate(a_codes, b_codes, mesh: Mesh,
                     substitution=None):
     """Locate across the mesh: the forward pipeline finds (score, end), an
     anchored NW pipeline over the reversed prefixes finds the start.
-    Returns a ``Located`` or None; raises ``AnchoredReverseMismatch``
-    when the reverse pass does not reach the forward score."""
+    ``block_rows`` None: the forward's ``projected_rows`` for both passes
+    where there are any, else each pass's ``default_block_rows``. Returns
+    a ``Located`` or None; raises ``AnchoredReverseMismatch`` when the
+    reverse pass does not reach the forward score."""
     from ..engine.traceback import AnchoredReverseMismatch, Located
     axis = _resolve(mesh, axis)
     a_codes, b_codes = _host(a_codes), _host(b_codes)
+    # the projection's rows, where there are any, serve both passes
+    block_rows = block_rows or projected_rows(
+        len(a_codes), len(b_codes), mesh, axis, scoring, substitution)
     fwd = pipeline_align(a_codes, b_codes, mesh, block_rows, scoring, axis,
                          substitution)
     score = int(fwd.max_score)
@@ -430,14 +477,15 @@ def pipeline_align_batch(a_batch, b_batch, mesh: Mesh,
                          substitution=None) -> PipelineBatchResult:
     """The bubble-filled batch pipeline for P same-shape pairs (P, m) x
     (P, n), padded as ``pipeline_align`` pads (left and top sentinels, the
-    positions shifted back)."""
+    positions shifted back; ``block_rows`` None: ``block_rows_for``)."""
     axis = _resolve(mesh, axis)
     a_batch = _host(a_batch)
     b_batch = _host(b_batch)
     Pp, m = a_batch.shape
     n = b_batch.shape[1]
     D = mesh.shape[axis]
-    R = block_rows or default_block_rows(m, n, D)
+    R = block_rows or block_rows_for(m, n, mesh, axis, scoring,
+                                     substitution)
     mp, np_ = _pad_shapes(m, n, D, R)
     a_pad = np.full((Pp, mp), -1, np.int8)
     a_pad[:, mp - m:] = a_batch

@@ -6,15 +6,24 @@ PyTorch sweep, on any device), 'host' (the native serial fill on the host,
 ``runtime_native.fill``, its P walked there and the strings rendered by
 the oracle, on either device) and 'pipeline' (the column-stripe pipeline
 across the ranks of a mesh, ``dist.pipeline``); 'auto' lets
-``dispatch.plan.choose_exec`` decide (its tiers and tuned (T, R, C)), and
-takes the pipeline for a pair wider than the kernels' MAX_WIDTH. Before
+``dispatch.plan.choose_exec`` decide (its tiers, its profit gate of the
+pipeline across the cards of a mesh, and tuned (T, R, C)), and takes the
+pipeline for a pair wider than the kernels' MAX_WIDTH. Before
 dispatch, an 'auto' score-only unbanded call on a CUDA device of at most
 ``config.simd_cells_cap()`` cells runs the striped SIMD fill on the host
 (``runtime_native.score_simd_pos``) where it is eligible. On the CPU
 'auto' takes neither host tier. 'pipeline' runs on ``mesh=``, or on the
 whole initialized process group (``dist.mesh.default_mesh``); with
 neither, or for ``return_matrices`` or a band, it runs the single-card
-plans, as the JAX package does on one device. ``Alignment.plan`` says
+plans, as the JAX package does on one device. Under 'auto' the profit
+gate sends a pair to the pipeline only across the D >= 2 cards of
+``mesh=``: a call without a mesh stays on one card below MAX_WIDTH and
+enters no collective. On such a mesh an 'auto' call is a collective of
+its ranks, which route together: each rank's own verdict (the gate, or
+a pair wider than one kernel) and its pair's sizes go through one
+all-reduce (``dist.pipeline.agree``), and the call takes the mesh only
+where every rank's verdict holds for the same sizes; otherwise every
+rank keeps to its own card. ``Alignment.plan`` says
 which plan ran ('host-simd' for the SIMD tier). With a mesh every rank of
 it calls the same function and the mesh's device serves the call. A
 request for ``device='cuda'`` on a machine without a card raises, for a
@@ -196,6 +205,27 @@ def align(
     want_tb = config.traceback if traceback is None else traceback
     sub_np = None if substitution is None else check_table(substitution)
 
+    auto = plan in (None, "auto")
+    simd = auto and m > 0 and n > 0 and dev.type == "cuda" \
+        and not want_tb and not return_matrices and config.band is None \
+        and rn.simd_shape_ok(m, n, scoring, sub_np) \
+        and m * n <= config.simd_cells_cap()
+    # on a mesh of cards, every rank of it decides the route together,
+    # before any rank returns: the pipeline, or each on its own card
+    alone = False
+    if auto and mesh is not None:
+        from ..dist import pipeline as pl
+        if pl.pipeline_devices(mesh) >= 2:
+            own = m > 0 and n > 0 and not simd and not return_matrices \
+                and config.band is None and (m > MAX_WIDTH or choose_exec(
+                    m, n, config, scoring, want_tb, dev,
+                    substitution=sub_np, mesh=mesh).plan == "pipeline")
+            if pl.agree(mesh, own, (m, n, want_tb, scoring.is_affine,
+                                    sub_np is not None)):
+                return _pipeline_path(a_codes, b_codes, scoring, mesh,
+                                      want_tb, alphabet, sub_np)
+            alone = True
+
     if m == 0 or n == 0:
         # Degenerate: an empty sequence aligns to nothing (all-zero matrix).
         res = Alignment(max_score=0, max_i=0, max_j=0, last_cell=0)
@@ -207,10 +237,7 @@ def align(
 
     # the score-only SIMD tier on the host, below the card's per-call
     # floor: the score, the first end cell and the last cell
-    if plan in (None, "auto") and dev.type == "cuda" and not want_tb \
-            and not return_matrices and config.band is None \
-            and rn.simd_shape_ok(m, n, scoring, sub_np) \
-            and m * n <= config.simd_cells_cap():
+    if simd:
         got = rn.score_simd_pos(a_codes, b_codes, scoring, sub_np)
         if got is not None:
             s, bi, bj, last = got
@@ -219,16 +246,18 @@ def align(
             res._m1 = m + 1
             return res
 
-    if plan in (None, "auto") and m > MAX_WIDTH:
+    if auto and m > MAX_WIDTH:
         plan = "pipeline"           # wider than one kernel
-    if plan == "pipeline":
+    if plan == "pipeline" and not alone:
         mesh = mesh if mesh is not None else default_mesh(dev)
         if mesh is not None and not return_matrices and config.band is None:
             return _pipeline_path(a_codes, b_codes, scoring, mesh, want_tb,
                                   alphabet, sub_np)
+    if plan == "pipeline":
         plan = None                 # no mesh: the single-card plans
     exec_plan = None
     if plan in (None, "auto"):
+        # one card: the gate, which counts a mesh's cards, is not asked
         exec_plan = choose_exec(m, n, config, scoring, want_tb, dev,
                                 substitution=sub_np)
         plan = exec_plan.plan
@@ -312,8 +341,9 @@ def _pipeline_path(a_codes, b_codes, scoring: Scoring, mesh, want_tb: bool,
                    alphabet: str, sub_np) -> Alignment:
     """The pipeline across the mesh: the score (``pipeline_align``), or
     the locate and a windowed refill (``pipeline_traceback``), whose
-    strings come without ``path``. ``block_rows`` is the pipeline's
-    default rule (the JAX package's TPU cost model stays behind)."""
+    strings come without ``path``. Block rows: the dist layer's
+    (``dist.pipeline.block_rows_for``), one height for every pass of a
+    call."""
     from ..dist import pipeline as pl
     m = len(a_codes)
     if not want_tb:

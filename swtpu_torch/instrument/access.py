@@ -36,9 +36,12 @@ the on-chip set. ``hbm_read_bytes`` and ``hbm_write_bytes`` are the
 model's alone: no counter of the card's DRAM traffic is read, so a
 roofline share built on them is a modelled one.
 
-Left out: ``compiled_cost``. There is no compiler cost analysis of a
-hand-written kernel to read; the operation counts of a fill are
-``chip_smoke.py``'s bound.
+``compiled_cost`` is the counterpart of the JAX package's, which reads
+XLA's cost analysis of a jitted callable: what the compiler says of one
+register-blocked C entry's instantiation, read from the kept build log's
+``ptxas -v`` lines (registers, static shared memory, stack frame, spill
+stores and loads; ``ptxas_facts``). No compiler counts a hand-written
+fill's operations or bytes; those are ``chip_smoke.py``'s bound.
 """
 
 from __future__ import annotations
@@ -52,8 +55,9 @@ import torch
 
 from ..core.config import EngineConfig, Scoring
 from ..kernels import _cuda
-from ..kernels.stripe_fill import (P_PITCH_ALIGN, RB_KERNELS, RB_P_KERNELS,
-                                   _mode, rb_flags, rb_shape)
+from ..kernels.stripe_fill import (P_PITCH_ALIGN, RB_ENTRY_FLAGS, RB_KERNELS,
+                                   RB_P_KERNELS, _mode, rb_flags, rb_kind,
+                                   rb_shape)
 from .metrics import _tensors
 
 # the H100's SMs: at most this many stripes run at once, a block an SM or
@@ -161,17 +165,65 @@ def rb_symbol(mode: str, R: int, C: int, traceback: bool = False,
 def ptxas_usage(log: str) -> dict:
     """{mangled entry: (registers, static shared bytes)} from the output of
     ``nvcc -Xptxas -v`` (the kernel build's log, ``_cuda.BUILD.log``)."""
-    out, entry = {}, None
+    return {k: (v["registers"], v["smem_bytes"])
+            for k, v in ptxas_facts(log).items()}
+
+
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+
+
+def ptxas_facts(log: str) -> dict:
+    """{mangled entry: {'registers', 'smem_bytes', 'stack_bytes',
+    'spill_store_bytes', 'spill_load_bytes'}} from the output of ``nvcc
+    -Xptxas -v``; the last three None where ptxas printed no frame line
+    for the entry."""
+    out, entry, frame = {}, None, (None, None, None)
     for ln in log.splitlines():
         got = _PTXAS_ENTRY.search(ln)
         if got:
-            entry = got.group(1)
+            entry, frame = got.group(1), (None, None, None)
+            continue
+        got = _PTXAS_FRAME.search(ln)
+        if got and entry:
+            frame = tuple(int(x) for x in got.groups())
             continue
         got = _PTXAS_USED.search(ln)
         if got and entry:
-            out[entry] = (int(got.group(1)), int(got.group(2)))
+            out[entry] = {"registers": int(got.group(1)),
+                          "smem_bytes": int(got.group(2)),
+                          "stack_bytes": frame[0],
+                          "spill_store_bytes": frame[1],
+                          "spill_load_bytes": frame[2]}
             entry = None
     return out
+
+
+def compiled_cost(entry: str, log: Optional[str] = None) -> Optional[dict]:
+    """The compiler's own facts of the instantiation that the
+    register-blocked C entry ``entry`` (``stripe_fill.RB_ENTRY_FLAGS``)
+    launches at its kind's default tile (``rb_kind``, ``rb_shape``; a
+    table's entry in its linear-gap instantiation, as ``rb_flags`` takes
+    it): ``ptxas_facts``' figures with the entry and its mangled name,
+    read from ``log`` (default: this process's build log,
+    ``_cuda.BUILD.log``). None where there is no log (this process loaded
+    a library it did not build, or built none) or the log holds no such
+    instantiation. Raises ValueError for an entry that is not
+    register-blocked."""
+    form, mode = entry.rsplit("_", 1) if "_" in entry else (entry, "")
+    if form + "_{mode}" not in RB_ENTRY_FLAGS \
+            or mode not in ("linear", "affine", "sub"):
+        raise ValueError(f"{entry!r} is no register-blocked C entry")
+    log = _cuda.BUILD.log if log is None else log
+    if not log:
+        return None
+    _, R, C = rb_shape(1 << 20, mode=mode, kind=rb_kind(entry))
+    frag = (f"stripe_rb_kernelILi{R}ELi{C}E"
+            + "".join(f"Lb{int(f)}E" for f in rb_flags(entry)))
+    for name, facts in ptxas_facts(log).items():
+        if frag in name:
+            return {"entry": entry, "symbol": name, **facts}
+    return None
 
 
 def launch_smem(mode: str, R: int, C: int, T: int, A: int = 0,

@@ -234,6 +234,23 @@ def rb_flags(entry: str, affine: bool = False) -> tuple:
     return tuple(f in on for f in RB_FLAGS)
 
 
+def rb_kind(entry: str) -> str:
+    """``rb_shape``'s kind of the launch that the register-blocked C entry
+    ``entry`` makes, read off its flags (RB_ENTRY_FLAGS)."""
+    on = set(RB_ENTRY_FLAGS[entry.rsplit("_", 1)[0] + "_{mode}"])
+    if "kDebugH" in on:
+        return "packed_debug" if "kPacked" in on else "debug"
+    if "kPacked" in on:
+        return "packed"
+    if "kPairs" in on:
+        return ("window" if "kShared" in on
+                else "pairs_band" if "kBand" in on else "pairs")
+    if "kBlock" in on:
+        return "block"
+    return "_".join(["fill_p"] * ("kP" in on)
+                    + ["band"] * ("kBand" in on)) or "score"
+
+
 def rb_entry(flags: tuple) -> Optional[str]:
     """The register-blocked C entry that launches the instantiation of
     these nine flags (RB_FLAGS, in order), or None where none does."""

@@ -380,6 +380,67 @@ def test_ptxas_usage_and_launched_resident(monkeypatch):
         access.launched_resident(usage, 4096, 4096, R=8, C=2)
 
 
+# a ptxas log of three entries: K1 (8, 4) linear with its frame line, K5
+# (8, 4) DNA affine with a spill, and K4 (4, 4) without a frame line
+COST_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116stripe_rb_kernelILi8ELi4ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELb0EEEvPKa' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116stripe_rb_kernelILi8ELi4ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELb0ELb0EEEvPKa
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 87 registers, used 1 barriers, 9100 bytes smem, 500 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116stripe_rb_kernelILi8ELi4ELb1ELb0ELb0ELb1ELb0ELb0ELb0ELb0ELb0EEEvPKa' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116stripe_rb_kernelILi8ELi4ELb1ELb0ELb0ELb1ELb0ELb0ELb0ELb0ELb0EEEvPKa
+    24 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 9612 bytes smem, 520 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116stripe_rb_kernelILi4ELi4ELb0ELb0ELb1ELb0ELb0ELb0ELb0ELb0ELb0EEEvPKa' for 'sm_90a'
+ptxas info    : Used 79 registers, used 1 barriers, 9100 bytes smem, 500 bytes cmem[0]
+"""
+
+
+def test_compiled_cost_reads_the_build_log(monkeypatch):
+    k1 = access.compiled_cost("sw_stripe_rb_linear", log=COST_LOG)
+    assert k1["entry"] == "sw_stripe_rb_linear"
+    assert "stripe_rb_kernelILi8ELi4E" in k1["symbol"]
+    assert {k: v for k, v in k1.items() if k not in ("entry", "symbol")} == {
+        "registers": 87, "smem_bytes": 9100, "stack_bytes": 0,
+        "spill_store_bytes": 0, "spill_load_bytes": 0}
+    k5 = access.compiled_cost("sw_stripe_rb_block_affine", log=COST_LOG)
+    assert (k5["registers"], k5["smem_bytes"], k5["stack_bytes"],
+            k5["spill_store_bytes"], k5["spill_load_bytes"]) == (
+        168, 9612, 24, 16, 12)
+    # K4 at its (4, 4): ptxas printed no frame line, so none is invented
+    k4 = access.compiled_cost("sw_stripe_rb_fill_p_linear", log=COST_LOG)
+    assert (k4["registers"], k4["stack_bytes"]) == (79, None)
+    # instantiations the log does not hold
+    assert access.compiled_cost("sw_stripe_rb_band_linear",
+                                log=COST_LOG) is None
+    assert access.compiled_cost("sw_pairs_rb_sub", log=COST_LOG) is None
+    assert len(access.ptxas_facts(COST_LOG)) == 3
+    # a library this process never built: no log, no facts
+    monkeypatch.setattr(_cuda.BUILD, "log", "")
+    assert access.compiled_cost("sw_stripe_rb_linear") is None
+    for bad in ("sw_walk_p", "sw_stripe_score_linear", "sw_stripe_rb_dna"):
+        with pytest.raises(ValueError):
+            access.compiled_cost(bad, log=COST_LOG)
+
+
+
+@pytest.mark.parametrize("entry", RB_ENTRIES)
+def test_rb_kind_is_a_launch_rb_shape_takes(entry):
+    """Each register-blocked entry's kind, read off its flags, is the
+    launch its name says, and one that ``rb_shape`` resolves."""
+    kind = sf.rb_kind(entry)
+    want = {"sw_stripe_rb": "score", "sw_stripe_rb_fill_p": "fill_p",
+            "sw_stripe_rb_block": "block", "sw_stripe_rb_band": "band",
+            "sw_stripe_rb_fill_p_band": "fill_p_band",
+            "sw_sanitize_rb": "debug",
+            "sw_sanitize_packed_rb": "packed_debug",
+            "sw_pairs_rb": "pairs", "sw_pairs_rb_band": "pairs_band",
+            "sw_window_rb": "window", "sw_packed_rb": "packed"}
+    assert kind == want[entry.rsplit("_", 1)[0]]
+    mode = entry.rsplit("_", 1)[1]
+    T, R, C = sf.rb_shape(1 << 20, mode=mode, kind=kind)
+    assert T >= 32 and R >= 1 and C >= 1
+
 # ---- choose_plan ----
 
 EDGE = int(HOST_MAX_CELLS ** 0.5)

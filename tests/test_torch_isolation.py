@@ -1,5 +1,6 @@
 """swtpu_torch stands apart from JAX and never quietly leaves the card."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -30,6 +31,7 @@ def test_port_imports_no_jax_and_no_swtpu():
         "import swtpu_torch.dist.checkpoint, swtpu_torch.dist.dryrun\n"
         "import swtpu_torch.runtime_native, swtpu_torch.kernels._native\n"
         "import swtpu_torch.dispatch.autotune\n"
+        "import swtpu_torch.dispatch.cost\n"
         "import swtpu_torch.instrument.profiling\n"
         "import swtpu_torch.instrument.access\n"
         "import swtpu_torch.bench_sweep\n"
@@ -67,6 +69,36 @@ def test_examples_and_scripts_import_no_jax(rel):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("clean")
     assert "usage:" in proc.stdout
+
+
+def test_the_cost_model_imports_no_jax_and_reads_no_card():
+    """The pipeline cost model and the tests' rank helper import no jax,
+    jaxlib or swtpu; without a card the committed record does not load,
+    so the gate projects nothing; the fit's command names its flag. The
+    child sees no card (``CUDA_VISIBLE_DEVICES`` empty), wherever it
+    runs."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_pipe_ranks\n"
+        "from swtpu_torch.dispatch import cost, plan\n"
+        "assert cost.DEFAULT_PIPE_RECORD.exists()\n"
+        "assert cost.load_record() is None\n"
+        "assert plan.pipeline_projection(1 << 20, 1 << 20, 8) == (0.0, 0)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'swtpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, timeout=120,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+    proc = subprocess.run([sys.executable, "-m",
+                           "swtpu_torch.dispatch.autotune", "--help"],
+                          capture_output=True, text=True, cwd=REPO,
+                          timeout=120)
+    assert proc.returncode == 0 and "--pipeline" in proc.stdout
 
 
 def test_importing_the_host_tiers_builds_nothing():
