@@ -29,7 +29,7 @@ capture checked against the numpy oracle, and ``python -m swtpu_torch
 4096 4096 --skip-backtrack --sanitize``), and the tools path
 (``swtpu_torch.bench_sweep``'s quick square and rectangular grids, each
 score against the host serial fill; ``instrument.profiling``'s
-``phase_report`` of the stripe call at 64^2 and 25632^2 and a ``trace()``
+spans of the stripe call at 64^2 and 25632^2 and a ``trace()``
 that must name ``sw_stripe_rb_linear``, its score the host serial fill's;
 ``instrument.access``'s ``validate_model`` at 4096^2 in each scoring
 against the allocator, ptxas and the launcher, each plan's answer the
@@ -3833,13 +3833,57 @@ def check_sweep(text: str, grid: str, plan: str, serial: dict) -> list:
     return recs
 
 
+FILL_SPANS = ("swtpu.fill.prep", "swtpu.fill.run", "swtpu.fill.fetch")
+
+
+def call_floor(side: int, dev) -> str:
+    """The card's per-call floor (ROADMAP P3) at side^2: PHASE_REPORTS
+    ``score(plan='stripe')`` calls, warm, under ``profiling.trace()``; the
+    fill's own spans (the uploads, the launch with its scratch and
+    reductions, the fetch), the call's root span and K1's time, all read
+    from that one trace on the profiler's clock. Each answer is held to
+    the host serial fill's (KNOWN at 25632^2). Returns the phase line."""
+    from swtpu_torch import runtime_native as rn
+    from swtpu_torch.instrument import profiling
+    a, b = random_pair(side, side, seed=0)
+    want = (KNOWN["linear", side, side][0] if side == SCORE_N
+            else int(rn.fill(a, b).max_score))
+    swtpu_torch.score(a, b, plan="stripe", device=dev)
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir, device=dev):
+            got = [swtpu_torch.score(a, b, plan="stripe", device=dev)
+                   for _ in range(PHASE_REPORTS)]
+        with open(os.path.join(logdir, profiling.TRACE_FILE)) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    profiling.clear()
+    require(got == [want] * PHASE_REPORTS,
+            f"score() at {side}^2 under trace(): {got} != {want}")
+    us = {n: sorted(float(e["dur"]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"] == n)
+          for n in ("swtpu.align", *FILL_SPANS)}
+    us["K1"] = sorted(float(e["dur"]) for e in events
+                      if e.get("cat") == "kernel"
+                      and profiling.entry_of(e["name"]) == sf.RB_KERNEL)
+    require(all(len(v) == PHASE_REPORTS for v in us.values()),
+            f"score() at {side}^2: spans and K1 launches "
+            f"{ {k: len(v) for k, v in us.items()} }, not "
+            f"{PHASE_REPORTS} each")
+    mid = PHASE_REPORTS // 2
+    return (f"the fill's spans of {PHASE_REPORTS} score(plan='stripe') "
+            f"calls at {side}^2 (= {want}) under trace(), min / median us: "
+            + ", ".join(f"{n.removeprefix('swtpu.')} {v[0]:.0f} / "
+                        f"{v[mid]:.0f}" for n, v in us.items()))
+
+
 def drive_tools(dev, ex_cpu: dict) -> list:
     """The tools path on the card: bench_sweep's quick grids (auto on both,
-    stripe on the square), phase_report of score()'s stripe call at 64^2
-    and 25632^2, a trace() of a 4096^2 score(), validate_model at 4096^2
-    in each scoring, the three examples (at their small sizes, and at the
-    cut sizes against ``ex_cpu``), torch_map_warm at full size and
-    reference_random against GlibcRand. Returns phase lines."""
+    stripe on the square), the fill's spans of score()'s stripe call at
+    64^2 and 25632^2 (``call_floor``), a trace() of a 4096^2 score(),
+    validate_model at 4096^2 in each scoring, the three examples (at their
+    small sizes, and at the cut sizes against ``ex_cpu``), torch_map_warm
+    at full size and reference_random against GlibcRand. Returns phase
+    lines."""
     import contextlib
     import io
     from swtpu_torch import bench_sweep
@@ -3867,36 +3911,8 @@ def drive_tools(dev, ex_cpu: dict) -> list:
                  f"sizes) and 25632^2 to {best}, in "
                  f"{time.perf_counter() - t0:.1f} s")
 
-    # the card's per-call floor (ROADMAP P3): the stripe call's uploads,
-    # its launch (scratch, K1, the on-card reduction) and its fetch
     for side in PHASE_SIDES:
-        a, b = random_pair(side, side, seed=0)
-        got, reps = [], []
-        for _ in range(PHASE_REPORTS):
-            reps.append(profiling.phase_report(
-                prep=lambda: on_card(a, b, dev=dev),
-                run=lambda ab: sf.stripe_score(*ab, SCORING),
-                fetch=lambda out: got.append(out.best.tolist()),
-                repeats=5, device=dev))
-        rep = {k: min(r[k] for r in reps) for k in reps[0]}
-        r = swtpu_torch.align(a, b, traceback=False, plan="host",
-                              device=dev) if side != SCORE_N else None
-        want = (list(KNOWN["linear", side, side]) if r is None
-                else [r.max_score, r.max_i, r.max_j, r.last_cell])
-        require(got == [want] * PHASE_REPORTS,
-                f"phase_report {side}^2: {got} != {want}")
-        walls = []
-        for _ in range(5):
-            w0 = time.perf_counter()
-            swtpu_torch.score(a, b, plan="stripe", device=dev)
-            walls.append(time.perf_counter() - w0)
-        lines.append(f"phase_report of the stripe call at {side}^2 (each "
-                     f"phase the min of {PHASE_REPORTS} reports, a report's"
-                     f" run the min of 5): prep {rep['input_prep_s'] * 1e6:.0f} us, run "
-                     f"{rep['device_run_s'] * 1e6:.0f} us (CUDA events), "
-                     f"fetch {rep['result_fetch_s'] * 1e6:.0f} us; "
-                     f"score(plan='stripe') wall min {min(walls) * 1e6:.0f}"
-                     f" us, median {sorted(walls)[2] * 1e6:.0f} us")
+        lines.append(call_floor(side, dev))
 
     t0 = time.perf_counter()
     a, b = random_pair(TRACE_N, TRACE_N, seed=0)

@@ -50,6 +50,7 @@ from ..core.config import EngineConfig, Scoring
 from ..core.substitution import check_table
 from ..dispatch.plan import runs_kernels
 from ..engine.align import align, resolve_device
+from ..instrument import profiling
 from ..kernels.pairs_fill import (BatchHits, pairs_packed_score,
                                   pairs_score, pairs_score_plain)
 from ..kernels.stripe_fill import MAX_WIDTH
@@ -107,10 +108,15 @@ def _device(mesh, device) -> torch.device:
 
 
 def _codes(x, dev: torch.device) -> torch.Tensor:
-    """A batch of codes as an int8 tensor on ``dev``."""
+    """A batch of codes as an int8 tensor on ``dev``; codes in host memory
+    count as ``h2d_bytes``, copied where ``dev`` is a card."""
     if isinstance(x, torch.Tensor):
+        if x.device.type == "cpu":
+            profiling.count("h2d_bytes", x.numel())
         return x.to(device=dev, dtype=torch.int8)
-    return torch.from_numpy(np.ascontiguousarray(x, np.int8)).to(dev)
+    x = np.ascontiguousarray(x, np.int8)
+    profiling.count("h2d_bytes", x.nbytes)
+    return torch.from_numpy(x).to(dev)
 
 
 def _host(x) -> np.ndarray:
@@ -268,6 +274,7 @@ def _pad_exact(scoring: Scoring, substitution) -> bool:
     return gaps and scoring.mismatch < 0
 
 
+@profiling.spanned("swtpu.score_many")
 def score_many(a_list, b_list, scoring: Scoring = Scoring(),
                substitution=None, plan: str = "auto", mesh=None,
                device: Union[str, torch.device] = "cuda") -> BatchHits:
@@ -293,20 +300,29 @@ def score_many(a_list, b_list, scoring: Scoring = Scoring(),
             out[:, k] = res.max_score, res.max_i, res.max_j
         return BatchHits(*torch.from_numpy(out))
     buckets: dict = {}
-    for k in range(B):
-        m, n = len(a_list[k]), len(b_list[k])
-        if m == 0 or n == 0:
-            continue          # empty operand: all-zero matrix
-        buckets.setdefault((_bucket_len(m), _bucket_len(n)), []).append(k)
+    with profiling.span("swtpu.batch.bucket"):
+        for k in range(B):
+            m, n = len(a_list[k]), len(b_list[k])
+            if m == 0 or n == 0:
+                continue          # empty operand: all-zero matrix
+            buckets.setdefault((_bucket_len(m), _bucket_len(n)),
+                               []).append(k)
     for (mb, nb), idx in sorted(buckets.items()):
-        aa = np.full((len(idx), mb), -3, np.int8)
-        bb = np.full((len(idx), nb), -2, np.int8)
-        for r, k in enumerate(idx):
-            aa[r, :len(a_list[k])] = _host(a_list[k])
-            bb[r, :len(b_list[k])] = _host(b_list[k])
-        hits = batch_score(aa, bb, scoring, plan=plan, mesh=mesh,
-                           substitution=substitution, device=dev)
-        out[:, idx] = torch.stack(list(hits)).cpu().numpy()
+        with profiling.span("swtpu.batch.pack"):
+            aa = np.full((len(idx), mb), -3, np.int8)
+            bb = np.full((len(idx), nb), -2, np.int8)
+            for r, k in enumerate(idx):
+                aa[r, :len(a_list[k])] = _host(a_list[k])
+                bb[r, :len(b_list[k])] = _host(b_list[k])
+        if profiling.recording():
+            profiling.count("batch.cells_real", sum(
+                len(a_list[k]) * len(b_list[k]) for k in idx))
+            profiling.count("batch.cells_bucket", len(idx) * mb * nb)
+        with profiling.span("swtpu.batch.score"):
+            hits = batch_score(aa, bb, scoring, plan=plan, mesh=mesh,
+                               substitution=substitution, device=dev)
+        with profiling.span("swtpu.batch.fetch"):
+            out[:, idx] = torch.stack(list(hits)).cpu().numpy()
     return BatchHits(*torch.from_numpy(out))
 
 

@@ -59,6 +59,7 @@ from ..core.config import EngineConfig, Scoring
 from ..core.encode import DNA_ALPHABET, PROTEIN_ALPHABET, decode, revcomp
 from ..core.substitution import check_table
 from ..engine.align import align, resolve_device
+from ..instrument import profiling
 from ..kernels.window_fill import (WindowScorer, check_window,
                                    window_score_plain)
 from ..kernels.scan_fill import check_codes
@@ -300,45 +301,50 @@ def make_searcher(qlen: int, shard_len: int, window: int = 32768,
             yield s, d * shard_len + off + wj - 1, qi  # the global end
 
     def run(queries, ref_sharded) -> SearchHits:
-        q, shard, score = prepare(queries, ref_sharded)
+        with profiling.span("swtpu.search.prepare"):
+            q, shard, score = prepare(queries, ref_sharded)
         B = q.shape[0]
-        bs = torch.zeros(B, dtype=torch.int32, device=dev)
-        bp = torch.full((B,), _FAR, dtype=torch.int32, device=dev)
-        be = torch.zeros(B, dtype=torch.int32, device=dev)
-        for s, pos, qi in windows(shard, score):
-            # prefer the higher score; a tie goes to the lower position
-            better = (s > bs) | ((s == bs) & (pos < bp) & (s > 0))
-            bs = torch.where(better, s, bs)
-            bp = torch.where(better, pos, bp)
-            be = torch.where(better, qi, be)
-        bp = torch.where(bs > 0, bp, -1)
-        if D > 1:
-            # max score, then min position among its winners, then the
-            # read end of the one winner
-            gbs = all_reduce(bs, "max", mesh, axis)
-            gbp = all_reduce(torch.where((bs == gbs) & (gbs > 0), bp, _FAR),
-                             "min", mesh, axis)
-            mine = (bs == gbs) & (bp == gbp)
-            be = all_reduce(torch.where(mine, be, 0), "max", mesh, axis)
-            bs, bp = gbs, torch.where(gbs > 0, gbp, -1)
+        with profiling.span("swtpu.search.windows"):
+            bs = torch.zeros(B, dtype=torch.int32, device=dev)
+            bp = torch.full((B,), _FAR, dtype=torch.int32, device=dev)
+            be = torch.zeros(B, dtype=torch.int32, device=dev)
+            for s, pos, qi in windows(shard, score):
+                # prefer the higher score; a tie goes to the lower position
+                better = (s > bs) | ((s == bs) & (pos < bp) & (s > 0))
+                bs = torch.where(better, s, bs)
+                bp = torch.where(better, pos, bp)
+                be = torch.where(better, qi, be)
+            bp = torch.where(bs > 0, bp, -1)
+            if D > 1:
+                # max score, then min position among its winners, then the
+                # read end of the one winner
+                gbs = all_reduce(bs, "max", mesh, axis)
+                gbp = all_reduce(torch.where((bs == gbs) & (gbs > 0), bp,
+                                             _FAR), "min", mesh, axis)
+                mine = (bs == gbs) & (bp == gbp)
+                be = all_reduce(torch.where(mine, be, 0), "max", mesh, axis)
+                bs, bp = gbs, torch.where(gbs > 0, gbp, -1)
         return SearchHits(bs, bp, be)
 
     def run2(queries, ref_sharded) -> SearchHits2:
-        q, shard, score = prepare(queries, ref_sharded)
+        with profiling.span("swtpu.search.prepare"):
+            q, shard, score = prepare(queries, ref_sharded)
         B = q.shape[0]
-        # the dedup radius is each read's own length, not the padded qlen
-        mind = _read_lengths(q)
-        z = torch.zeros(B, dtype=torch.int32, device=dev)
-        far = torch.full((B,), _FAR, dtype=torch.int32, device=dev)
-        c = (z, far, z, z, far, z)
-        for s, pos, qi in windows(shard, score):
-            c = _upd2(c, s, pos, qi, min_dist=mind)
-        if D > 1:
-            # every rank folds all D top-2 carries in rank order
-            g = all_gather(torch.stack(c), mesh, axis)       # (D, 6, B)
+        with profiling.span("swtpu.search.windows"):
+            # the dedup radius is each read's own length, not the padded
+            # qlen
+            mind = _read_lengths(q)
+            z = torch.zeros(B, dtype=torch.int32, device=dev)
+            far = torch.full((B,), _FAR, dtype=torch.int32, device=dev)
             c = (z, far, z, z, far, z)
-            for i in range(D):
-                c = _merge2(c, tuple(g[i]), min_dist=mind)
+            for s, pos, qi in windows(shard, score):
+                c = _upd2(c, s, pos, qi, min_dist=mind)
+            if D > 1:
+                # every rank folds all D top-2 carries in rank order
+                g = all_gather(torch.stack(c), mesh, axis)   # (D, 6, B)
+                c = (z, far, z, z, far, z)
+                for i in range(D):
+                    c = _merge2(c, tuple(g[i]), min_dist=mind)
         s1, p1, e1, s2, p2, e2 = c
         return SearchHits2(s1, torch.where(s1 > 0, p1, -1), e1,
                            s2, torch.where(s2 > 0, p2, -1), e2)
@@ -743,6 +749,7 @@ def to_sam(records: list[HitAlignment], queries, *, ref_name: str = "ref",
     return "\n".join(lines) + "\n"
 
 
+@profiling.spanned("swtpu.search")
 def search(queries, reference, mesh=None, window: int = 32768,
            scoring: Scoring = Scoring(), axis: Optional[str] = None,
            substitution=None, strand: str = "forward", n_best: int = 1,
@@ -778,29 +785,34 @@ def search(queries, reference, mesh=None, window: int = 32768,
         if substitution is not None:
             raise ValueError("strand='both' is DNA-only (reverse "
                              "complement is undefined for protein codes)")
-        queries = np.concatenate([queries, revcomp_padded(queries)])
+        with profiling.span("swtpu.search.revcomp"):
+            queries = np.concatenate([queries, revcomp_padded(queries)])
     B, qlen = queries.shape
     if isinstance(reference, torch.Tensor):
         reference = reference.cpu().numpy()
-    shards, shard_len = shard_reference(np.asarray(reference, np.int8), D,
-                                        qlen)
+    with profiling.span("swtpu.search.shard"):
+        shards, shard_len = shard_reference(np.asarray(reference, np.int8),
+                                            D, qlen)
     window = min(window, shards.shape[1])
-    fn = make_searcher(qlen, shard_len, window, scoring, plan=plan,
-                       substitution=substitution, n_best=n_best,
-                       sec_resolution=sec_resolution, device=device,
-                       mesh=mesh, axis=axis)
+    with profiling.span("swtpu.search.prepare"):
+        fn = make_searcher(qlen, shard_len, window, scoring, plan=plan,
+                           substitution=substitution, n_best=n_best,
+                           sec_resolution=sec_resolution, device=device,
+                           mesh=mesh, axis=axis)
     hits = fn(queries, shards)
     if strand == "forward":
         return hits
-    Bh = B // 2
-    if n_best == 2:
-        return _merge_stranded2(hits, Bh)
-    fs, rs = hits.scores[:Bh], hits.scores[Bh:]
-    rev = rs > fs                                 # ties prefer forward
-    sc = torch.where(rev, rs, fs)
-    return StrandedHits(
-        scores=sc,
-        ref_pos=torch.where(rev, hits.ref_pos[Bh:], hits.ref_pos[:Bh]),
-        read_end=torch.where(rev, hits.read_end[Bh:], hits.read_end[:Bh]),
-        strand=torch.where(sc > 0, torch.where(rev, -1, 1), 0
-                           ).to(torch.int8))
+    with profiling.span("swtpu.search.merge"):
+        Bh = B // 2
+        if n_best == 2:
+            return _merge_stranded2(hits, Bh)
+        fs, rs = hits.scores[:Bh], hits.scores[Bh:]
+        rev = rs > fs                             # ties prefer forward
+        sc = torch.where(rev, rs, fs)
+        return StrandedHits(
+            scores=sc,
+            ref_pos=torch.where(rev, hits.ref_pos[Bh:], hits.ref_pos[:Bh]),
+            read_end=torch.where(rev, hits.read_end[Bh:],
+                                 hits.read_end[:Bh]),
+            strand=torch.where(sc > 0, torch.where(rev, -1, 1), 0
+                               ).to(torch.int8))

@@ -60,6 +60,7 @@ from ..core.encode import DNA_ALPHABET, encode
 from ..core.substitution import check_table
 from ..dispatch.plan import choose_exec
 from ..dist.mesh import check_mesh, default_mesh
+from ..instrument import profiling
 from ..kernels.scan_fill import diag_to_rowmajor, embed_table, scan_fill
 from ..kernels.stripe_fill import (MAX_WIDTH, stripe_fill,
                                    stripe_fill_supported, stripe_score)
@@ -139,10 +140,11 @@ def _host_path(a_codes, b_codes, scoring: Scoring, sub_np, want_tb: bool,
                     P=out.P if return_matrices else None, plan="host")
     res._m1 = m + 1
     if want_tb and out.max_score > 0:
-        walk = oracle.backtrack if scoring.is_affine else rn.traceback
-        res.path = walk(out.P, out.max_pos)
-        res.aligned_a, res.aligned_b = oracle.alignment_strings(
-            a_codes, b_codes, out.P, out.max_pos, alphabet=alphabet)
+        with profiling.span("swtpu.tb.strings"):
+            walk = oracle.backtrack if scoring.is_affine else rn.traceback
+            res.path = walk(out.P, out.max_pos)
+            res.aligned_a, res.aligned_b = oracle.alignment_strings(
+                a_codes, b_codes, out.P, out.max_pos, alphabet=alphabet)
     return res
 
 
@@ -153,14 +155,25 @@ def stripe_call(a_codes, b_codes, scoring: Scoring, sub_np,
     """The stripe plan's card work: the codes (and table) to ``dev``, one
     kernel launch at (T, R, C), one fetch of the (4,) result. Returns
     ([max, i, j, last], P on the host or None)."""
-    a_t = torch.from_numpy(a_codes).to(dev)
-    b_t = torch.from_numpy(b_codes).to(dev)
-    sub_t = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
-    fill = stripe_fill if want_tb else stripe_score
-    out = fill(a_t, b_t, scoring, T=T, substitution=sub_t, band=band, R=R,
-               C=C)
-    vals = out.best.tolist()                             # one small fetch
-    return vals, (out.P.cpu().numpy() if want_tb else None)
+    with profiling.span("swtpu.fill.prep"):
+        a_t, b_t, sub_t = _upload(a_codes, b_codes, sub_np, dev)
+    with profiling.span("swtpu.fill.run"):
+        fill = stripe_fill if want_tb else stripe_score
+        out = fill(a_t, b_t, scoring, T=T, substitution=sub_t, band=band,
+                   R=R, C=C)
+    with profiling.span("swtpu.fill.fetch"):
+        vals = out.best.tolist()                         # one small fetch
+        return vals, (out.P.cpu().numpy() if want_tb else None)
+
+
+def _upload(a_codes, b_codes, sub_np, dev: torch.device) -> tuple:
+    """The codes and the table (or None) on ``dev``, counted as
+    ``h2d_bytes``."""
+    profiling.count("h2d_bytes", a_codes.nbytes + b_codes.nbytes
+                    + (0 if sub_np is None else sub_np.nbytes))
+    return (torch.from_numpy(a_codes).to(dev),
+            torch.from_numpy(b_codes).to(dev),
+            None if sub_np is None else torch.from_numpy(sub_np).to(dev))
 
 
 def _resolve_traceback_method(m: int, n: int, config: EngineConfig) -> str:
@@ -174,6 +187,7 @@ def _resolve_traceback_method(m: int, n: int, config: EngineConfig) -> str:
     return method
 
 
+@profiling.spanned("swtpu.align")
 def align(
     a: Union[str, np.ndarray],
     b: Union[str, np.ndarray],
@@ -199,32 +213,35 @@ def align(
         dev = check_mesh(mesh).device
     else:
         dev = resolve_device(device)
-    a_codes = _as_codes(a, alphabet)
-    b_codes = _as_codes(b, alphabet)
+    with profiling.span("swtpu.encode"):
+        a_codes = _as_codes(a, alphabet)
+        b_codes = _as_codes(b, alphabet)
+        sub_np = None if substitution is None else check_table(substitution)
     m, n = len(a_codes), len(b_codes)
     want_tb = config.traceback if traceback is None else traceback
-    sub_np = None if substitution is None else check_table(substitution)
 
-    auto = plan in (None, "auto")
-    simd = auto and m > 0 and n > 0 and dev.type == "cuda" \
-        and not want_tb and not return_matrices and config.band is None \
-        and rn.simd_shape_ok(m, n, scoring, sub_np) \
-        and m * n <= config.simd_cells_cap()
-    # on a mesh of cards, every rank of it decides the route together,
-    # before any rank returns: the pipeline, or each on its own card
-    alone = False
-    if auto and mesh is not None:
-        from ..dist import pipeline as pl
-        if pl.pipeline_devices(mesh) >= 2:
-            own = m > 0 and n > 0 and not simd and not return_matrices \
-                and config.band is None and (m > MAX_WIDTH or choose_exec(
-                    m, n, config, scoring, want_tb, dev,
-                    substitution=sub_np, mesh=mesh).plan == "pipeline")
-            if pl.agree(mesh, own, (m, n, want_tb, scoring.is_affine,
-                                    sub_np is not None)):
-                return _pipeline_path(a_codes, b_codes, scoring, mesh,
-                                      want_tb, alphabet, sub_np)
-            alone = True
+    with profiling.span("swtpu.dispatch"):
+        auto = plan in (None, "auto")
+        simd = auto and m > 0 and n > 0 and dev.type == "cuda" \
+            and not want_tb and not return_matrices and config.band is None \
+            and rn.simd_shape_ok(m, n, scoring, sub_np) \
+            and m * n <= config.simd_cells_cap()
+        # on a mesh of cards, every rank of it decides the route together,
+        # before any rank returns: the pipeline, or each on its own card
+        alone = piped = False
+        if auto and mesh is not None:
+            from ..dist import pipeline as pl
+            if pl.pipeline_devices(mesh) >= 2:
+                own = m > 0 and n > 0 and not simd and not return_matrices \
+                    and config.band is None and (m > MAX_WIDTH or choose_exec(
+                        m, n, config, scoring, want_tb, dev,
+                        substitution=sub_np, mesh=mesh).plan == "pipeline")
+                piped = pl.agree(mesh, own, (m, n, want_tb, scoring.is_affine,
+                                             sub_np is not None))
+                alone = not piped
+    if piped:
+        return _pipeline_path(a_codes, b_codes, scoring, mesh, want_tb,
+                              alphabet, sub_np)
 
     if m == 0 or n == 0:
         # Degenerate: an empty sequence aligns to nothing (all-zero matrix).
@@ -246,23 +263,26 @@ def align(
             res._m1 = m + 1
             return res
 
-    if auto and m > MAX_WIDTH:
-        plan = "pipeline"           # wider than one kernel
-    if plan == "pipeline" and not alone:
-        mesh = mesh if mesh is not None else default_mesh(dev)
-        if mesh is not None and not return_matrices and config.band is None:
-            return _pipeline_path(a_codes, b_codes, scoring, mesh, want_tb,
-                                  alphabet, sub_np)
-    if plan == "pipeline":
-        plan = None                 # no mesh: the single-card plans
-    exec_plan = None
-    if plan in (None, "auto"):
-        # one card: the gate, which counts a mesh's cards, is not asked
-        exec_plan = choose_exec(m, n, config, scoring, want_tb, dev,
-                                substitution=sub_np)
-        plan = exec_plan.plan
-        if plan == "pipeline":      # wider than one kernel, and no mesh
-            plan = "scan"
+    with profiling.span("swtpu.dispatch"):
+        if auto and m > MAX_WIDTH:
+            plan = "pipeline"       # wider than one kernel
+        if plan == "pipeline" and not alone:
+            mesh = mesh if mesh is not None else default_mesh(dev)
+            piped = mesh is not None and not return_matrices \
+                and config.band is None
+        if plan == "pipeline":
+            plan = None             # no mesh: the single-card plans
+        exec_plan = None
+        if plan in (None, "auto") and not piped:
+            # one card: the gate, which counts a mesh's cards, is not asked
+            exec_plan = choose_exec(m, n, config, scoring, want_tb, dev,
+                                    substitution=sub_np)
+            plan = exec_plan.plan
+            if plan == "pipeline":  # wider than one kernel, and no mesh
+                plan = "scan"
+    if piped:
+        return _pipeline_path(a_codes, b_codes, scoring, mesh, want_tb,
+                              alphabet, sub_np)
     if plan not in ("stripe", "scan", "host"):
         raise ValueError(f"unknown plan {plan!r} (use 'stripe', 'scan', "
                          "'host' or 'pipeline')")
@@ -309,20 +329,21 @@ def align(
         vals, P = stripe_call(a_codes, b_codes, scoring, sub_np, dev,
                               want_tb, config.band, **kern)
     else:
-        a_t = torch.from_numpy(a_codes).to(dev)
-        b_t = torch.from_numpy(b_codes).to(dev)
-        sub_t = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
-        table = None if sub_t is None else embed_table(sub_t)
-        out = scan_fill(a_t, b_t, scoring=scoring,
-                        return_p=want_tb or return_matrices,
-                        return_h=return_matrices, band=config.band,
-                        sub_table=table)
-        vals = torch.stack([out.max_score, out.max_i, out.max_j,
-                            out.last_cell]).tolist()
-        if out.p_diag is not None:
-            P = diag_to_rowmajor(out.p_diag, n, m).cpu().numpy()
-        if out.h_diag is not None:
-            H = diag_to_rowmajor(out.h_diag, n, m).cpu().numpy()
+        with profiling.span("swtpu.fill.prep"):
+            a_t, b_t, sub_t = _upload(a_codes, b_codes, sub_np, dev)
+            table = None if sub_t is None else embed_table(sub_t)
+        with profiling.span("swtpu.fill.run"):
+            out = scan_fill(a_t, b_t, scoring=scoring,
+                            return_p=want_tb or return_matrices,
+                            return_h=return_matrices, band=config.band,
+                            sub_table=table)
+        with profiling.span("swtpu.fill.fetch"):
+            vals = torch.stack([out.max_score, out.max_i, out.max_j,
+                                out.last_cell]).tolist()
+            if out.p_diag is not None:
+                P = diag_to_rowmajor(out.p_diag, n, m).cpu().numpy()
+            if out.h_diag is not None:
+                H = diag_to_rowmajor(out.h_diag, n, m).cpu().numpy()
 
     s, bi, bj, last = vals
     res = Alignment(max_score=s, max_i=bi, max_j=bj, last_cell=last,
@@ -330,10 +351,11 @@ def align(
                     P=P if return_matrices else None, plan=plan)
     res._m1 = m + 1
     if want_tb and P is not None and res.max_score > 0:
-        max_pos = res.max_i * (m + 1) + res.max_j
-        res.path = oracle.backtrack(P, max_pos)
-        res.aligned_a, res.aligned_b = oracle.alignment_strings(
-            a_codes, b_codes, P, max_pos, alphabet=alphabet)
+        with profiling.span("swtpu.tb.strings"):
+            max_pos = res.max_i * (m + 1) + res.max_j
+            res.path = oracle.backtrack(P, max_pos)
+            res.aligned_a, res.aligned_b = oracle.alignment_strings(
+                a_codes, b_codes, P, max_pos, alphabet=alphabet)
     return res
 
 

@@ -42,6 +42,7 @@ import torch
 from ..core.config import DIAGONAL, LEFT, UP, Scoring
 from ..core.encode import DNA_ALPHABET, unknown_letter
 from ..dispatch.plan import runs_kernels
+from ..instrument import profiling
 from ..kernels import stripe_fill as sf
 
 _NEG = -(1 << 30)
@@ -138,27 +139,28 @@ def locate(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
     score-only passes (no P matrix). Linear/affine, optional substitution
     table ``sub`` (A, A). None when nothing scores above 0."""
     device = torch.device(device)
-    score, ei, ej, last = _local_score(a, b, scoring, sub, device)
-    if score <= 0:
-        return None
-    # Anchored reverse pass over the clipped reversed prefixes: global-mode
-    # DP with -inf boundaries (except the origin) scores only paths that
-    # START at the forward end cell, so its argmax is the true START of a
-    # path ending exactly at (ei, ej). A plain reverse SW would be wrong:
-    # its zero floor lets it pick a different equal-scoring path whose end
-    # is elsewhere. (Affine: an optimal local alignment starts and ends in
-    # the H state, so the reversed Gotoh recurrence with -inf E/F
-    # boundaries scores exactly the reversed paths.)
-    ar = a[:ej][::-1].copy()
-    br = b[:ei][::-1].copy()
-    top = np.full((ej + 1,), _NEG, np.int32)
-    left = np.full((ei + 1,), _NEG, np.int32)
-    top[0] = left[0] = 0
-    # the table lookup S[a_code, b_code] is the same for reversed inputs
-    rs, ri, rj = _nw_argmax(ar, br, scoring, top, left, sub, device)
-    if rs != score:
-        raise AnchoredReverseMismatch(score, rs, ei, ej, last)
-    return Located(score, ei - ri + 1, ej - rj + 1, ei, ej, last)
+    with profiling.span("swtpu.tb.locate"):
+        score, ei, ej, last = _local_score(a, b, scoring, sub, device)
+        if score <= 0:
+            return None
+        # Anchored reverse pass over the clipped reversed prefixes: global-mode
+        # DP with -inf boundaries (except the origin) scores only paths that
+        # START at the forward end cell, so its argmax is the true START of a
+        # path ending exactly at (ei, ej). A plain reverse SW would be wrong:
+        # its zero floor lets it pick a different equal-scoring path whose end
+        # is elsewhere. (Affine: an optimal local alignment starts and ends in
+        # the H state, so the reversed Gotoh recurrence with -inf E/F
+        # boundaries scores exactly the reversed paths.)
+        ar = a[:ej][::-1].copy()
+        br = b[:ei][::-1].copy()
+        top = np.full((ej + 1,), _NEG, np.int32)
+        left = np.full((ei + 1,), _NEG, np.int32)
+        top[0] = left[0] = 0
+        # the table lookup S[a_code, b_code] is the same for reversed inputs
+        rs, ri, rj = _nw_argmax(ar, br, scoring, top, left, sub, device)
+        if rs != score:
+            raise AnchoredReverseMismatch(score, rs, ei, ej, last)
+        return Located(score, ei - ri + 1, ej - rj + 1, ei, ej, last)
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +426,8 @@ def hirschberg(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
                             device=device)
     else:
         ca, cb = _hirschberg(sub_a, sub_b, scoring, sub, device=device)
-    ra, rb = _render(ca, cb, alphabet)
+    with profiling.span("swtpu.tb.strings"):
+        ra, rb = _render(ca, cb, alphabet)
     return loc.score, loc, ra, rb
 
 
@@ -435,16 +438,18 @@ def _window_walk(sub_a, sub_b, wn, wm, scoring, sub, device: torch.device):
     end cell, so walking from there reproduces an optimal path; the
     zero-floor NONE stop is the located start. On a card P never leaves
     it: the walk kernel brings back only the moves."""
-    at, bt = _t(sub_a, device), _t(sub_b, device)
-    st = _sub_t(sub, device)
-    if _on_card(device, scoring, sub, len(sub_a), len(sub_b)):
-        P = sf.stripe_fill(at, bt, scoring, substitution=st).P
-        moves = sf.walk_p(P, wn, wm)
-    else:
-        P = sf.stripe_fill_plain(at, bt, scoring, substitution=st).P
-        moves = sf.walk_p_plain(P, wn, wm)
+    card = _on_card(device, scoring, sub, len(sub_a), len(sub_b))
+    with profiling.span("swtpu.tb.refill"):
+        at, bt = _t(sub_a, device), _t(sub_b, device)
+        st = _sub_t(sub, device)
+        fill = sf.stripe_fill if card else sf.stripe_fill_plain
+        P = fill(at, bt, scoring, substitution=st).P
+    with profiling.span("swtpu.tb.walk"):
+        walk = sf.walk_p if card else sf.walk_p_plain
+        moves = walk(P, wn, wm).tolist()
     del P
-    return _apply_moves(sub_a, sub_b, wn, wm, moves.tolist())
+    with profiling.span("swtpu.tb.strings"):
+        return _apply_moves(sub_a, sub_b, wn, wm, moves)
 
 
 def _apply_moves(sub_a, sub_b, wn, wm, moves):
@@ -477,7 +482,8 @@ def walk_from_end(a: np.ndarray, b: np.ndarray, scoring: Scoring,
     si = end_i - sum(1 for c in cb if c != GAP) + 1
     sj = end_j - sum(1 for c in ca if c != GAP) + 1
     loc = Located(int(score), si, sj, end_i, end_j, int(last_cell))
-    ra, rb = _render(ca, cb, alphabet)
+    with profiling.span("swtpu.tb.strings"):
+        ra, rb = _render(ca, cb, alphabet)
     return loc.score, loc, ra, rb
 
 
@@ -525,5 +531,6 @@ def windowed(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
     sub_a = np.asarray(a[loc.start_j - 1: loc.end_j])
     sub_b = np.asarray(b[loc.start_i - 1: loc.end_i])
     ca, cb = _window_walk(sub_a, sub_b, wn, wm, scoring, sub, device)
-    ra, rb = _render(ca, cb, alphabet)
+    with profiling.span("swtpu.tb.strings"):
+        ra, rb = _render(ca, cb, alphabet)
     return loc.score, loc, ra, rb

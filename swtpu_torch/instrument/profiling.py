@@ -1,4 +1,5 @@
-"""Device traces and per-phase timing over ``torch.profiler``.
+"""Device traces, and the program's own spans and counters, over
+``torch.profiler``.
 
 Counterpart of ``swtpu.instrument.profiling``. ``trace(logdir)`` records
 the CPU and CUDA activity of its block with ``torch.profiler`` and writes
@@ -15,29 +16,53 @@ one of the port's (the register-blocked stripe's forms by their template
 flags, the warp-per-read K6, the walks of P), else by the name the trace
 gives it.
 
-``phase_report(prep, run, fetch)`` times the three phases of one device
-computation: host-side input preparation (the uploads), the device run
-(the launch) and the fetch of the result. On a CUDA device the run is the
-fastest of ``repeats`` CUDA-event intervals around ``run`` (the card's own
-clock), and prep and fetch are host clock, each closed by a synchronize,
-so an asynchronous copy is charged to its own phase and not to the next.
-On the CPU all three are host clock. Each phase runs inside a
-``torch.profiler.record_function`` range (``phase_report.prep``,
-``phase_report.run``, ``phase_report.fetch``), so a ``trace()`` around a
-``phase_report`` shows them. Nothing here touches the engine's own code.
+Spans and counters. ``span(name)`` marks a part of a public call and
+``count(name, n)`` adds n to a counter, so that a trace splits a call's
+host time into named parts.
+
+- The switch is a running torch profiler (``trace()``, or any
+  ``torch.profiler.profile``), read from
+  ``torch.autograd.profiler._is_profiler_enabled`` at each span; there is
+  no other (no variable, no setting). With none running, ``span`` hands
+  back one shared object that does nothing and ``count`` returns at once;
+  ``recording()`` tells a caller whether a counter worth computing would
+  be kept.
+- While recording, a span enters ``torch.profiler.record_function(name)``,
+  so it lands in the profiler's own trace as a ``user_annotation`` event
+  beside the kernels, and appends one ``Record`` to an in-memory buffer
+  (``recorded()``, ``clear()``).
+- Names: ``swtpu.<layer>.<part>`` (``swtpu.fill.prep``,
+  ``swtpu.tb.strings``, ``swtpu.batch.pack``); the outermost span of a
+  public call is its root (``swtpu.align``, ``swtpu.score_many``,
+  ``swtpu.search``) and opens a new call id; nested spans carry that id
+  and their parent's index, on a stack of the thread's own. Counters:
+  ``h2d_bytes`` (codes and tables copied from the host to the call's
+  device), ``batch.cells_real`` and ``batch.cells_bucket`` (a
+  ``score_many`` bucket's m·n summed over its pairs, and its pairs × its
+  padded shape).
+- The buffer holds the newest ``MAX_RECORDS`` (2^20) records; older ones
+  are dropped and counted (``dropped()``).
+- The clock is ``time.perf_counter_ns()``, the host clock callers time
+  their calls with. The records carry no offset to the profiler's clock:
+  a caller pins them to the trace through spans of its own that it times
+  on both clocks (the benchmark through its ``bench.call`` spans,
+  ``benchmarks/harness/spans.py``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import re
+import threading
 import time
-from typing import Callable, Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..kernels.stripe_fill import rb_entry
@@ -69,6 +94,154 @@ def trace(logdir: str, device: Union[str, torch.device] = "cuda"):
             torch.cuda.synchronize(dev)
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+
+
+MAX_RECORDS = 1 << 20
+
+
+class Record(NamedTuple):
+    """A closed span (``value`` None) or a counter's step (``t0_ns`` ==
+    ``t1_ns``). ``index``: its place among every record this process
+    opened; ``parent``: the enclosing span's index, -1 at a root or
+    outside any span; ``call``: the root's call id, -1 outside any
+    span."""
+    name: str
+    call: int
+    index: int
+    parent: int
+    t0_ns: int
+    t1_ns: int
+    value: Optional[int] = None
+
+
+_records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
+_dropped = 0
+_opened = 0         # records opened so far: the next index
+_calls = 0          # call ids handed out so far
+_local = threading.local()
+
+
+class _Off:
+    """The span of every block while no profiler runs: it does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_OFF = _Off()
+
+
+def recording() -> bool:
+    """Is a torch profiler running, so that spans and counters record?"""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _stack() -> list:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+def _next_index() -> int:
+    global _opened
+    _opened += 1
+    return _opened - 1
+
+
+def _keep(rec: Record) -> None:
+    global _dropped
+    if len(_records) == _records.maxlen:
+        _dropped += 1
+    _records.append(rec)
+
+
+class _Span:
+    __slots__ = ("name", "call", "index", "parent", "t0", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _calls
+        stack = _stack()
+        if stack:
+            top = stack[-1]
+            self.call, self.parent = top.call, top.index
+        else:
+            self.call, self.parent = _calls, -1
+            _calls += 1
+        self.index = _next_index()
+        stack.append(self)
+        # the record frames the annotation, so that a span's own cost under
+        # the profiler is charged to it and not to its parent
+        self.t0 = time.perf_counter_ns()
+        self.rf = record_function(self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.rf.__exit__(*exc)
+        finally:
+            _stack().pop()
+            _keep(Record(self.name, self.call, self.index, self.parent,
+                         self.t0, time.perf_counter_ns()))
+        return False
+
+
+def span(name: str):
+    """A context manager that marks its block as the part ``name`` of a
+    call while a torch profiler runs, and does nothing otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorate a public call to run inside ``span(name)``, its root."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` at this moment, while a torch
+    profiler runs. A counter whose value takes work to compute is computed
+    only where ``recording()``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = _stack()
+    top = stack[-1] if stack else None
+    t = time.perf_counter_ns()
+    _keep(Record(name, top.call if top else -1, _next_index(),
+                 top.index if top else -1, t, t, int(n)))
+
+
+def recorded() -> list:
+    """The records kept, oldest first (spans in the order they closed)."""
+    return list(_records)
+
+
+def dropped() -> int:
+    """Records dropped from the full buffer since the last ``clear()``."""
+    return _dropped
+
+
+def clear() -> None:
+    """Empty the buffer and zero the dropped count."""
+    global _dropped
+    _records.clear()
+    _dropped = 0
 
 
 # the demangled device symbols of csrc/stripe_rb.cuh's stripe_rb_kernel<R,
@@ -111,62 +284,3 @@ def trace_kernels(path: str) -> collections.Counter:
         events = json.load(f).get("traceEvents", [])
     return collections.Counter(entry_of(e.get("name", "")) for e in events
                                if e.get("cat") == "kernel")
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def phase_report(prep: Callable, run: Callable, fetch: Callable,
-                 repeats: int = 3,
-                 device: Optional[Union[str, torch.device]] = None) -> dict:
-    """Seconds of the three phases of a device computation: ``state =
-    prep()``, ``out = run(state)`` (``repeats`` times, the fastest kept)
-    and ``fetch(out)``, as ``input_prep_s``, ``device_run_s`` and
-    ``result_fetch_s``, rounded to 10 µs. ``device``: where ``run``'s work
-    goes, default (None) the current CUDA device, which must exist; pass
-    ``"cpu"`` for host-clock times of a CPU computation."""
-    dev = torch.device("cuda" if device is None else device)
-    cuda = dev.type == "cuda"
-    if cuda:
-        if not torch.cuda.is_available():
-            raise RuntimeError("phase_report on a CUDA device, but none is "
-                               "available; pass device='cpu'")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-
-    _sync(dev)
-    t0 = time.perf_counter()
-    with record_function("phase_report.prep"):
-        state = prep()
-        _sync(dev)
-    prep_s = time.perf_counter() - t0
-
-    run_s = float("inf")
-    out = None
-    for _ in range(repeats):
-        with record_function("phase_report.run"):
-            if cuda:
-                with torch.cuda.device(dev):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    out = run(state)
-                    end.record()
-                    end.synchronize()
-                    dt = start.elapsed_time(end) / 1e3
-            else:
-                t0 = time.perf_counter()
-                out = run(state)
-                dt = time.perf_counter() - t0
-        run_s = min(run_s, dt)
-
-    t0 = time.perf_counter()
-    with record_function("phase_report.fetch"):
-        fetch(out)
-        _sync(dev)
-    fetch_s = time.perf_counter() - t0
-    return {"input_prep_s": round(prep_s, 5),
-            "device_run_s": round(run_s, 5),
-            "result_fetch_s": round(fetch_s, 5)}

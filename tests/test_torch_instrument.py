@@ -2,8 +2,7 @@
 ``BenchRecord``, ``instrument.profiling``, ``instrument.access``) and
 ``dispatch.plan.choose_plan``, against the JAX package's where both
 compute the same thing, on the CPU; on a card (the ``gpu`` tests) the
-traffic model against the caching allocator and ptxas, the trace and
-the phase report.
+traffic model against the caching allocator and ptxas, and the trace.
 
 Tolerances: exact equality of records, grids, plans and kernel names; the
 traffic model within the JAX package's bounds (tests/test_instrument.py:
@@ -82,38 +81,8 @@ def test_block_returns_its_argument_on_the_cpu(x):
 
 # ---- profiling ----
 
-def test_phase_report_cpu():
-    r = profiling.phase_report(prep=lambda: torch.arange(1024),
-                               run=lambda x: float((x * x).sum()),
-                               fetch=lambda out: out, device="cpu")
-    assert set(r) == {"input_prep_s", "device_run_s", "result_fetch_s"}
-    assert all(v >= 0 for v in r.values())
-
-
-def test_phase_report_runs_each_phase_in_order():
-    calls = []
-    profiling.phase_report(prep=lambda: calls.append("prep") or 1,
-                           run=lambda s: calls.append(("run", s)) or 2,
-                           fetch=lambda out: calls.append(("fetch", out)),
-                           repeats=4, device="cpu")
-    assert calls == ["prep"] + [("run", 1)] * 4 + [("fetch", 2)]
-
-
-def test_phase_report_labels_its_phases(tmp_path):
-    with profiling.trace(str(tmp_path), device="cpu"):
-        profiling.phase_report(prep=lambda: torch.ones(8),
-                               run=lambda x: x + 1, fetch=lambda y: y,
-                               device="cpu")
-    names = {e["name"] for e in json.loads(
-        (tmp_path / profiling.TRACE_FILE).read_text())["traceEvents"]}
-    assert {"phase_report.prep", "phase_report.run",
-            "phase_report.fetch"} <= names
-
-
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
 def test_no_card_raises():
-    with pytest.raises(RuntimeError, match="no CUDA device|none is"):
-        profiling.phase_report(lambda: 0, lambda s: s, lambda o: o)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         with profiling.trace("unused"):
             pass
@@ -585,24 +554,6 @@ def test_trace_names_the_kernel(cuda, tmp_path):
     with profiling.trace(str(tmp_path), device=cuda):
         swtpu_torch.score(a, b, device=cuda)
     assert profiling.trace_kernels(str(tmp_path))[sf.RB_KERNEL] >= 1
-
-
-@pytest.mark.gpu
-def test_phase_report_device_run_within_wall(cuda):
-    import time
-    a, b = (torch.randint(0, 4, (4096,), dtype=torch.int8) for _ in "ab")
-    walls = []
-
-    def run(ab):
-        t0 = time.perf_counter()
-        out = sf.stripe_score(*ab)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        return out
-    rep = profiling.phase_report(lambda: (a.to(cuda), b.to(cuda)), run,
-                                 lambda out: out.best.tolist(), device=cuda)
-    assert 0 < rep["device_run_s"] <= max(walls) + 1e-5
-    assert rep["input_prep_s"] >= 0 and rep["result_fetch_s"] >= 0
 
 
 @pytest.mark.gpu
