@@ -117,6 +117,7 @@ from swtpu_torch.core.substitution import BLOSUM62
 from swtpu_torch.dispatch import cost
 from swtpu_torch.dispatch import plan as dp
 from swtpu_torch.dist import database as db
+from swtpu_torch.dist import batch as tbatch
 from swtpu_torch.dist import dryrun
 from swtpu_torch.dist import mesh as msh
 from swtpu_torch.dist import pipeline as pl
@@ -127,6 +128,7 @@ from swtpu_torch.instrument import sanitize as san
 from swtpu_torch.instrument.metrics import gcups
 from swtpu_torch.kernels import _cuda
 from swtpu_torch.kernels import debug_fill as df
+from swtpu_torch.kernels import pack_rows as pk
 from swtpu_torch.kernels import pairs_fill as pf
 from swtpu_torch.kernels import stripe_fill as sf
 from swtpu_torch.kernels import window_fill as wf
@@ -196,6 +198,8 @@ ORIGIN = {
     # _kernel's debug_h on pairs_packed_score_fn's packing
     "rb_packed_debug": (CSRC + "stripe_rb_packed_debug.cu",
                         "swtpu/kernels/pallas_fill.py:597"),
+    # score_many's buckets, padded on the host there
+    "pack_rows": (CSRC + "pack_rows.cu", "swtpu/dist/batch.py:316"),
 }
 BATCH = (64, 1056)                # the JAX bench's bench_pairs_small batch
 # a batch of the same size whose n no stripe height of K7 fits (no multiple
@@ -263,7 +267,8 @@ WALK_OPS = 6              # per move: the P load's address, decode, state
 
 
 def origin(name: str) -> tuple:
-    kind = ("rb_debug" if name.startswith("sw_sanitize_rb_")
+    kind = ("pack_rows" if name == pk.PACK_KERNEL
+            else "rb_debug" if name.startswith("sw_sanitize_rb_")
             else "rb_packed_debug" if name.startswith("sw_sanitize_packed_rb_")
             else "rb_packed" if name.startswith("sw_packed_rb_")
             else "rb_pairs_band" if name.startswith("sw_pairs_rb_band_")
@@ -460,7 +465,7 @@ def build_line() -> str:
     kDebugH, kPairs, kShared, kPacked> (rb_ K1-K3, rb_p_ K4, rb_block_ K5,
     rb_band_ and rb_p_band_ K4b, rb_debug_ K9, rb_pairs_ K8,
     rb_pairs_band_ K8[band], rb_window_ K6, rb_packed_ K7,
-    rb_debug_packed_ the packed K9)."""
+    rb_debug_packed_ the packed K9), and score_many's pack kernel."""
     out, name, spill = [], None, ""
     for ln in _cuda.BUILD.log.splitlines():
         got = re.search(r"stripe_kernelI" + r"Lb(\d)E" * 9, ln)
@@ -494,6 +499,8 @@ def build_line() -> str:
         elif ("Compiling entry function" in ln
               and "walk_p_tiled_kernel" in ln):
             name = "walk_tiled"
+        elif "Compiling entry function" in ln and "pack_rows_kernel" in ln:
+            name = "pack_rows"
         elif "spill" in ln and name:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -1852,6 +1859,96 @@ def bucket_kernels(dev) -> str:
                 for k, v in times.items()) + " (the two K8 in turns, the two "
             f"K7 in turns; K7 in turns with K8: {k7_vs_k8:.3f} against "
             f"{k8_vs_k7:.3f} ms), equal")
+
+
+# the database search's longest query and its entries (the benchmark's
+# protein-dbsearch: Swiss-Prot's length model, mean 360, sigma 0.7,
+# clipped to [2, 35213])
+DB_QUERY, DB_ENTRIES = 5478, 8906
+
+
+def db_lists(seed: int = 0) -> tuple:
+    """``[query] * DB_ENTRIES`` (one object) and the entries, protein
+    codes."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(np.round(rng.lognormal(np.log(360) - 0.7 ** 2 / 2, 0.7,
+                                          DB_ENTRIES)), 2, 35213)
+    q = rng.integers(0, 20, DB_QUERY).astype(np.int8)
+    return [q] * DB_ENTRIES, [rng.integers(0, 20, int(n)).astype(np.int8)
+                              for n in lens]
+
+
+def pack_vs_plain(dev) -> tuple:
+    """score_many's pack kernel against its plain version, bit-equal, at
+    the main path's shapes: both sides of every bucket of the mixed set
+    and of the database search's longest query against its entries, and a
+    ragged DB_ENTRIES x 8192 side (rows of 0 to 8192 bytes at any offset,
+    one ending at the buffer's last byte). Timed (min of 5 by CUDA events)
+    on the database's 8192-wide query side, beside the bound of the bytes
+    it stores and the same side built by PyTorch's own ops (an index and a
+    where) as library_ms. Returns (records, lines)."""
+    cpu, lines = torch.device("cpu"), []
+    for label, (a_list, b_list) in (("mixed set", mixed_set()),
+                                    ("database", db_lists())):
+        on_dev = tbatch._upload(a_list, b_list, dev)
+        on_cpu = tbatch._upload(a_list, b_list, cpu)
+        rows = 0
+        for k in range(len(on_dev.buckets)):
+            for got, want in zip(tbatch._pack(on_dev, k),
+                                 tbatch._pack(on_cpu, k)):
+                require(torch.equal(got.cpu(), want),
+                        f"{pk.PACK_KERNEL} {label} bucket "
+                        f"{on_dev.buckets[k]} != plain")
+                rows += got.shape[0]
+        lines.append(f"{pk.PACK_KERNEL} {label}: {len(on_dev.buckets)} "
+                     f"buckets, {rows} rows, {on_dev.flat.numel()} distinct "
+                     "bytes uploaded, equal to the plain pack")
+    # the database's query side, every bucket's a rows in one launch
+    a_off, a_len = (torch.cat([t[i] for t in on_dev.tables]) for i in (0, 1))
+    p_off, p_len = (torch.cat([t[i] for t in on_cpu.tables]) for i in (0, 1))
+    width, rows = on_dev.buckets[0][0], a_off.numel()
+    require((width, rows) == (8192, DB_ENTRIES), f"query side {rows}x{width}")
+    k_ms, got = timed_ms(
+        lambda: pk.pack_rows(on_dev.flat, a_off, a_len, width, -3), 5)
+    t0 = time.perf_counter()
+    want = pk.pack_rows_plain(on_cpu.flat, p_off, p_len, width, -3)
+    p_ms = (time.perf_counter() - t0) * 1e3
+    col = torch.arange(width, device=dev)
+    last = on_dev.flat.numel() - 1
+    lib_ms, lib = timed_ms(lambda: torch.where(
+        col < a_len[:, None],
+        on_dev.flat[(a_off[:, None].long() + col).clamp_(max=last)], -3), 3)
+    require(torch.equal(got.cpu(), want) and torch.equal(lib.cpu(), want),
+            f"{pk.PACK_KERNEL} query side: kernel, plain and library differ")
+    rec = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=0,
+               **bound(0, 0, rows * width))
+    rec["library_ms"] = lib_ms
+    # ragged rows, the buffer's ends among them
+    rng = np.random.default_rng(1)
+    flat = rng.integers(-128, 128, 3 * width + 37).astype(np.int8)
+    lens = rng.integers(0, width + 1, DB_ENTRIES)
+    lens[:4] = [width, 0, 37, width - 5]
+    off = rng.integers(0, len(flat) - lens + 1)
+    off[1] = len(flat)
+    off[2] = len(flat) - lens[2]
+    host = [torch.from_numpy(x) for x in (flat, off.astype(np.int32),
+                                          lens.astype(np.int32))]
+    dflat, doff, dlen = (x.to(dev) for x in host)
+    for fill in (-3, -2):
+        require(torch.equal(pk.pack_rows(dflat, doff, dlen, width,
+                                         fill).cpu(),
+                            pk.pack_rows_plain(*host, width, fill)),
+                f"{pk.PACK_KERNEL} ragged {DB_ENTRIES}x{width} fill {fill} "
+                "!= plain")
+    lines.append(
+        f"{pk.PACK_KERNEL} ragged {DB_ENTRIES}x{width} equal to the plain "
+        f"pack (both sentinels); the database's {rows}x{width} query side "
+        f"{k_ms * 1e3:.2f} us ({rows * width / k_ms / 1e9:.3f} TB/s stored) "
+        f"against the bound {rec['bound_ms'] * 1e3:.2f} us "
+        f"({rows * width / 1e6:.1f} MB at 3.35 TB/s), PyTorch's index and "
+        f"where {lib_ms * 1e3:.2f} us, the plain pack on the host "
+        f"{p_ms:.1f} ms")
+    return {pk.PACK_KERNEL: rec}, lines
 
 
 def check_records(recs: list, scores: list, top: int, mode: str,
@@ -4130,6 +4227,10 @@ def run(dev, name: str, start: float, pool, scans, examples) -> int:
     for line in lines:
         phase("batch", line)
     phase("batch", bucket_kernels(dev))
+    pack_recs, lines = pack_vs_plain(dev)
+    recs.update(pack_recs)
+    for line in lines:
+        phase("batch", line)
     recs.update(window_vs_plain(dev))
     window_recs, lines = window_rb_vs_plain(dev)
     recs.update(window_recs)
@@ -4219,12 +4320,13 @@ def run(dev, name: str, start: float, pool, scans, examples) -> int:
     lines, hits, many_s = drive_batch(batch_want, batch_want_band,
                                       batch_want_no_fit, dev)
     batch_s = time.perf_counter() - t0
-    batch = {**sf.launches, **pf.launches}
-    plain = {**sf.plain_calls, **pf.plain_calls}
+    batch = {**sf.launches, **pf.launches, **pk.launches}
+    plain = {**sf.plain_calls, **pf.plain_calls, **pk.plain_calls}
     # ---- end of the batch path ----
     for ln in lines:
         phase("batch", ln)
-    require(all(batch[k] > 0 for k in pf.launches if k not in EARLIER_PAIRS)
+    require(all(batch[k] > 0 for k in (*pf.launches, *pk.launches)
+                if k not in EARLIER_PAIRS)
             and not any(batch[k] for k in EARLIER_PAIRS),
             f"launches {batch}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
@@ -4251,8 +4353,9 @@ def run(dev, name: str, start: float, pool, scans, examples) -> int:
     t0 = time.perf_counter()
     lines, _ = drive_search(dev)
     search_s = time.perf_counter() - t0
-    search = {**sf.launches, **pf.launches, **wf.launches}
-    plain = {**sf.plain_calls, **pf.plain_calls, **wf.plain_calls}
+    search = {**sf.launches, **pf.launches, **pk.launches, **wf.launches}
+    plain = {**sf.plain_calls, **pf.plain_calls, **pk.plain_calls,
+             **wf.plain_calls}
     # ---- end of the search path ----
     for ln in lines:
         phase("search", ln)
@@ -4271,10 +4374,10 @@ def run(dev, name: str, start: float, pool, scans, examples) -> int:
     t0 = time.perf_counter()
     lines = drive_sanitize(dev)
     sanitize_s = time.perf_counter() - t0
-    sanitize = {**sf.launches, **pf.launches, **wf.launches, **df.launches,
-                **df.rb_launches, **df.packed_rb_launches}
-    plain = {**sf.plain_calls, **pf.plain_calls, **wf.plain_calls,
-             **df.plain_calls, **df.rb_plain_calls,
+    sanitize = {**sf.launches, **pf.launches, **pk.launches, **wf.launches,
+                **df.launches, **df.rb_launches, **df.packed_rb_launches}
+    plain = {**sf.plain_calls, **pf.plain_calls, **pk.plain_calls,
+             **wf.plain_calls, **df.plain_calls, **df.rb_plain_calls,
              **df.packed_rb_plain_calls}
     # ---- end of the sanitize path ----
     for ln in lines:
@@ -4299,10 +4402,10 @@ def run(dev, name: str, start: float, pool, scans, examples) -> int:
     t0 = time.perf_counter()
     lines = drive_tools(dev, ex_cpu)
     tools_s = time.perf_counter() - t0
-    tools = {**sf.launches, **pf.launches, **wf.launches, **df.launches,
-             **df.rb_launches, **df.packed_rb_launches}
-    plain = {**sf.plain_calls, **pf.plain_calls, **wf.plain_calls,
-             **df.plain_calls, **df.rb_plain_calls,
+    tools = {**sf.launches, **pf.launches, **pk.launches, **wf.launches,
+             **df.launches, **df.rb_launches, **df.packed_rb_launches}
+    plain = {**sf.plain_calls, **pf.plain_calls, **pk.plain_calls,
+             **wf.plain_calls, **df.plain_calls, **df.rb_plain_calls,
              **df.packed_rb_plain_calls}
     # ---- end of the tools path ----
     for ln in lines:

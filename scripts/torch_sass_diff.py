@@ -10,7 +10,8 @@ template's ``stripe_fill.cu``, ``stripe_block.cu``, ``pairs_fill.cu``,
 ``stripe_rb.cu``, ``stripe_rb_p.cu``, ``stripe_rb_block.cu``,
 ``stripe_rb_band.cu``, ``stripe_rb_debug.cu``, ``stripe_rb_pairs.cu``,
 ``stripe_rb_pairs_band.cu``, ``stripe_rb_window.cu``,
-``stripe_rb_packed.cu``, ``stripe_rb_packed_debug.cu``, ``walk_p.cu``) in
+``stripe_rb_packed.cu``, ``stripe_rb_packed_debug.cu``, ``walk_p.cu``,
+``pack_rows.cu``) in
 both checkouts, where each has
 it, to cubins for sm_90a with the port's flags and disassembles them with
 ``cuobjdump -sass``. For every kernel the old checkout has, it prints its
@@ -19,8 +20,8 @@ words: cuobjdump's padding follows the widest line of a cubin) from the new
 checkout's kernel of the same name (for an instantiation of
 ``stripe_kernel``, ``stripe_rb_kernel`` or ``window_warp_kernel``, of the
 same template arguments, the new template's added arguments 0 or false;
-the walks by their function's name); then every kernel of the new
-checkout that the old lacks, as new. Exits 1 when any
+the walks and the pack kernel by their function's name); then every
+kernel of the new checkout that the old lacks, as new. Exits 1 when any
 earlier kernel differs or is missing. NEW_CHECKOUT defaults to this
 script's checkout.
 """
@@ -41,7 +42,8 @@ SOURCES = ("stripe_fill.cu", "stripe_block.cu", "pairs_fill.cu",
            "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
            "stripe_rb_band.cu", "stripe_rb_debug.cu", "stripe_rb_pairs.cu",
            "stripe_rb_pairs_band.cu", "stripe_rb_window.cu",
-           "stripe_rb_packed.cu", "stripe_rb_packed_debug.cu", "walk_p.cu")
+           "stripe_rb_packed.cu", "stripe_rb_packed_debug.cu", "walk_p.cu",
+           "pack_rows.cu")
 FUNC = re.compile(r"Function : (\S+)")
 # a template's name and its integer and bool arguments (the mangled name
 # around them holds a hash of the source's path)
@@ -49,7 +51,8 @@ NAME = re.compile(r"(stripe_kernel|stripe_rb_kernel|window_warp_kernel)"
                   r"I((?:L[bi]\d+E)+)E")
 ARG = re.compile(r"L[bi](\d+)E")
 # a kernel that is no template, in the source's anonymous namespace
-PLAIN = re.compile(r"\d+(walk_p_kernel|walk_p_tiled_kernel)E")
+PLAIN = re.compile(r"\d+(walk_p_kernel|walk_p_tiled_kernel|"
+                   r"pack_rows_kernel)E")
 
 
 def sass(checkout: Path, src: str, tmp: str, nvcc: str) -> dict:

@@ -51,6 +51,7 @@ from ..core.substitution import check_table
 from ..dispatch.plan import runs_kernels
 from ..engine.align import align, resolve_device
 from ..instrument import profiling
+from ..kernels.pack_rows import pack_rows
 from ..kernels.pairs_fill import (BatchHits, pairs_packed_score,
                                   pairs_score, pairs_score_plain)
 from ..kernels.stripe_fill import MAX_WIDTH
@@ -134,6 +135,15 @@ def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
     b_code], or None. Returns ``BatchHits`` of (B,) int32 tensors on
     ``device`` (with a mesh, its device): each pair's max score and its
     first row-major end cell, bit-equal to the JAX package's."""
+    return _batch_score(a_batch, b_batch, scoring, band, plan, mesh,
+                        substitution, device, built=False)
+
+
+def _batch_score(a_batch, b_batch, scoring: Scoring, band, plan: str, mesh,
+                 substitution, device, built: bool) -> BatchHits:
+    """``batch_score``; ``built``: the batches are int8 tensors already on
+    the call's device, built there from an upload counted as it was made
+    (``score_many``'s buckets), so not counted again."""
     _check_plan(plan, band)
     if plan == "host-simd":
         return _host_simd(a_batch, b_batch, scoring, band, mesh,
@@ -151,7 +161,8 @@ def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
         return BatchHits(res.scores, res.max_i, res.max_j)
     if plan == "pipeline":
         plan = "auto"               # no mesh: the single-device plans
-    a, b = _codes(a_batch, dev), _codes(b_batch, dev)
+    a, b = ((a_batch, b_batch) if built
+            else (_codes(a_batch, dev), _codes(b_batch, dev)))
     sub_np = None if substitution is None else check_table(substitution)
     sub = None if sub_np is None else torch.from_numpy(sub_np).to(dev)
     if plan == "auto":
@@ -251,10 +262,95 @@ def make_best_hit_reducer(mesh, scoring: Scoring = Scoring(),
     return fn
 
 
-def _bucket_len(x: int) -> int:
-    """Next power of two (min 16): pairs of many shapes land in ~log2
-    shape buckets, one ``batch_score`` each."""
-    return max(16, 1 << (x - 1).bit_length())
+def _bucket_lens(x: np.ndarray) -> np.ndarray:
+    """Each length's next power of two (min 16), for lengths of at least 1:
+    pairs of many shapes land in ~log2 shape buckets, one ``batch_score``
+    each. The exponent ``frexp`` gives x - 1 is its bit length, exact below
+    2^53."""
+    bits = np.frexp(np.asarray(x, np.int64) - 1)[1].astype(np.int64)
+    return np.maximum(16, np.left_shift(1, bits))
+
+
+class _Packing(NamedTuple):
+    """What ``score_many`` uploads for its buckets: every distinct sequence
+    once and a table of the rows that read it, the pairs in bucket order."""
+    flat: torch.Tensor      # the distinct sequences, concatenated, int8
+    order: np.ndarray       # (K,) the pairs with no empty operand
+    la: np.ndarray          # (K,) their a lengths
+    lb: np.ndarray          # (K,) their b lengths
+    buckets: list           # (mb, nb, lo, hi): pairs order[lo:hi]
+    tables: list            # a bucket's int32 a offsets, a lengths, b
+                            # offsets, b lengths, on flat's device
+
+
+def _upload(a_list, b_list, dev: torch.device) -> Optional[_Packing]:
+    """Bucket the pairs by their lengths and copy what the buckets read to
+    ``dev`` in one copy; None where every pair has an empty operand.
+
+    The buckets are the power-of-two (mb, nb) shapes, in ascending order,
+    each holding its pairs in input order (a stable sort). A sequence
+    object that several pairs share (``[q] * N``) is uploaded once; equal
+    contents in different objects are uploaded each. Nothing is kept
+    between calls."""
+    # the items held in lists, so that each keeps its object (and its id)
+    # while the call runs, also where the caller passed a 2-D array
+    both = [*a_list, *b_list]
+    B = len(both) // 2
+    lens = np.fromiter(map(len, both), np.int64, 2 * B)
+    la, lb = lens[:B], lens[B:]
+    keep = np.flatnonzero((la > 0) & (lb > 0))   # empty: all-zero matrix
+    if not len(keep):
+        return None
+    mb, nb = _bucket_lens(la[keep]), _bucket_lens(lb[keep])
+    s = np.lexsort((nb, mb))
+    order, mb, nb = keep[s], mb[s], nb[s]
+    K = len(order)
+    cuts = np.flatnonzero((mb[1:] != mb[:-1]) | (nb[1:] != nb[:-1])) + 1
+    lo, hi = np.r_[0, cuts], np.r_[cuts, K]
+    buckets = [(int(mb[i]), int(nb[i]), int(i), int(j))
+               for i, j in zip(lo, hi)]
+    # the 2K row slots, a's then b's, as indices into both; the distinct
+    # objects among them in the order first seen, and each slot's one
+    rows = np.r_[order, order + B]
+    ids = np.fromiter(map(id, both), np.int64, 2 * B)[rows]
+    _, first, inv = np.unique(ids, return_index=True, return_inverse=True)
+    rank = np.argsort(first)
+    src = rows[first[rank]]
+    slot = np.empty_like(rank)
+    slot[rank] = np.arange(len(rank))
+    seqs = [both[k] for k in src.tolist()]
+    if any(issubclass(t, torch.Tensor) for t in set(map(type, seqs))):
+        seqs = [_host(x) for x in seqs]
+    start = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum(lens[src], out=start[1:])
+    if start[-1] > (1 << 31) - 1:
+        raise ValueError(f"{start[-1]} bytes of distinct sequences overflow "
+                         "the int32 offsets")
+    # one host buffer, one copy: the tables, then the sequences
+    buf = np.empty(16 * K + int(start[-1]), np.uint8)
+    tab = buf[:16 * K].view(np.int32).reshape(4, K)
+    offs = start[slot[inv.reshape(-1)]]
+    tab[0], tab[1] = offs[:K], la[order]
+    tab[2], tab[3] = offs[K:], lb[order]
+    np.concatenate(seqs, out=buf[16 * K:].view(np.int8), casting="unsafe")
+    profiling.count("h2d_bytes", buf.nbytes)
+    profiling.count("batch.seqs_distinct", len(seqs))
+    on_dev = torch.from_numpy(buf).to(dev)
+    # each bucket's four table rows, cut in one split
+    tables = on_dev[:16 * K].view(torch.int32).view(4, K).split(
+        (hi - lo).tolist(), 1)
+    return _Packing(on_dev[16 * K:].view(torch.int8), order, la[order],
+                    lb[order], buckets, [t.unbind(0) for t in tables])
+
+
+def _pack(p: _Packing, k: int) -> tuple:
+    """The padded (rows, mb) and (rows, nb) codes of bucket k, on the
+    packing's device, each side's sentinel after each row (see
+    ``_pad_exact``)."""
+    mb, nb, _, _ = p.buckets[k]
+    a_off, a_len, b_off, b_len = p.tables[k]
+    return (pack_rows(p.flat, a_off, a_len, mb, -3),
+            pack_rows(p.flat, b_off, b_len, nb, -2))
 
 
 def _pad_exact(scoring: Scoring, substitution) -> bool:
@@ -281,9 +377,13 @@ def score_many(a_list, b_list, scoring: Scoring = Scoring(),
     """Exact scoring of pairs of any shapes: each pair is padded into its
     power-of-two shape bucket (exact, see ``_pad_exact``) and each bucket
     runs one ``batch_score`` (with ``mesh``, as ``batch_score`` runs it
-    there). A scoring whose padding is not provably exact, one the kernels
-    do not take, runs one plain ``align(traceback=False)`` per pair on the
-    device, a card included. Empty operands score (0, 0, 0). Returns
+    there). The buckets are built on the device: each distinct sequence
+    object is uploaded once (``_upload``) and each bucket's padded rows
+    are written there (``kernels.pack_rows``). A scoring whose padding is
+    not provably exact, one the kernels do not take, runs one plain
+    ``align(traceback=False)`` per pair on the device, a card included.
+    Empty operands score (0, 0, 0). The distinct sequences of one call
+    may hold up to 2^31 - 1 bytes (their offsets are int32). Returns
     ``BatchHits`` of int32 CPU tensors in input order; positions are
     1-based in each pair's own matrix."""
     B = len(a_list)
@@ -299,30 +399,24 @@ def score_many(a_list, b_list, scoring: Scoring = Scoring(),
                         substitution=substitution, device=dev)
             out[:, k] = res.max_score, res.max_i, res.max_j
         return BatchHits(*torch.from_numpy(out))
-    buckets: dict = {}
+    # the host SIMD tier reads host arrays: pack there
+    pack_dev = torch.device("cpu") if plan == "host-simd" else dev
     with profiling.span("swtpu.batch.bucket"):
-        for k in range(B):
-            m, n = len(a_list[k]), len(b_list[k])
-            if m == 0 or n == 0:
-                continue          # empty operand: all-zero matrix
-            buckets.setdefault((_bucket_len(m), _bucket_len(n)),
-                               []).append(k)
-    for (mb, nb), idx in sorted(buckets.items()):
+        packing = _upload(a_list, b_list, pack_dev)
+    for k, (mb, nb, lo, hi) in enumerate(
+            [] if packing is None else packing.buckets):
         with profiling.span("swtpu.batch.pack"):
-            aa = np.full((len(idx), mb), -3, np.int8)
-            bb = np.full((len(idx), nb), -2, np.int8)
-            for r, k in enumerate(idx):
-                aa[r, :len(a_list[k])] = _host(a_list[k])
-                bb[r, :len(b_list[k])] = _host(b_list[k])
+            aa, bb = _pack(packing, k)
         if profiling.recording():
-            profiling.count("batch.cells_real", sum(
-                len(a_list[k]) * len(b_list[k]) for k in idx))
-            profiling.count("batch.cells_bucket", len(idx) * mb * nb)
+            profiling.count("batch.cells_real", int(np.dot(
+                packing.la[lo:hi], packing.lb[lo:hi])))
+            profiling.count("batch.cells_bucket", (hi - lo) * mb * nb)
         with profiling.span("swtpu.batch.score"):
-            hits = batch_score(aa, bb, scoring, plan=plan, mesh=mesh,
-                               substitution=substitution, device=dev)
+            hits = _batch_score(aa, bb, scoring, None, plan, mesh,
+                                substitution, dev, built=True)
         with profiling.span("swtpu.batch.fetch"):
-            out[:, idx] = torch.stack(list(hits)).cpu().numpy()
+            out[:, packing.order[lo:hi]] = torch.stack(
+                list(hits)).cpu().numpy()
     return BatchHits(*torch.from_numpy(out))
 
 

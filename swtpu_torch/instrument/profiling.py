@@ -37,9 +37,11 @@ host time into named parts.
   ``swtpu.search``) and opens a new call id; nested spans carry that id
   and their parent's index, on a stack of the thread's own. Counters:
   ``h2d_bytes`` (codes and tables copied from the host to the call's
-  device), ``batch.cells_real`` and ``batch.cells_bucket`` (a
-  ``score_many`` bucket's m·n summed over its pairs, and its pairs × its
-  padded shape).
+  device; on the CPU, where nothing moves, what a card would be sent),
+  ``batch.cells_real`` and ``batch.cells_bucket`` (a ``score_many``
+  bucket's m·n summed over its pairs, and its pairs × its padded shape),
+  ``batch.seqs_distinct`` (the distinct sequence objects a ``score_many``
+  call uploads, once each, for its 2 × B row slots).
 - The buffer holds the newest ``MAX_RECORDS`` (2^20) records; older ones
   are dropped and counted (``dropped()``).
 - The clock is ``time.perf_counter_ns()``, the host clock callers time

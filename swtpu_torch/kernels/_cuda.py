@@ -29,7 +29,7 @@ SOURCES = tuple(_PKG / "csrc" / f for f in (
     "stripe_rb.cu", "stripe_rb_p.cu", "stripe_rb_block.cu",
     "stripe_rb_band.cu", "stripe_rb_debug.cu", "stripe_rb_pairs.cu",
     "stripe_rb_pairs_band.cu", "stripe_rb_window.cu", "stripe_rb_packed.cu",
-    "stripe_rb_packed_debug.cu"))
+    "stripe_rb_packed_debug.cu", "pack_rows.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("stripe_kernel.cuh",
                                             "sw_cell.cuh", "stripe_rb.cuh"))
 BUILD_DIR = _PKG / "build"
@@ -72,6 +72,8 @@ ARGTYPES["sw_stripe_block_sub"] = ([_ptr, _ptr, _int, _int, _ptr]
 # tile-staged one
 ARGTYPES["sw_walk_p"] = [_ptr] + [_int] * 3 + [_ptr] * 3
 ARGTYPES["sw_walk_p_tiled"] = ARGTYPES["sw_walk_p"]
+# score_many's pack: flat, off, len, rows, width, fill, out, stream
+ARGTYPES["sw_pack_rows"] = [_ptr] * 3 + [_int] * 3 + [_ptr] * 2
 # K8: a, b, B, m, n, the model, T, sync, bnd, [bnd_f], best, right, band,
 # stream
 ARGTYPES["sw_pairs_score_linear"] = ([_ptr, _ptr] + [_int] * 7 + [_ptr] * 4

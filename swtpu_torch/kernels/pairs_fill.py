@@ -35,7 +35,8 @@ Each wrapper runs its kernel for tensors on a CUDA device and the plain
 version for tensors on the CPU, and nowhere else; a failed build or launch
 on a card raises. ``launches`` and ``plain_calls`` count them;
 ``reset_counts()`` zeroes these and the counters of
-``kernels.stripe_fill``, ``kernels.window_fill`` and ``kernels.debug_fill``.
+``kernels.stripe_fill``, ``kernels.window_fill``, ``kernels.debug_fill``
+and ``kernels.pack_rows``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.config import Scoring
+from . import pack_rows
 from . import stripe_fill as sf
 from .scan_fill import batch_scan_fill
 
@@ -82,7 +84,8 @@ def reset_counts() -> None:
     # both import this module, so not at the top
     from . import debug_fill, window_fill
     sf.reset_counts()
-    for counts in (launches, plain_calls, window_fill.launches,
+    for counts in (launches, plain_calls, pack_rows.launches,
+                   pack_rows.plain_calls, window_fill.launches,
                    window_fill.plain_calls, debug_fill.launches,
                    debug_fill.plain_calls, debug_fill.rb_launches,
                    debug_fill.rb_plain_calls, debug_fill.packed_rb_launches,

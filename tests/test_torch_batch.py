@@ -25,6 +25,8 @@ from swtpu.kernels.pallas_fill import pairs_packed_score_fn, pairs_score_fn
 from swtpu_torch.convert import scoring_from_jax, substitution_from_jax
 from swtpu_torch.dispatch.plan import runs_kernels
 from swtpu_torch.dist import batch as tbatch
+from swtpu_torch.kernels import _cuda
+from swtpu_torch.kernels import pack_rows as pk
 from swtpu_torch.kernels import pairs_fill as pf
 from swtpu_torch.kernels import stripe_fill as sf
 
@@ -254,6 +256,176 @@ def test_score_many_rejects_unequal_lists():
     a_list, b_list = _hetero()
     with pytest.raises(ValueError, match="sequences"):
         swtpu_torch.score_many(a_list, b_list[:2], device="cpu")
+
+
+# ---- score_many's packing: one upload, the buckets built on the device ----
+
+def test_bucket_lens_are_the_bucket_len_of_each_length():
+    x = np.arange(1, (1 << 17) + 1)
+    want = np.array([jbatch._bucket_len(int(v)) for v in x])
+    assert np.array_equal(tbatch._bucket_lens(x), want)
+
+
+def _host_packing(a_list, b_list):
+    """score_many's buckets as the host built them: a Python step a pair
+    to bucket it, ``np.full`` of each side, a row copy a pair."""
+    buckets = {}
+    for k in range(len(a_list)):
+        m, n = len(a_list[k]), len(b_list[k])
+        if m and n:
+            buckets.setdefault((jbatch._bucket_len(m), jbatch._bucket_len(n)),
+                               []).append(k)
+    out = []
+    for (mb, nb), idx in sorted(buckets.items()):
+        aa = np.full((len(idx), mb), -3, np.int8)
+        bb = np.full((len(idx), nb), -2, np.int8)
+        for r, k in enumerate(idx):
+            aa[r, :len(a_list[k])] = tbatch._host(a_list[k])
+            bb[r, :len(b_list[k])] = tbatch._host(b_list[k])
+        out.append((mb, nb, idx, aa, bb))
+    return out
+
+
+def _shared_query(n=40, seed=3):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 20, 70).astype(np.int8)
+    entries = [rng.integers(0, 20, int(x)).astype(np.int8)
+               for x in rng.integers(1, 140, n)]
+    entries[5][10:40] = q[20:50]
+    return [q] * n, entries
+
+
+def _tensor_lists():
+    a_list, b_list = _hetero()
+    return ([torch.from_numpy(x) for x in a_list],
+            [torch.from_numpy(x) for x in b_list])
+
+
+def _pow2_edges():
+    rng = np.random.default_rng(8)
+    lens = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129]
+    a_list = [rng.integers(0, 4, m).astype(np.int8) for m in lens]
+    b_list = [rng.integers(0, 4, n).astype(np.int8) for n in lens[::-1]]
+    return a_list, b_list
+
+
+def _with_empties():
+    a_list, b_list = _hetero()
+    ea, eb = _empties()
+    return ea + a_list + ea, eb + b_list + eb
+
+
+PACK_CASES = {"hetero": _hetero, "protein": _protein_lists,
+              "empty_operands": _with_empties, "shared_query": _shared_query,
+              "tensor_elements": _tensor_lists, "pow2_edges": _pow2_edges}
+
+
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_plain_pack_equals_the_host_packing(case):
+    a_list, b_list = PACK_CASES[case]()
+    want = _host_packing(a_list, b_list)
+    p = tbatch._upload(a_list, b_list, torch.device("cpu"))
+    assert [(mb, nb) for mb, nb, *_ in want] == \
+        [(mb, nb) for mb, nb, _, _ in p.buckets]
+    for k, ((mb, nb, idx, aa, bb), (_, _, lo, hi)) in enumerate(
+            zip(want, p.buckets)):
+        assert p.order[lo:hi].tolist() == idx
+        got_a, got_b = tbatch._pack(p, k)
+        assert got_a.dtype == got_b.dtype == torch.int8
+        assert np.array_equal(got_a.numpy(), aa)
+        assert np.array_equal(got_b.numpy(), bb)
+
+
+def test_upload_of_only_empty_operands_is_none():
+    assert tbatch._upload(*_empties(), torch.device("cpu")) is None
+
+
+def test_upload_shares_one_copy_of_a_shared_object():
+    a_list, b_list = _shared_query(30)
+    p = tbatch._upload(a_list, b_list, torch.device("cpu"))
+    # the query once, then every entry
+    assert p.flat.numel() == len(a_list[0]) + sum(map(len, b_list))
+    assert {o for t in p.tables for o in t[0].tolist()} == {0}
+    again = tbatch._upload([x.copy() for x in a_list], b_list,
+                           torch.device("cpu"))
+    assert again.flat.numel() == sum(map(len, a_list + b_list))
+
+
+def _pack_inputs(rows, width, seed):
+    """A flat buffer and ragged rows into it: lengths 0 to width, offsets
+    anywhere (the buffer's last byte among them)."""
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(-128, 128, 3 * width + 37).astype(np.int8)
+    lens = rng.integers(0, width + 1, rows)
+    lens[:4] = [width, 0, min(width, 37), width - 5]   # a ragged last chunk
+    off = rng.integers(0, len(flat) - lens + 1)
+    off[2] = len(flat) - lens[2]
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in
+                 (flat, off.astype(np.int32), lens.astype(np.int32)))
+
+
+def test_pack_rows_plain_gathers_each_row_then_its_fill():
+    flat, off, lens = _pack_inputs(50, 48, 4)
+    got = pk.pack_rows(flat, off, lens, 48, -2).numpy()
+    fl = flat.numpy()
+    for r, (o, n) in enumerate(zip(off.tolist(), lens.tolist())):
+        assert np.array_equal(got[r, :n], fl[o:o + n])
+        assert (got[r, n:] == -2).all()
+    assert pk.pack_rows(flat[:0], off[:0], lens[:0], 16, -3).shape == (0, 16)
+
+
+def test_pack_launch_arguments_are_the_entrys(monkeypatch):
+    seen = []
+    monkeypatch.setattr(sf, "_call", lambda nm, dev, args, counter=None,
+                        counts=None: seen.append((nm, args, counts)))
+    flat, off, lens = _pack_inputs(7, 32, 5)
+    out = pk._launch_pack(flat, off, lens, 32, -3)
+    (name, args, counts), = seen
+    assert name == pk.PACK_KERNEL and counts is pk.launches
+    assert len(args) + 1 == len(_cuda.ARGTYPES[name])         # + the stream
+    assert args[:3] == [flat.data_ptr(), off.data_ptr(), lens.data_ptr()]
+    assert args[3:6] == [7, 32, -3]
+    assert args[-1] == out.data_ptr() and out.shape == (7, 32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pk._launch_pack(flat, off, lens, 40, -3)
+
+
+@pytest.mark.parametrize("bad, err", [
+    (dict(flat=torch.zeros(4, dtype=torch.int32)), "flat"),
+    (dict(off=torch.zeros(3, dtype=torch.int64)), "int32"),
+    (dict(lens=torch.zeros(2, dtype=torch.int32)), "int32"),
+    (dict(width=0), "width")])
+def test_pack_rows_rejects_bad_inputs(bad, err):
+    kw = dict(flat=torch.zeros(8, dtype=torch.int8),
+              off=torch.zeros(3, dtype=torch.int32),
+              lens=torch.ones(3, dtype=torch.int32), width=16, fill=-3)
+    kw.update(bad)
+    with pytest.raises(ValueError, match=err):
+        pk.pack_rows(**kw)
+
+
+def test_score_many_shared_query_matches_the_oracle():
+    jsc, jsub = SCORINGS["blosum62"]
+    sc, sub = _port(jsc, jsub)
+    a_list, b_list = _shared_query(24)
+    got = _triple(swtpu_torch.score_many(a_list, b_list, sc,
+                                         substitution=sub, device="cpu"))
+    for k, (a, b) in enumerate(zip(a_list, b_list)):
+        ref = oracle.fill(a, b, jsc, sub=jsub)
+        assert [x[k] for x in got] == [ref.max_score, *ref.max_ij]
+
+
+def test_score_many_keeps_nothing_between_calls():
+    a_list, b_list = _shared_query(12)
+    first = _triple(swtpu_torch.score_many(a_list, b_list, device="cpu"))
+    n = min(len(b_list[5]), len(a_list[0]))
+    b_list[5][:n] = a_list[0][:n]          # in place, the same objects
+    a_list[0][:3] = 2                      # the shared query too
+    second = _triple(swtpu_torch.score_many(a_list, b_list, device="cpu"))
+    assert second != first
+    for k, (a, b) in enumerate(zip(a_list, b_list)):
+        ref = oracle.fill(a, b)
+        assert [x[k] for x in second] == [ref.max_score, *ref.max_ij]
 
 
 # ---- batch_align / align_many ----
@@ -551,3 +723,33 @@ def test_refused_scorings_raise_on_card(cuda, jsc, jtable):
     assert pf.plain_calls["pairs_score_plain"] > 0
     assert not any(pf.launches.values())
     assert not any(sf.launches.values())
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, width", [(8906, 8192), (40, 65536)])
+def test_pack_kernel_matches_plain_on_card(cuda, rows, width):
+    """Every offset's alignment, rows ending inside a chunk and at the
+    buffer's last byte, on the database's widest bucket and a 65536-wide
+    side."""
+    host = _pack_inputs(rows, width, 11)
+    flat, off, lens = (x.to(cuda) for x in host)
+    pf.reset_counts()
+    for fill in (-3, -2):
+        got = pk.pack_rows(flat, off, lens, width, fill)
+        assert torch.equal(got.cpu(), pk.pack_rows_plain(*host, width, fill))
+    assert pk.launches == {pk.PACK_KERNEL: 2}
+
+
+@pytest.mark.gpu
+def test_score_many_shared_query_on_card_matches_cpu(cuda):
+    jsc, jsub = SCORINGS["blosum62"]
+    sc, sub = _port(jsc, jsub)
+    a_list, b_list = _shared_query(300)
+    want = _triple(swtpu_torch.score_many(a_list, b_list, sc,
+                                          substitution=sub, device="cpu"))
+    pf.reset_counts()
+    got = swtpu_torch.score_many(a_list, b_list, sc, substitution=sub)
+    assert _triple(got) == want
+    p = tbatch._upload(a_list, b_list, torch.device("cpu"))
+    assert pk.launches == {pk.PACK_KERNEL: 2 * len(p.buckets)}
+    assert pf.launches["sw_pairs_rb_sub"] == len(p.buckets)
+    assert not any(pk.plain_calls.values())

@@ -167,8 +167,24 @@ def test_score_many_counts_real_and_bucket_cells(traced):
     # 17x5, (32, 32) 30x30; the empty pair in none
     assert real == [10 * 20 + 12 * 31, 17 * 5, 30 * 30]
     assert bucket == [2 * 16 * 32, 32 * 16, 32 * 32]
-    assert sum(r.value for r in recs if r.name == "h2d_bytes") == \
-        2 * (16 + 32) + (32 + 16) + (32 + 32)
+    # one upload: the 8 distinct sequences of the 4 bucketed pairs, then
+    # their tables, 4 int32 a row; the buckets built from it count nothing
+    assert [r.value for r in recs if r.name == "h2d_bytes"] == [
+        10 + 20 + 17 + 5 + 30 + 30 + 12 + 31 + 4 * 4 * 4]
+
+
+def test_score_many_counts_distinct_sequences(traced):
+    rng = np.random.default_rng(6)
+    q, r, e1, e2, lone = (rng.integers(0, 4, n).astype(np.int8)
+                          for n in (30, 20, 25, 40, 9))
+    twin = q.copy()                 # equal contents, another object
+    empty = np.zeros(0, np.int8)
+    aa = [q, q, q, r, twin, lone]
+    bb = [e1, e2, q, e1, e2, empty]  # the last pair is empty: not uploaded
+    recs = traced(lambda: swtpu_torch.score_many(aa, bb, device=CPU))
+    assert [r.value for r in recs if r.name == "batch.seqs_distinct"] == [5]
+    assert [r.value for r in recs if r.name == "h2d_bytes"] == [
+        30 + 25 + 40 + 20 + 30 + 5 * 4 * 4]
 
 
 def _ref():
