@@ -13,11 +13,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import importlib.util
 import json
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -105,22 +107,105 @@ def _sync(device) -> None:
 
 def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
              t0: float, device="cuda", api=None, config: dict = None,
-             mix: dict = None, log=print) -> dict:
+             mix: dict = None, log=print, devices: list = None,
+             limit_s: float = 300.0) -> dict:
     """Run cell ``name`` once and return its result line as a dict, the
-    checks last. ``api``: the program's package (default ``swtpu_torch``);
-    ``config``, ``mix``: the cell's configuration and traffic mix in place
-    of its files (a test's smaller ones). ``log``: where the lines before
-    the result go."""
+    checks last. ``api``: the program's package (default ``swtpu_torch``),
+    or its module's name; ``config``, ``mix``: the cell's configuration
+    and traffic mix in place of its files (a test's smaller ones).
+    ``log``: where the lines before the result go.
+
+    A cell of one chip runs here, on ``device``. A cell of N chips runs
+    as N ranks in lock step (``harness/ranks.py``), this process rank 0:
+    ``devices`` gives each rank's device (default card r for rank r; a
+    test or a rehearsal gives N times 'cpu', or N ranks sharing 'cuda:0'),
+    ``api`` is then named by module so that every rank can import it, and
+    ``limit_s`` is the world's time limit."""
     cell, centry = cell_of(spec, name)
     if config is None:
         config = load_json(ROOT / centry["file"])
     if mix is None:
         mix = load_json(ROOT / "benchmarks" / "traffic"
                         / f"{cell['traffic']}.json")
-    if api is None:
+    if isinstance(api, str):
+        api = importlib.import_module(api)
+    elif api is None:
         import swtpu_torch as api
+    chips = cell["chips"]
+    if chips > 1:
+        devices = list(devices or [f"cuda:{r}" for r in range(chips)])
+        if len(devices) != chips:
+            raise ValueError(f"{name} runs on {chips} ranks, not "
+                             f"{len(devices)}")
+        device = devices[0]
     cuda = torch.device(device).type == "cuda"
+    if chips > 1:
+        from . import ranks
+        if not isinstance(api, types.ModuleType):
+            raise TypeError("a cell on several ranks names its program by "
+                            "module")
+        wl, setup_s, calls, done, trace, t_closed, t_read, peak_bytes, \
+            loaded = ranks.run(devices, limit_s, api.__name__, config, mix,
+                               seed, t0, seconds, traced, log)
+        failed = sum(not c.ok for c in calls)
+    else:
+        loaded = {}
+        wl, setup_s, calls, done, failed, trace, t_closed, t_read = _one(
+            config, mix, seed, device, api, seconds, traced, t0, log)
+        peak_bytes = torch.cuda.max_memory_allocated() if cuda else 0
+    bad = forbidden_modules() + [f"{m} (rank {r})"
+                                 for r, ms in sorted(loaded.items())
+                                 for m in ms]
+    if bad:
+        raise Refused("the run loaded " + ", ".join(bad))
 
+    run = Run(setup_s, calls, trace,
+              card_peak(chips) if traced and cuda else None)
+    if cuda:
+        torch.cuda.empty_cache()
+    checks = wl.check(done, device)
+    t_checked = time.perf_counter()
+    correct = failed == 0 and all(v <= lim for _, v, lim in checks)
+
+    metrics = {}
+    for m in metrics_of(spec, name, traced):
+        v = reader(m["name"])(run)
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    dev = {"platform": "gpu" if cuda else "cpu",
+           "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+           "count": chips, "memory_peak_bytes": peak_bytes}
+    log(f"calls {len(calls)} ({failed} failed) in {run.window_s:.6f} s; "
+        f"call_p95_ms over {len(calls)} samples; set-up {setup_s:.3f} s, "
+        f"trace read {t_read - t_closed:.3f} s, reference and checks "
+        f"{t_checked - t_read:.3f} s", file=sys.stderr)
+    result = {"correct": correct, "attempted": len(calls), "failed": failed,
+              "metrics": metrics, "device": dev}
+    if traced:
+        lo, hi = trace.window
+        dev["busy_s"] = tr.busy(trace, lo, hi) / 1e6
+        dev["window_s"] = (hi - lo) / 1e6
+        result["breakdown"] = tr.breakdown(trace)
+        if run.peak is not None:
+            p = run.peak
+            bound = {run.peak.least_s(c.work)[1] for c in calls}
+            w = calls[0].work
+            log(f"roofline: {p.name}, power limit {p.power_limit_w} W, "
+                f"{p.sms} SMs at {p.max_sm_mhz} MHz: "
+                f"{p.issue_per_s():.6g} lane-instructions/s, "
+                f"{w.instructions} a cell, lanes of "
+                f"{'/'.join(str(b) for b in sorted(w.cells_by_bits))} bits; "
+                f"bound by {', '.join(sorted(bound))}", file=sys.stderr)
+    result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in checks}
+    for n, v, lim in checks:
+        log(f"check {n} {v} limit {lim}", file=sys.stderr)
+    return result
+
+
+def _one(config: dict, mix: dict, seed: int, device, api, seconds: float,
+         traced: bool, t0: float, log) -> tuple:
+    """Set-up and window of a cell on one chip, in this process: (the
+    workload, setup_s, calls, done, failed, trace, t_closed, t_read)."""
     wl = build(config, mix, seed, device, api)
     wl.warm()
     _sync(device)
@@ -151,48 +236,4 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
     t_closed = time.perf_counter()
     trace = tr.stop(prof, device) if traced else None
     t_read = time.perf_counter()
-    peak_bytes = torch.cuda.max_memory_allocated() if cuda else 0
-    bad = forbidden_modules()
-    if bad:
-        raise Refused("the run loaded " + ", ".join(bad))
-
-    run = Run(setup_s, calls, trace, card_peak() if traced and cuda else None)
-    if cuda:
-        torch.cuda.empty_cache()
-    checks = wl.check(done, device)
-    t_checked = time.perf_counter()
-    correct = failed == 0 and all(v <= lim for _, v, lim in checks)
-
-    metrics = {}
-    for m in metrics_of(spec, name, traced):
-        v = reader(m["name"])(run)
-        if v is not None:
-            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    dev = {"platform": "gpu" if cuda else "cpu",
-           "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": peak_bytes}
-    log(f"calls {len(calls)} ({failed} failed) in {run.window_s:.6f} s; "
-        f"call_p95_ms over {len(calls)} samples; set-up {setup_s:.3f} s, "
-        f"trace read {t_read - t_closed:.3f} s, reference and checks "
-        f"{t_checked - t_read:.3f} s", file=sys.stderr)
-    result = {"correct": correct, "attempted": len(calls), "failed": failed,
-              "metrics": metrics, "device": dev}
-    if traced:
-        lo, hi = trace.window
-        dev["busy_s"] = tr.busy(trace, lo, hi) / 1e6
-        dev["window_s"] = (hi - lo) / 1e6
-        result["breakdown"] = tr.breakdown(trace)
-        if run.peak is not None:
-            p = run.peak
-            bound = {run.peak.least_s(c.work)[1] for c in calls}
-            w = calls[0].work
-            log(f"roofline: {p.name}, power limit {p.power_limit_w} W, "
-                f"{p.sms} SMs at {p.max_sm_mhz} MHz: "
-                f"{p.issue_per_s():.6g} lane-instructions/s, "
-                f"{w.instructions} a cell, lanes of "
-                f"{'/'.join(str(b) for b in sorted(w.cells_by_bits))} bits; "
-                f"bound by {', '.join(sorted(bound))}", file=sys.stderr)
-    result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in checks}
-    for n, v, lim in checks:
-        log(f"check {n} {v} limit {lim}", file=sys.stderr)
-    return result
+    return wl, setup_s, calls, done, failed, trace, t_closed, t_read

@@ -21,7 +21,9 @@ configuration's precision, not each pair's, sets the lane width, because
 an exact kernel for the deployment may use it throughout. Memory: 3.35
 TB/s (H100 SXM HBM3, NVIDIA's data sheet), bytes counted as each input
 read once and each output written once. The least time is the larger of
-the two; which one, and the card's power limit, go beside it.
+the two; which one, and the card's power limit, go beside it. A cell on N
+cards has N times both peaks: its least time is the work spread evenly
+over them.
 
 A kernel that scores cells a bit at a time (bit-parallel forms) is a
 different algorithm from these lanes and could pass this peak; none of
@@ -46,11 +48,12 @@ def instructions_per_cell(affine: bool) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Peak:
-    """The card's peaks, read on the card."""
+    """The card's peaks, read on the card, and the cards a cell uses."""
     name: str
     sms: int
     max_sm_mhz: float
     power_limit_w: float
+    cards: int = 1
 
     def issue_per_s(self) -> float:
         """Lane-instructions a second the card can issue."""
@@ -60,10 +63,10 @@ class Peak:
         return self.issue_per_s() * (32 // bits) / instructions
 
     def least_s(self, work: "Work") -> tuple:
-        """(seconds, 'operations' or 'bytes') the card needs at least."""
+        """(seconds, 'operations' or 'bytes') the cards need at least."""
         op_s = sum(cells / self.cells_per_s(bits, work.instructions)
-                   for bits, cells in work.cells_by_bits.items())
-        byte_s = work.nbytes / MEM_BYTES_PER_S
+                   for bits, cells in work.cells_by_bits.items()) / self.cards
+        byte_s = work.nbytes / MEM_BYTES_PER_S / self.cards
         return (op_s, "operations") if op_s >= byte_s else (byte_s, "bytes")
 
 
@@ -87,9 +90,9 @@ def _smi(field: str) -> str:
         timeout=60).stdout.strip()
 
 
-def card_peak() -> Peak:
-    """Card 0's peaks. Raises where there is no card: a roofline is never
-    taken from the CPU."""
+def card_peak(cards: int = 1) -> Peak:
+    """Card 0's peaks, for a cell on ``cards`` such cards. Raises where
+    there is no card: a roofline is never taken from the CPU."""
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: a roofline share needs one")
@@ -97,4 +100,4 @@ def card_peak() -> Peak:
     return Peak(name=torch.cuda.get_device_name(0),
                 sms=props.multi_processor_count,
                 max_sm_mhz=float(_smi("clocks.max.sm")),
-                power_limit_w=float(_smi("power.limit")))
+                power_limit_w=float(_smi("power.limit")), cards=cards)

@@ -16,6 +16,11 @@ same inputs. ``control`` gives, for the same calls, the answers of the
 reference at a saturating width in the program's place: the comparison
 has to find them wrong at the width just below the configuration's
 ``precision``.
+
+In a cell on several ranks every rank builds the same workload from the
+seed on its own device; ``build`` tells it its ``rank`` and every rank's
+device (``devices``; ``ranks`` their number) before it warms. A kind that
+runs on one rank ignores them.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ KINDS = Path(__file__).resolve().parents[1] / "kinds"
 
 class Workload:
     """One cell's inputs and calls; see the module's docstring."""
+
+    rank = 0
+    devices: tuple = ()
 
     def __init__(self, config: dict, mix: dict, seed: int, device, api):
         self.config, self.mix, self.device, self.api = config, mix, device, api
@@ -70,6 +78,10 @@ class Workload:
         if b is None:
             return int(top_a)
         return int(min(top_a, self.table.max(0)[b[b >= 0]].clip(0).sum()))
+
+    @property
+    def ranks(self) -> int:
+        return len(self.devices)
 
     def work(self, k: int) -> Work:
         """What call k asks of the card: its real cells at the
@@ -134,7 +146,12 @@ def kind(name: str) -> type:
     return mod.Kind
 
 
-def build(config: dict, mix: dict, seed: int, device, api=None) -> Workload:
+def build(config: dict, mix: dict, seed: int, device, api=None, rank: int = 0,
+          devices: list = None) -> Workload:
     """The workload of a mix's ``kind`` on this configuration; ``api`` is
-    the program's package (None: the inputs and the reference alone)."""
-    return kind(mix["kind"])(config, mix, seed, device, api)
+    the program's package (None: the inputs and the reference alone);
+    ``rank`` and ``devices``: where it runs in a cell on several ranks
+    (default: alone, on ``device``)."""
+    wl = kind(mix["kind"])(config, mix, seed, device, api)
+    wl.rank, wl.devices = rank, tuple(devices or (device,))
+    return wl

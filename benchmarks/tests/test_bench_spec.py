@@ -62,7 +62,9 @@ def test_entries_have_just_their_keys():
         assert line_ok(c["why"]) and line_ok(c["source"])
     for w in s["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and line_ok(w["why"])
+        assert w["chips"] in (1, 4) and line_ok(w["why"])
+    fours = sum(w["chips"] == 4 for w in s["workloads"])
+    assert fours <= max(1, len(s["workloads"]) // 4)
     for m in s["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                           "source"}
