@@ -22,6 +22,16 @@ here a rank inactive at a stage launches nothing and sends the global
 boundary (H = 0 local, NEGB global; E = NEGB), which gives the same carry.
 Every rank of the axis calls the same function with the same arguments,
 and each returns the merged, replicated result on its own device.
+
+Under a running profiler (``instrument.profiling``) the pipeline's parts
+are spans: ``swtpu.pipe.plan`` (the projected rows and their broadcast),
+``swtpu.pipe.agree`` (the verdict's all-reduce), ``swtpu.pipe.fill`` (a
+stage's block fill), ``swtpu.pipe.halo`` (its ``shift``) and
+``swtpu.pipe.merge`` (the three all-reduces of the best and the last
+cell's; ``engine.align``'s score route fetches the answer under the same
+name, since the fetch waits for them). Each pass counts, on each rank, its ``pipe.stages``, the stages
+in which this rank filled a block (``pipe.blocks``), the bytes this rank
+sent in the halo (``pipe.halo_bytes``) and its ``pipe.block_rows``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from ..core.config import Scoring
 from ..core.substitution import check_table
 from ..dispatch.plan import (pipeline_devices, pipeline_projection,
                              runs_kernels)
+from ..instrument import profiling
 from ..kernels import stripe_fill as sf
 from .batch import _codes, _host
 from .mesh import (Mesh, all_reduce, broadcast_object, check_mesh,
@@ -85,8 +96,9 @@ def projected_rows(m: int, n: int, mesh: Mesh, axis: str,
     cards = pipeline_devices(mesh, axis=axis)
     if cards < 2:
         return None
-    _, rows = pipeline_projection(m, n, cards, scoring, substitution)
-    return broadcast_object(rows or None, mesh, axis)
+    with profiling.span("swtpu.pipe.plan"):
+        _, rows = pipeline_projection(m, n, cards, scoring, substitution)
+        return broadcast_object(rows or None, mesh, axis)
 
 
 def block_rows_for(m: int, n: int, mesh: Mesh, axis: str,
@@ -105,9 +117,10 @@ def agree(mesh: Mesh, verdict: bool, key: tuple) -> bool:
     (verdict, key, -key). Every rank of the axis calls it."""
     axis = _resolve(mesh, None)
     k = [int(x) for x in key]
-    got = all_reduce(torch.tensor([int(bool(verdict)), *k, *(-x for x in k)],
-                                  dtype=torch.int64, device=mesh.device),
-                     "min", mesh, axis).tolist()
+    with profiling.span("swtpu.pipe.agree"):
+        got = all_reduce(torch.tensor(
+            [int(bool(verdict)), *k, *(-x for x in k)], dtype=torch.int64,
+            device=mesh.device), "min", mesh, axis).tolist()
     low, high = got[1:1 + len(k)], [-x for x in got[1 + len(k):]]
     return bool(got[0]) and low == high
 
@@ -179,24 +192,25 @@ class _Pipe:
         if 0 <= r < self.nblocks:
             pid, within = divmod(r, self.npb)
             top, top_f = prev_bottom, prev_bottom_f
-            if self.local and within == 0:
-                top = torch.zeros_like(prev_bottom)
-                top_f = torch.full_like(prev_bottom_f, NEGB)
-            o = self._fill(a_of_pid(pid), b_full[r * R:(r + 1) * R], top,
-                           left_in, top_f, left_e_in)
-            score = o.best[0]
-            cand = torch.stack([score, within * R + o.best[1],
-                                d * mc + o.best[2]])
-            cur = best[pid]
-            # score desc, then (i, j) asc: the first row-major occurrence
-            upd = (score > 0) & ((score > cur[0]) | (
-                (score == cur[0]) & ((cand[1] < cur[1]) | (
-                    (cand[1] == cur[1]) & (cand[2] < cur[2])))))
-            best = best.clone()
-            best[pid] = torch.where(upd, cand, cur)
-            if within == self.npb - 1 and d == self.D - 1:
-                lasts = lasts.clone()
-                lasts[pid] = o.bottom_row[mc]
+            with profiling.span("swtpu.pipe.fill"):
+                if self.local and within == 0:
+                    top = torch.zeros_like(prev_bottom)
+                    top_f = torch.full_like(prev_bottom_f, NEGB)
+                o = self._fill(a_of_pid(pid), b_full[r * R:(r + 1) * R], top,
+                               left_in, top_f, left_e_in)
+                score = o.best[0]
+                cand = torch.stack([score, within * R + o.best[1],
+                                    d * mc + o.best[2]])
+                cur = best[pid]
+                # score desc, then (i, j) asc: the first row-major occurrence
+                upd = (score > 0) & ((score > cur[0]) | (
+                    (score == cur[0]) & ((cand[1] < cur[1]) | (
+                        (cand[1] == cur[1]) & (cand[2] < cur[2])))))
+                best = best.clone()
+                best[pid] = torch.where(upd, cand, cur)
+                if within == self.npb - 1 and d == self.D - 1:
+                    lasts = lasts.clone()
+                    lasts[pid] = o.bottom_row[mc]
             prev_bottom = o.bottom_row
             halo = o.right_col
             if self.affine:
@@ -206,14 +220,15 @@ class _Pipe:
             # an inactive sender ships the global boundary
             halo = self._full(R + 1, 0 if self.local else NEGB)
             halo_e = self._full(R + 1, NEGB)
-        if self.affine:
-            nxt = shift(torch.stack([halo, halo_e]), self.mesh, self.axis)
-            left_next = nxt[0]
-            # rank 0 has no sender: E of column 0 is -inf
-            left_e_next = self._full(R + 1, NEGB) if d == 0 else nxt[1]
-        else:
-            left_next = shift(halo, self.mesh, self.axis)
-            left_e_next = left_e_in
+        with profiling.span("swtpu.pipe.halo"):
+            if self.affine:
+                nxt = shift(torch.stack([halo, halo_e]), self.mesh, self.axis)
+                left_next = nxt[0]
+                # rank 0 has no sender: E of column 0 is -inf
+                left_e_next = self._full(R + 1, NEGB) if d == 0 else nxt[1]
+            else:
+                left_next = shift(halo, self.mesh, self.axis)
+                left_e_next = left_e_in
         if not self.local and d == 0:
             # NW: rank 0's column 0 below block 0 is -inf
             left_next = self._full(R + 1, NEGB)
@@ -225,7 +240,25 @@ class _Pipe:
         t1 = self.stages if t1 is None else min(t1, self.stages)
         for t in range(t0, t1):
             carry = self.stage(t, carry, a_of_pid, b_full)
+        self._count(t0, t1)
         return carry
+
+    def _count(self, t0: int, t1: int) -> None:
+        """The pass's counters for stages [t0, t1) on this rank, so that a
+        pass run in segments counts as one run whole; the block rows once,
+        with its first stage."""
+        if t1 <= t0 or not profiling.recording():
+            return
+        filled = max(0, min(t1, self.d + self.nblocks) - max(t0, self.d))
+        sent = 0
+        if self.d + 1 < self.D:
+            words = (2 if self.affine else 1) * (self.R + 1)
+            sent = (t1 - t0) * words * 4
+        profiling.count("pipe.stages", t1 - t0)
+        profiling.count("pipe.blocks", filled)
+        profiling.count("pipe.halo_bytes", sent)
+        if t0 == 0:
+            profiling.count("pipe.block_rows", self.R)
 
 
 def merge_best(mesh: Mesh, axis: str, best: torch.Tensor,
@@ -235,15 +268,16 @@ def merge_best(mesh: Mesh, axis: str, best: torch.Tensor,
     (``_merge_best``); H[n, m] by a max, since only the axis' last rank
     holds it."""
     bs, bi, bj = best[:, 0], best[:, 1], best[:, 2]
-    gbs = all_reduce(bs, "max", mesh, axis)
-    win = bs == gbs
-    gbi = all_reduce(torch.where(win, bi, _I32MAX), "min", mesh, axis)
-    win &= bi == gbi
-    gbj = all_reduce(torch.where(win, bj, _I32MAX), "min", mesh, axis)
-    glast = all_reduce(lasts, "max", mesh, axis)
-    none = gbs <= 0
-    return (gbs.clamp(min=0), torch.where(none, 0, gbi),
-            torch.where(none, 0, gbj), glast)
+    with profiling.span("swtpu.pipe.merge"):
+        gbs = all_reduce(bs, "max", mesh, axis)
+        win = bs == gbs
+        gbi = all_reduce(torch.where(win, bi, _I32MAX), "min", mesh, axis)
+        win &= bi == gbi
+        gbj = all_reduce(torch.where(win, bj, _I32MAX), "min", mesh, axis)
+        glast = all_reduce(lasts, "max", mesh, axis)
+        none = gbs <= 0
+        return (gbs.clamp(min=0), torch.where(none, 0, gbi),
+                torch.where(none, 0, gbj), glast)
 
 
 def _resolve(mesh: Mesh, axis: Optional[str]) -> str:

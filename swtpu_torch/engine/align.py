@@ -365,24 +365,28 @@ def _pipeline_path(a_codes, b_codes, scoring: Scoring, mesh, want_tb: bool,
     the locate and a windowed refill (``pipeline_traceback``), whose
     strings come without ``path``. Block rows: the dist layer's
     (``dist.pipeline.block_rows_for``), one height for every pass of a
-    call."""
+    call. Its span is ``swtpu.pipe``; the score's fetch, which waits for
+    the merge's all-reduces, is a part of ``swtpu.pipe.merge``."""
     from ..dist import pipeline as pl
     m = len(a_codes)
-    if not want_tb:
-        out = pl.pipeline_align(a_codes, b_codes, mesh, scoring=scoring,
-                                substitution=sub_np)
-        res = Alignment(max_score=int(out.max_score), max_i=int(out.max_i),
-                        max_j=int(out.max_j), last_cell=int(out.last_cell))
-    else:
-        got = pl.pipeline_traceback(a_codes, b_codes, mesh, scoring=scoring,
-                                    alphabet=alphabet, substitution=sub_np)
-        if got is None:
-            res = Alignment(max_score=0, max_i=0, max_j=0, last_cell=0)
+    with profiling.span("swtpu.pipe"):
+        if not want_tb:
+            out = pl.pipeline_align(a_codes, b_codes, mesh, scoring=scoring,
+                                    substitution=sub_np)
+            with profiling.span("swtpu.pipe.merge"):
+                s, i, j, last = torch.stack(list(out)).tolist()
+            res = Alignment(max_score=s, max_i=i, max_j=j, last_cell=last)
         else:
-            score_v, loc, ra, rb = got
-            res = Alignment(max_score=score_v, max_i=loc.end_i,
-                            max_j=loc.end_j, last_cell=loc.last_cell,
-                            aligned_a=ra, aligned_b=rb)
+            got = pl.pipeline_traceback(a_codes, b_codes, mesh,
+                                        scoring=scoring, alphabet=alphabet,
+                                        substitution=sub_np)
+            if got is None:
+                res = Alignment(max_score=0, max_i=0, max_j=0, last_cell=0)
+            else:
+                score_v, loc, ra, rb = got
+                res = Alignment(max_score=score_v, max_i=loc.end_i,
+                                max_j=loc.end_j, last_cell=loc.last_cell,
+                                aligned_a=ra, aligned_b=rb)
     res.plan = "pipeline"
     res._m1 = m + 1
     return res

@@ -82,3 +82,39 @@ def run_disagreeing(stamp: dict, pairs: list, other_rows: int) -> list:
                     sf.plain_calls["stripe_block_plain"] - before))
         ealign.choose_exec, pl.pipeline_projection = real, real_proj
     return out
+
+
+def run_traced(stamp: dict, a, b, scoring) -> tuple:
+    """``align(a, b, traceback=False, mesh=)`` on a mesh of every rank,
+    each rank a card of the record (``stamp``) and ``choose_exec``
+    answering the projected pipeline, so that the call routes by the
+    ranks' verdict and sizes its blocks by the projection: once with no
+    profiler and once under ``profiling.trace`` on the CPU. Returns (the
+    untraced answer, the records the untraced call left, the traced
+    answer, the traced call's records as (name, index, parent, value),
+    the block rows ``block_rows_for`` gives)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from swtpu_torch.engine import align as ealign
+    from swtpu_torch.instrument import profiling
+    _as_cards(stamp)
+    mesh = dryrun.rank_mesh("seq", dist.get_world_size())
+    rows = pl.block_rows_for(len(a), len(b), mesh, "seq", scoring)
+    real = ealign.choose_exec
+    ealign.choose_exec = _projected
+    try:
+        profiling.clear()
+        plain = ealign.align(a, b, scoring, traceback=False, mesh=mesh)
+        left = profiling.recorded()
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp, device="cpu"):
+                traced = ealign.align(a, b, scoring, traceback=False,
+                                      mesh=mesh)
+        recs = [(r.name, r.index, r.parent, r.value)
+                for r in profiling.recorded()]
+        profiling.clear()
+    finally:
+        ealign.choose_exec = real
+    return (dryrun.to_numpy(plain), left, dryrun.to_numpy(traced), recs,
+            rows)
