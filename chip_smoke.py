@@ -1370,7 +1370,7 @@ def lean_parts(mode: str, dev) -> tuple:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ca, cb = tb._apply_moves(a[sj - 1:ej], b[si - 1:ei], wn, wm,
-                             moves.tolist())
+                             moves.numpy())
     tb._render(ca, cb, alphabet)
     host_s = time.perf_counter() - t0
     # one byte of P read and one move written per move

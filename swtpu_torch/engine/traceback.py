@@ -392,14 +392,22 @@ def _mm_affine(a: np.ndarray, b: np.ndarray, scoring: Scoring,
 
 
 def _render(codes_a, codes_b, alphabet=DNA_ALPHABET):
-    """Code lists -> strings: GAP as '-', a code below 0 as ``decode``
-    renders it ('N', or 'X' for an alphabet that carries one)."""
-    unk = unknown_letter(alphabet)
+    """Code arrays or lists -> strings: GAP as '-', a code below 0 as
+    ``decode`` renders it ('N', or 'X' for an alphabet that carries one).
+    One gather from a table of the letters' code points per string; counts
+    ``tb.columns``, the alignment's columns."""
+    table = np.frombuffer((alphabet + unknown_letter(alphabet) + "-")
+                          .encode("utf-32-le"), np.uint32)
+    unk = len(alphabet)
 
     def text(codes):
-        return "".join("-" if c == GAP else alphabet[c] if c >= 0 else unk
-                       for c in codes)
+        codes = np.asarray(codes, np.int16)
+        idx = codes.astype(np.intp)
+        idx[codes < 0] = unk
+        idx[codes == GAP] = unk + 1
+        return table[idx].tobytes().decode("utf-32-le")
 
+    profiling.count("tb.columns", len(codes_a))
     return text(codes_a), text(codes_b)
 
 
@@ -446,25 +454,25 @@ def _window_walk(sub_a, sub_b, wn, wm, scoring, sub, device: torch.device):
         P = fill(at, bt, scoring, substitution=st).P
     with profiling.span("swtpu.tb.walk"):
         walk = sf.walk_p if card else sf.walk_p_plain
-        moves = walk(P, wn, wm).tolist()
+        moves = walk(P, wn, wm).numpy()
     del P
     with profiling.span("swtpu.tb.strings"):
         return _apply_moves(sub_a, sub_b, wn, wm, moves)
 
 
 def _apply_moves(sub_a, sub_b, wn, wm, moves):
-    """End-first move sequence -> (codes_a, codes_b) from the corner."""
-    out_a, out_b = [], []
-    i, j = wn, wm
-    for move in moves:
-        if move == DIAGONAL:
-            out_a.append(sub_a[j - 1]); out_b.append(sub_b[i - 1])
-            i -= 1; j -= 1
-        elif move == UP:
-            out_a.append(GAP); out_b.append(sub_b[i - 1]); i -= 1
-        else:
-            out_a.append(sub_a[j - 1]); out_b.append(GAP); j -= 1
-    return out_a[::-1], out_b[::-1]
+    """End-first moves -> (codes_a, codes_b) from the corner (wn, wm), as
+    int16 arrays with GAP where a column takes no letter of that side. A
+    column takes a letter of a unless its move is UP, one of b unless it
+    is LEFT; the letters taken are the last ones before the corner, in
+    order."""
+    moves = np.asarray(moves, np.int8)[::-1]
+    take_a, take_b = moves != UP, moves != LEFT
+    out_a = np.full(moves.size, GAP, np.int16)
+    out_b = np.full(moves.size, GAP, np.int16)
+    out_a[take_a] = sub_a[wm - np.count_nonzero(take_a):wm]
+    out_b[take_b] = sub_b[wn - np.count_nonzero(take_b):wn]
+    return out_a, out_b
 
 
 def walk_from_end(a: np.ndarray, b: np.ndarray, scoring: Scoring,
@@ -479,8 +487,8 @@ def walk_from_end(a: np.ndarray, b: np.ndarray, scoring: Scoring,
     sub_b = np.asarray(b[:end_i])
     ca, cb = _window_walk(sub_a, sub_b, end_i, end_j, scoring, sub,
                           torch.device(device))
-    si = end_i - sum(1 for c in cb if c != GAP) + 1
-    sj = end_j - sum(1 for c in ca if c != GAP) + 1
+    si = end_i - np.count_nonzero(cb != GAP) + 1
+    sj = end_j - np.count_nonzero(ca != GAP) + 1
     loc = Located(int(score), si, sj, end_i, end_j, int(last_cell))
     with profiling.span("swtpu.tb.strings"):
         ra, rb = _render(ca, cb, alphabet)

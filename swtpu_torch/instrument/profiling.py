@@ -41,11 +41,12 @@ host time into named parts.
   ``batch.cells_real`` and ``batch.cells_bucket`` (a ``score_many``
   bucket's m·n summed over its pairs, and its pairs × its padded shape),
   ``batch.seqs_distinct`` (the distinct sequence objects a ``score_many``
-  call uploads, once each, for its 2 × B row slots). The pipeline across
-  ranks (``dist.pipeline``) has ``swtpu.pipe`` and its parts
-  ``swtpu.pipe.plan``, ``.agree``, ``.fill``, ``.halo`` and ``.merge``, and
-  counts ``pipe.stages``, ``pipe.blocks``, ``pipe.halo_bytes`` and
-  ``pipe.block_rows`` once a pass on each rank.
+  call uploads, once each, for its 2 × B row slots), ``tb.columns`` (the
+  columns of an alignment the lean traceback renders, once a rendering).
+  The pipeline across ranks (``dist.pipeline``) has ``swtpu.pipe`` and its
+  parts ``swtpu.pipe.plan``, ``.agree``, ``.fill``, ``.halo`` and
+  ``.merge``, and counts ``pipe.stages``, ``pipe.blocks``,
+  ``pipe.halo_bytes`` and ``pipe.block_rows`` once a pass on each rank.
 - The buffer holds the newest ``MAX_RECORDS`` (2^20) records; older ones
   are dropped and counted (``dropped()``).
 - The clock is ``time.perf_counter_ns()``, the host clock callers time

@@ -22,6 +22,7 @@ from swtpu.engine import traceback as jtb
 from swtpu.kernels.pallas_fill import stripe_block_fn
 from swtpu_torch import Scoring
 from swtpu_torch.convert import substitution_from_jax
+from swtpu_torch.core.config import DIAGONAL, LEFT, UP
 from swtpu_torch.engine import traceback as tb
 from swtpu_torch.kernels import stripe_fill as sf
 
@@ -227,6 +228,156 @@ def test_width_one_passes_match_jax(kind, monkeypatch):
     assert [[-1 if c == tb.GAP else int(c) for c in x] for x in got] == \
         [list(map(int, x)) for x in want]
     assert sf.plain_calls["stripe_block_plain"] > 3
+
+
+# ------------------------------------------ the strings from the moves
+
+def _loop_apply_moves(sub_a, sub_b, wn, wm, moves):
+    """The per-move loop the renderer replaced: end-first moves -> code
+    lists from the corner."""
+    out_a, out_b = [], []
+    i, j = wn, wm
+    for move in moves:
+        if move == DIAGONAL:
+            out_a.append(sub_a[j - 1]); out_b.append(sub_b[i - 1])
+            i -= 1; j -= 1
+        elif move == UP:
+            out_a.append(tb.GAP); out_b.append(sub_b[i - 1]); i -= 1
+        else:
+            out_a.append(sub_a[j - 1]); out_b.append(tb.GAP); j -= 1
+    return out_a[::-1], out_b[::-1]
+
+
+def _loop_render(codes_a, codes_b, alphabet):
+    """The per-code generator the renderer replaced."""
+    unk = "X" if "X" in alphabet else "N"
+
+    def text(codes):
+        return "".join("-" if c == tb.GAP else alphabet[c] if c >= 0
+                       else unk for c in codes)
+
+    return text(codes_a), text(codes_b)
+
+
+def _moves(shape, seed):
+    """End-first moves of one of the shapes the renderer must cover."""
+    D, U, L = DIAGONAL, UP, LEFT
+    rng = np.random.default_rng(seed)
+    fixed = {"up_run": [D] * 3 + [U] * 400 + [D] * 5,
+             "left_run": [D] * 2 + [L] * 500 + [D],
+             "single_diagonal": [D], "single_up": [U], "single_left": [L],
+             "zero": [],
+             "no_diagonal": list(rng.choice([U, L], 300)),
+             "gap_ends": [L] * 4 + list(rng.choice([D, U, L], 200)) + [U]}
+    if shape in fixed:
+        return np.array(fixed[shape], np.int8)
+    return rng.choice([D, U, L], 2000, p=[0.6, 0.2, 0.2]).astype(np.int8)
+
+
+def _sides(moves, alphabet, unknown, seed):
+    """Window sides that the moves fit, with spare letters before the
+    walk's start; negative codes among them when ``unknown``."""
+    rng = np.random.default_rng(seed)
+    wm = int(np.count_nonzero(moves != UP)) + 7
+    wn = int(np.count_nonzero(moves != LEFT)) + 5
+    low = -3 if unknown else 0
+    sub_a = rng.integers(low, len(alphabet), wm).astype(np.int8)
+    sub_b = rng.integers(low, len(alphabet), wn).astype(np.int8)
+    return sub_a, sub_b, wn, wm
+
+
+MOVE_SHAPES = ["random0", "random1", "up_run", "left_run", "single_diagonal",
+               "single_up", "single_left", "no_diagonal", "zero",
+               "gap_ends"]
+
+
+@pytest.mark.parametrize("unknown", [False, True], ids=["known", "unknown"])
+@pytest.mark.parametrize("alphabet", ["ACGT", PROTEIN_ALPHABET],
+                         ids=["dna", "protein"])
+@pytest.mark.parametrize("shape", MOVE_SHAPES)
+def test_moves_render_as_the_loop_does(shape, alphabet, unknown):
+    moves = _moves(shape, seed=MOVE_SHAPES.index(shape))
+    sub_a, sub_b, wn, wm = _sides(moves, alphabet, unknown, seed=len(moves))
+    want = _loop_apply_moves(sub_a, sub_b, wn, wm, moves.tolist())
+    got = tb._apply_moves(sub_a, sub_b, wn, wm, moves)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int16
+        np.testing.assert_array_equal(g, np.array(w, np.int16))
+    ra, rb = tb._render(*got, alphabet)
+    assert type(ra) is str and type(rb) is str
+    assert (ra, rb) == _loop_render(*want, alphabet)
+    assert len(ra) == len(rb) == len(moves)
+    # the walk hands its moves over as a tensor's array or as a list
+    assert all(np.array_equal(g, h) for g, h in zip(got, tb._apply_moves(
+        sub_a, sub_b, wn, wm, moves.tolist())))
+
+
+@pytest.mark.parametrize("form", ["list", "array"])
+@pytest.mark.parametrize("alphabet", ["ACGT", PROTEIN_ALPHABET],
+                         ids=["dna", "protein"])
+def test_render_takes_the_recursions_lists(form, alphabet):
+    # Hirschberg's and Myers-Miller's lists mix int8 scalars and GAP
+    rng = np.random.default_rng(7)
+    codes = rng.integers(-3, len(alphabet), (2, 300)).astype(np.int8)
+    ca = [tb.GAP if k % 7 == 0 else codes[0, k] for k in range(300)]
+    cb = [tb.GAP if k % 5 == 1 else codes[1, k] for k in range(300)]
+    if form == "array":
+        ca, cb = np.array(ca, np.int16), np.array(cb, np.int16)
+    got = tb._render(ca, cb, alphabet)
+    assert all(type(x) is str for x in got)
+    assert got == _loop_render(ca, cb, alphabet)
+    assert tb._render([], [], alphabet) == ("", "")
+
+
+@pytest.mark.parametrize("shape", ["gap_ends", "up_run", "left_run",
+                                   "single_up", "single_left"])
+def test_walk_from_end_start_counts_letters(shape, monkeypatch):
+    # alignments that begin and end in a gap: the start is the end less
+    # the letters each side takes, as the per-element count gives it
+    moves = _moves(shape, seed=3)
+    a, b, wn, wm = _sides(moves, "ACGT", True, seed=11)
+    want_a, want_b = _loop_apply_moves(a, b, wn, wm, moves.tolist())
+    monkeypatch.setattr(tb, "_window_walk", lambda sa, sb, n, m, *r:
+                        tb._apply_moves(sa, sb, n, m, moves))
+    score, loc, ra, rb = tb.walk_from_end(a, b, Scoring(), 9, wn, wm, 4,
+                                          device="cpu")
+    assert (loc.start_i, loc.start_j) == (
+        wn - sum(1 for c in want_b if c != tb.GAP) + 1,
+        wm - sum(1 for c in want_a if c != tb.GAP) + 1)
+    assert (score, loc.end_i, loc.end_j, loc.last_cell) == (9, wn, wm, 4)
+    assert type(loc.start_i) is int and type(loc.start_j) is int
+    assert (ra, rb) == _loop_render(want_a, want_b, "ACGT")
+
+
+def _route(method, a, b, sc, S, alphabet):
+    if method == "windowed":
+        return tb.windowed(a, b, sc, sub=S, alphabet=alphabet, device="cpu")
+    if method == "hirschberg":
+        return tb.hirschberg(a, b, sc, sub=S, alphabet=alphabet,
+                             device="cpu")
+    loc = tb.locate(a, b, sc, S, device="cpu")
+    return tb.walk_from_end(a, b, sc, loc.score, loc.end_i, loc.end_j,
+                            loc.last_cell, alphabet=alphabet, sub=S,
+                            device="cpu")
+
+
+@pytest.mark.parametrize("method", ["windowed", "hirschberg",
+                                    "walk_from_end"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_columns_counted_once_a_rendering(kind, method, tmp_path):
+    from swtpu_torch.instrument import profiling
+    a, b, sc, js, S, jS = _case(kind, seed=4)
+    profiling.clear()
+    _route(method, a, b, sc, S, ALPHA[kind])
+    assert profiling.recorded() == []
+    try:
+        with profiling.trace(str(tmp_path), device="cpu"):
+            got = _route(method, a, b, sc, S, ALPHA[kind])
+        cols = [r for r in profiling.recorded() if r.name == "tb.columns"]
+    finally:
+        profiling.clear()
+    assert [r.value for r in cols] == [len(got[2])] and len(got[2]) > 0
+    assert len(got[2]) == len(got[3])
 
 
 # ------------------------------------------------- K5: the block fill
